@@ -1,0 +1,264 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch port (raytracingengine_tpu_torch).
+
+Builds the CUDA trace kernels from csrc/, checks each against its plain
+PyTorch version on the card, checks the rendered frames against the real
+C++ engine's dump and the pinned goldens, drives the main render path at
+full resolution, and times kernels against plain versions:
+
+  1. device     nvidia-smi name and power limit; exits non-zero without CUDA
+  2. build      nvcc build of csrc/*.cu (sm_90a), with ptxas' register report
+  3. chain      chain_trace vs trace_chain_plain, head box 1920x1080 spp=1 rays
+  4. AA         spp_trace vs spp_trace_plain, head box 1920x1080 spp=8, same seed
+  5. engine     baseline spheres 256^2 vs refbuild/baseline_spheres_256.hdr64
+  6. goldens    head box 128^2 -> aces/simple -> uint8 vs goldens/*.ppm
+  7. main path  render_hdr at 1080p spp=1, 1080p spp=8 and 1000^2 spp=32, with
+                the launch counters reset before and read after; PNGs to out/
+  8. timing     CUDA events after warm-up, kernel and plain version in turns
+
+Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
+except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
+contracts a*b+c into FMAs, plain PyTorch does not, so a ray that grazes an
+edge can pick the other primitive).
+
+Run with no arguments on a machine with one CUDA card:  python3 chip_smoke.py
+Any failed phase raises and the script exits non-zero. The last line is
+{"ok": true, "device": {...}}; the line before it lists each kernel's launch
+count on the main path, error against its plain version, and times.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+W1080, H1080 = 1920, 1080
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false; this smoke test needs a CUDA card")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+    from raytracingengine_tpu_torch.imageio import read_hdr64, read_ppm, write_png
+    from raytracingengine_tpu_torch.kernels import _build
+    from raytracingengine_tpu_torch.kernels import chain_trace as ct
+    from raytracingengine_tpu_torch.kernels import spp_trace as st
+    from raytracingengine_tpu_torch.parity import (
+        golden_ldr_mismatches,
+        reference_frame_stats,
+        seam_budget,
+    )
+    from raytracingengine_tpu_torch.render.config import RenderConfig
+    from raytracingengine_tpu_torch.render.pipeline import render_hdr
+    from raytracingengine_tpu_torch.scenes import baseline_sphere_scene, head_box_scene
+    from raytracingengine_tpu_torch.tonemap import to_uint8, tonemap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize
+
+    # 1. device
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[1 device] {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}",
+          flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path, log = _build.build()
+    _build.load_library()
+    print(f"[2 build] {time.perf_counter() - t0:.2f} s -> {lib_path.relative_to(ROOT)}", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  {line.strip()}")
+
+    def cfg_for(width: int, height: int) -> RenderConfig:
+        return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
+
+    def budget(name: str, ours: torch.Tensor, ref: torch.Tensor):
+        report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+        ok = report.ok and bool(torch.isfinite(ours).all())
+        print(f"  {'PASS' if ok else 'FAIL'} {name}: {report}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: {report}")
+        return report
+
+    # 3. chain kernel vs plain at the main path's shapes
+    scene, cam = head_box_scene(width=W1080, height=H1080, spp=1, device=dev)
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    cfg = cfg_for(W1080, H1080)
+    px, py = cam.pixel_grid()
+    o, d = cam.rays_for_pixels(px, py)
+    o = o.contiguous()
+    chain_out = ct.chain_trace(tables, o, d, cfg)
+    sync()
+    chain_ref = ct.trace_chain_plain(tables, o, d, cfg)
+    sync()
+    print("[3 chain] head box 1920x1080 spp=1", flush=True)
+    chain_report = budget("chain_trace vs trace_chain_plain", chain_out, chain_ref)
+
+    # 4. AA kernel vs plain, same seed -> same jitter bits
+    _, cam8 = head_box_scene(width=W1080, height=H1080, spp=8, device=dev)
+    spp_out = st.spp_trace(tables, cam8, px, py, cfg, seed=1234)
+    sync()
+    spp_ref = st.spp_trace_plain(tables, cam8, px, py, cfg, seed=1234)
+    sync()
+    print("[4 AA] head box 1920x1080 spp=8 seed=1234", flush=True)
+    spp_report = budget("spp_trace vs spp_trace_plain", spp_out, spp_ref)
+    del chain_ref, spp_ref
+
+    # 5. the real C++ engine's frame
+    ref = read_hdr64(str(ROOT / "refbuild" / "baseline_spheres_256.hdr64"))
+    s_scene, s_cam = baseline_sphere_scene(256, 256, spp=1, device=dev)
+    img = render_hdr(s_scene, s_cam, cfg_for(256, 256))
+    sync()
+    p999, bad_frac = reference_frame_stats(img.cpu().numpy(), ref)
+    ok = p999 < 5e-5 and bad_frac == 0.0
+    print(f"[5 engine] baseline_spheres_256 vs C++ engine: p99.9 HDR diff {p999:.3e} "
+          f"(< 5e-5), LDR subpixels >1 byte off {bad_frac:.3e} (0) -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("baseline_spheres_256 outside the reference-parity budget")
+
+    # 6. golden bytes through the kernel
+    g_scene, g_cam = head_box_scene(width=128, height=128, spp=1, device=dev)
+    g_hdr = render_hdr(g_scene, g_cam, cfg_for(128, 128))
+    sync()
+    for op in ("aces", "simple"):
+        gold = read_ppm(str(ROOT / "goldens" / f"head_box_128_{op}.ppm"))
+        ours = to_uint8(tonemap(g_hdr, op)).cpu().numpy()
+        errors = golden_ldr_mismatches(ours, gold)
+        n_seam = int((np.abs(ours.astype(int) - gold.astype(int)).max(axis=2) > 1).sum())
+        print(f"[6 goldens] head_box_128_{op}: {n_seam} seam-tie pixels -> "
+              f"{'PASS' if not errors else 'FAIL ' + '; '.join(errors[:5])}", flush=True)
+        if errors:
+            raise AssertionError(f"head_box_128_{op}: {errors}")
+
+    # 7. the main path, as a user calls it
+    main_cells = [(W1080, H1080, 1), (W1080, H1080, 8), (1000, 1000, 32)]
+    out_dir = ROOT / "out"
+    out_dir.mkdir(exist_ok=True)
+    sync()
+    ct.chain_trace.launches = 0
+    st.spp_trace.launches = 0
+    frames = {}
+    for w, h, spp in main_cells:
+        m_scene, m_cam = head_box_scene(width=w, height=h, spp=spp, device=dev)
+        t0 = time.perf_counter()
+        hdr = render_hdr(m_scene, m_cam, cfg_for(w, h), seed=2024)
+        sync()
+        frames[(w, h, spp)] = (hdr, time.perf_counter() - t0)
+    launches = {"chain_trace": ct.chain_trace.launches, "spp_trace": st.spp_trace.launches}
+    print(f"[7 main path] launches {launches}", flush=True)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    for (w, h, spp), (hdr, secs) in frames.items():
+        ldr = to_uint8(tonemap(hdr, "aces")).cpu().numpy()
+        # The box fills the center (blue); the top edge's center is the white
+        # ceiling (grey) at every aspect ratio, where a corner at 16:9 is a
+        # colored side wall.
+        center, top = ldr[h // 2, w // 2].astype(int), ldr[2, w // 2].astype(int)
+        finite = bool(torch.isfinite(hdr).all())
+        blue = center[2] > max(center[0], center[1]) + 20
+        grey = top.max() - top.min() <= 4 and top.min() > 32
+        path = out_dir / f"head_box_{w}x{h}_spp{spp}.png"
+        write_png(str(path), ldr)
+        ok = finite and blue and grey and hdr.shape == (h, w, 3)
+        print(f"  {'PASS' if ok else 'FAIL'} head box {w}x{h} spp={spp}: first call "
+              f"{secs * 1e3:.1f} ms, finite={finite}, mean {float(hdr.mean()):.4f}, "
+              f"center {center.tolist()} (blue), top {top.tolist()} (grey) "
+              f"-> {path.relative_to(ROOT)}", flush=True)
+        if not ok:
+            raise AssertionError(f"main path render {w}x{h} spp={spp} failed its checks")
+    del frames, hdr
+
+    # 8. timing: CUDA events around `iters` calls after one warm-up call
+    def time_ms(fn, iters: int) -> float:
+        fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def in_turns(kernel, plain, k_iters: int, p_iters: int):
+        """plain, kernel, kernel, plain -> (kernel ms, plain ms), each the
+        mean of its two turns."""
+        p1 = time_ms(plain, p_iters)
+        k1 = time_ms(kernel, k_iters)
+        k2 = time_ms(kernel, k_iters)
+        p2 = time_ms(plain, p_iters)
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    def report(label: str, ms: float, rays: int) -> None:
+        print(f"  {label}: {ms:.3f} ms/frame, {rays / ms / 1e3:.1f} Mrays/s [{card}]", flush=True)
+
+    print("[8 timing]", flush=True)
+    rays1 = W1080 * H1080
+    chain_ms, chain_plain_ms = in_turns(
+        lambda: ct.chain_trace(tables, o, d, cfg),
+        lambda: ct.trace_chain_plain(tables, o, d, cfg), 20, 3,
+    )
+    report("chain_trace kernel, 1080p spp=1", chain_ms, rays1)
+    report("trace_chain_plain, 1080p spp=1", chain_plain_ms, rays1)
+    spp_ms, spp_plain_ms = in_turns(
+        lambda: st.spp_trace(tables, cam8, px, py, cfg, seed=1234),
+        lambda: st.spp_trace_plain(tables, cam8, px, py, cfg, seed=1234), 10, 1,
+    )
+    report("spp_trace kernel, 1080p spp=8", spp_ms, rays1 * 8)
+    report("spp_trace_plain, 1080p spp=8", spp_plain_ms, rays1 * 8)
+    _, cam32 = head_box_scene(width=1000, height=1000, spp=32, device=dev)
+    px32, py32 = cam32.pixel_grid()
+    spp32_ms = time_ms(lambda: st.spp_trace(tables, cam32, px32, py32, cfg, seed=7), 5)
+    report("spp_trace kernel, 1000x1000 spp=32", spp32_ms, 1000 * 1000 * 32)
+    for w, h, spp in main_cells:
+        m_scene, m_cam = head_box_scene(width=w, height=h, spp=spp, device=dev)
+        ms = time_ms(lambda: render_hdr(m_scene, m_cam, cfg_for(w, h), seed=2024), 5)
+        report(f"render_hdr end to end, head box {w}x{h} spp={spp}", ms, w * h * spp)
+
+    kernels = [
+        {"name": "chain_trace", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/chain_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/chain_trace.py:1401",
+         "launches": launches["chain_trace"], "max_abs_err": chain_report.max_abs,
+         "ms": chain_ms, "plain_ms": chain_plain_ms},
+        {"name": "spp_trace", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/spp_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/spp_trace.py:109",
+         "launches": launches["spp_trace"], "max_abs_err": spp_report.max_abs,
+         "ms": spp_ms, "plain_ms": spp_plain_ms},
+    ]
+    print(f"seam-flip pixels: chain_trace {chain_report.flips}/{chain_report.pixels}, "
+          f"spp_trace {spp_report.flips}/{spp_report.pixels}")
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""raytracingengine_tpu_torch: the Whitted ray tracer in PyTorch, with
+hand-written CUDA kernels for the H100 (sm_90a).
+
+The port of the JAX package `raytracingengine_tpu`, which stays the
+reference. This slice renders opaque scenes with binary shadows end to
+end: scene -> camera rays -> chain trace (spp=1) or in-kernel AA (spp>1)
+-> HDR -> tonemap -> uint8 -> PPM/PNG. It imports torch and numpy only.
+"""
+
+from raytracingengine_tpu_torch.core.camera import Camera
+from raytracingengine_tpu_torch.geometry.materials import Material
+from raytracingengine_tpu_torch.render.config import RenderConfig
+from raytracingengine_tpu_torch.render.pipeline import render_hdr, render_rays
+from raytracingengine_tpu_torch.scene import Scene, SceneBuilder
+
+__all__ = [
+    "Camera",
+    "Material",
+    "RenderConfig",
+    "Scene",
+    "SceneBuilder",
+    "render_hdr",
+    "render_rays",
+]

@@ -1,0 +1,30 @@
+"""Reader for HDR frames dumped by the real reference engine.
+
+refbuild/parity_main.cpp links the unmodified reference headers, renders
+deterministic spp=1 frames and writes raw fp64 HDR as
+
+    b"RTEHDR1\\n"  int32 width  int32 height  width*height*3 float64 (RGB)
+
+row-major with idx = y*width + x (Scene.h:321-324).
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+MAGIC = b"RTEHDR1\n"
+
+
+def read_hdr64(path: str) -> np.ndarray:
+    """-> float64 [H, W, 3] HDR image."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+        if magic != MAGIC:
+            raise ValueError(f"{path}: bad magic {magic!r}")
+        w, h = struct.unpack("<ii", f.read(8))
+        data = np.frombuffer(f.read(w * h * 3 * 8), dtype="<f8")
+    if data.size != w * h * 3:
+        raise ValueError(f"{path}: truncated ({data.size} != {w * h * 3})")
+    return data.reshape(h, w, 3)

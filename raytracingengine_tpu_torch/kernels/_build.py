@@ -1,0 +1,115 @@
+"""Build the CUDA trace kernels with nvcc and load them with ctypes.
+
+The sources in ../csrc are compiled at first use into one shared library
+with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o <lib> chain_trace.cu spp_trace.cu
+
+No fast-math flags: the kernels are fp32 with IEEE division and square
+root, like the reference. The library goes to build/raytracingengine_tpu_torch/
+at the repository root, named by a hash of the sources and flags, so an
+edit rebuilds and an unchanged tree reuses the previous build. Every C
+entry point returns cudaGetLastError() after its launch; `check` raises
+if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("chain_trace.cu", "spp_trace.cu")
+HEADERS = ("trace_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracingengine_tpu_torch"
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: Per table: pointer, column count, primitive count (light: pointer,
+#: columns, count; mat: pointer, columns).
+_TABLE_ARGTYPES = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I]
+_TRACE_ARGTYPES = [_I, _F, _F, _P]  # max_depth, bias, min_weight, stream
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
+    )
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and at {path})")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"librte_trace-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the library if it is not built yet -> (path, compiler log).
+
+    The log holds ptxas' register and spill report; it is empty when the
+    library was already built."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's types."""
+    path, _log = build()
+    lib = ctypes.CDLL(str(path))
+    lib.rte_chain_trace.argtypes = _TABLE_ARGTYPES + [_P, _P, _P, _I] + _TRACE_ARGTYPES
+    lib.rte_chain_trace.restype = _I
+    lib.rte_spp_trace.argtypes = (
+        _TABLE_ARGTYPES + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32]
+        + _TRACE_ARGTYPES
+    )
+    lib.rte_spp_trace.restype = _I
+    lib.rte_error_string.argtypes = [_I]
+    lib.rte_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def table_args(tables) -> list:
+    """The C calling convention of a SceneTables (see csrc/trace_common.cuh)."""
+    return [
+        tables.sph.data_ptr(), tables.sph.shape[1], tables.n_spheres,
+        tables.pl.data_ptr(), tables.pl.shape[1], tables.n_planes,
+        tables.tri.data_ptr(), tables.tri.shape[1], tables.n_triangles,
+        tables.mat.data_ptr(), tables.mat.shape[1],
+        tables.light.data_ptr(), tables.light.shape[1], tables.n_lights,
+    ]
+
+
+def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.rte_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")

@@ -1,0 +1,48 @@
+"""Render configuration: the same fields and defaults as the JAX package.
+
+The reference hard-codes these: maxRecursion=10 (Scene.h:24), bias=1e-3
+(Scene.h:291), shadow-march safety=64 and min-transmittance 1e-4
+(Scene.h:39-42). Fields that this package does not implement yet are kept
+so a configuration means the same in both packages; the pipeline raises
+NotImplementedError for them (render/pipeline.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    #: Whitted recursion limit (depth >= max_depth returns sky, Scene.h:132-134).
+    max_depth: int = 10
+    #: Shadow/secondary-ray offset bias (Scene.h:291).
+    bias: float = 1e-3
+    #: Transmittance march: max steps (Scene.h:39) and early-exit threshold
+    #: (Scene.h:42).
+    shadow_max_steps: int = 64
+    shadow_min_t: float = 1e-4
+    #: Integrator: 'auto' picks 'chain' for opaque scenes and 'wavefront'
+    #: when any material transmits; either can be forced.
+    mode: str = "auto"
+    #: Wavefront mode: max nodes of the recursion tree per pixel; None ->
+    #: min(2^(max_depth+1), 4096).
+    wavefront_budget: int | None = None
+    #: Shadow visibility: 'march' (the reference's transmittance march),
+    #: 'binary' (one any-hit pass; identical to the march on opaque
+    #: scenes) or 'soft' (sigmoid visibility).
+    shadow_mode: str = "march"
+    #: Soft-shadow smoothing width (world units).
+    soft_sigma: float = 0.05
+    #: Differentiable sphere silhouettes on the primary bounce.
+    soft_primary: bool = False
+    #: Fixed-trip loops for reverse-mode differentiation.
+    differentiable: bool = False
+    #: Terminate reflection chains whose accumulated path weight falls
+    #: below this; pruning at 1e-8 keeps HDR output within ~3e-6 of the
+    #: trace-everything reference. 0.0 traces every bounce.
+    min_weight: float = 1e-8
+    #: Rays (pixels) per launch of the trace.
+    chunk_size: int = 16384
+    #: Use the hand-written trace kernels (kernels/) where they apply.
+    use_pallas: bool = False

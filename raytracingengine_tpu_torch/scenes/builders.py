@@ -1,0 +1,109 @@
+"""Standard scenes: the reference's HEAD scene and the baseline spheres.
+
+`head_box_scene` rebuilds main() (RaytracingEngine.cpp:216-290): camera at
+(0,0,-25) with focal 500 px and near/far 0/200, a box mesh at (0,0,10)
+with a blue specular material, five axis-aligned planes at distance 15
+forming an open Cornell-like box (white/green/blue/white/white, specular
+0.01, shininess 0.128, refractive index 1.5), and two white point lights
+of intensity 150 at (0,0,-5) and (-2,2,-5).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracingengine_tpu_torch.core.camera import Camera
+from raytracingengine_tpu_torch.geometry.materials import Material
+from raytracingengine_tpu_torch.scene import Scene, SceneBuilder
+from raytracingengine_tpu_torch.scenes.assets import cube_mesh
+
+#: Plane set from RaytracingEngine.cpp:253-284.
+_PLANE_NORMALS = [
+    (0, 0, -1),
+    (1, 0, 0),
+    (-1, 0, 0),
+    (0, 1, 0),
+    (0, -1, 0),
+]
+_PLANE_COLORS = [
+    (1, 1, 1),
+    (0, 1, 0),
+    (0, 0, 1),
+    (1, 1, 1),
+    (1, 1, 1),
+]
+
+
+def _add_cornell_planes(b: SceneBuilder, distance: float = 15.0) -> None:
+    for n, c in zip(_PLANE_NORMALS, _PLANE_COLORS):
+        mat = Material(
+            color=c, shininess=0.128, specular=0.01, transparency=0.0,
+            refractive_index=1.5,
+        )
+        point = tuple(-distance * x for x in n)
+        b.add_plane(point, n, mat)
+
+
+def head_box_scene(
+    width: int = 1000,
+    height: int = 1000,
+    spp: int = 32,
+    dtype=torch.float32,
+    pad_multiple: int | None = None,
+    device: torch.device | str = "cpu",
+) -> tuple[Scene, Camera]:
+    """The HEAD main() scene (RaytracingEngine.cpp:216-290), with the
+    missing box.obj replaced by a procedural cube (scenes/assets.py)."""
+    b = SceneBuilder()
+    box_mat = Material(
+        color=(0, 0, 1), shininess=128.0, specular=0.5, transparency=0.0,
+        refractive_index=1.5,
+    )
+    verts, idx = cube_mesh(size=4.0)
+    b.add_model(verts, idx, box_mat, translation=(0, 0, 10))
+    _add_cornell_planes(b)
+    b.add_light((0, 0, -5), (1, 1, 1), 150.0)
+    b.add_light((-2, 2, -5), (1, 1, 1), 150.0)
+    scene = b.build(dtype=dtype, pad_multiple=pad_multiple, device=device)
+    camera = Camera.create(
+        (0, 0, -25), focal=500.0, width=width, height=height, near=0.0,
+        far=200.0, spp=spp, dtype=dtype, device=device,
+    )
+    return scene, camera
+
+
+def baseline_sphere_scene(
+    width: int = 256,
+    height: int = 256,
+    spp: int = 1,
+    n_lights: int = 1,
+    dtype=torch.float32,
+    pad_multiple: int | None = None,
+    device: torch.device | str = "cpu",
+) -> tuple[Scene, Camera]:
+    """BASELINE config #1: spheres + plane + point light(s)."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, 6.0), 2.0, Material(color=(0.8, 0.2, 0.2)))
+    b.add_sphere(
+        (-3.0, -1.0, 9.0), 1.0,
+        Material(color=(0.2, 0.8, 0.2), specular=0.3, shininess=64.0),
+    )
+    b.add_sphere(
+        (3.0, 1.0, 8.0), 1.5,
+        Material(color=(0.2, 0.2, 0.8), specular=0.05, shininess=16.0),
+    )
+    b.add_plane((0.0, -2.5, 0.0), (0.0, 1.0, 0.0), Material(color=(0.9, 0.9, 0.9)))
+    lights = [
+        ((0.0, 6.0, -2.0), 80.0),
+        ((-5.0, 4.0, 2.0), 50.0),
+        ((5.0, 4.0, 2.0), 50.0),
+        ((0.0, 8.0, 8.0), 60.0),
+    ]
+    for (pos, inten) in lights[:n_lights]:
+        b.add_light(pos, (1, 1, 1), inten)
+    scene = b.build(dtype=dtype, pad_multiple=pad_multiple, device=device)
+    camera = Camera.create(
+        (0, 0, -10), focal=float(width), width=width, height=height,
+        near=0.0, far=100.0, spp=spp, dtype=dtype, device=device,
+    )
+    return scene, camera
