@@ -30,7 +30,7 @@ def scene_from_numpy(
     leaves: dict[str, np.ndarray],
     *,
     has_transparency: bool,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Scene:
     t = lambda key: _tensor(leaves, key, device)
 
@@ -80,7 +80,7 @@ def camera_from_numpy(
     width: int,
     height: int,
     spp: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Camera:
     t = lambda key: _tensor(leaves, key, device)
     return Camera(

@@ -40,7 +40,7 @@ class Camera:
         far: float = 1000.0,
         spp: int = 32,
         dtype=torch.float32,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "Camera":
         t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
         return Camera(

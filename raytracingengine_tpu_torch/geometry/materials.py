@@ -36,7 +36,7 @@ class Materials:
 
     @staticmethod
     def stack(
-        mats: list[Material], dtype=torch.float32, device: torch.device | str = "cpu"
+        mats: list[Material], dtype=torch.float32, device: torch.device | str = "cuda"
     ) -> "Materials":
         n = len(mats)
         t = lambda vals: torch.tensor(vals, dtype=dtype, device=device)

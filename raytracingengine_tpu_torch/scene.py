@@ -120,7 +120,7 @@ class SceneBuilder:
         self,
         dtype=torch.float32,
         pad_multiple: int | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> Scene:
         default_mat = Material()
 

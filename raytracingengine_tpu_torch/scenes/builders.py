@@ -50,7 +50,7 @@ def head_box_scene(
     spp: int = 32,
     dtype=torch.float32,
     pad_multiple: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[Scene, Camera]:
     """The HEAD main() scene (RaytracingEngine.cpp:216-290), with the
     missing box.obj replaced by a procedural cube (scenes/assets.py)."""
@@ -79,7 +79,7 @@ def baseline_sphere_scene(
     n_lights: int = 1,
     dtype=torch.float32,
     pad_multiple: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[Scene, Camera]:
     """BASELINE config #1: spheres + plane + point light(s)."""
     b = SceneBuilder()

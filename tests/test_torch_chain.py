@@ -43,7 +43,7 @@ SCENES = {
 
 
 def port_trace(fn, size, cfg=CFG, **kw):
-    scene, cam = getattr(builders, fn)(width=size, height=size, spp=1, **kw)
+    scene, cam = getattr(builders, fn)(width=size, height=size, spp=1, device="cpu", **kw)
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     tables = pack_scene_tables(flatten_scene(scene))
     return trace_chain_plain(tables, o, d, cfg).numpy()
@@ -98,7 +98,7 @@ def test_chain_plain_matches_pallas_kernel(interpret_mode):
     j_scene, j_cam = jax_builders.head_box_scene(width=16, height=16, spp=1)
     o, d = j_cam.rays_for_pixels(*j_cam.pixel_grid())
     ref = np.asarray(jct.chain_trace_pallas(jax_flatten(j_scene), o, d, JAX_CFG))
-    scene, _ = builders.head_box_scene(width=16, height=16, spp=1)
+    scene, _ = builders.head_box_scene(width=16, height=16, spp=1, device="cpu")
     tables = pack_scene_tables(flatten_scene(scene))
     ours = chain_trace(
         tables, torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d)), CFG
@@ -117,7 +117,7 @@ def test_chain_plain_on_seeded_rays():
     ref = np.asarray(jax.jit(
         lambda: integrate_chain(jax_flatten(j_scene), jnp.asarray(o), jnp.asarray(d), JAX_CFG)
     )())
-    scene, _ = builders.head_box_scene(width=8, height=8, spp=1)
+    scene, _ = builders.head_box_scene(width=8, height=8, spp=1, device="cpu")
     ours = trace_chain_plain(
         pack_scene_tables(flatten_scene(scene)), torch.from_numpy(o), torch.from_numpy(d), CFG
     ).numpy()

@@ -28,9 +28,9 @@ CFG = RenderConfig(shadow_mode="binary", use_pallas=True)
 SIZE = 128
 
 SCENES = {
-    "head_box": lambda: builders.head_box_scene(width=SIZE, height=SIZE, spp=1),
+    "head_box": lambda: builders.head_box_scene(width=SIZE, height=SIZE, spp=1, device="cpu"),
     "baseline_spheres": lambda: builders.baseline_sphere_scene(
-        width=SIZE, height=SIZE, spp=1, n_lights=2
+        width=SIZE, height=SIZE, spp=1, n_lights=2, device="cpu"
     ),
 }
 
@@ -55,7 +55,7 @@ def test_render_matches_pinned_golden(hdr_frames, scene_name, op):
 
 def test_baseline_spheres_vs_real_engine():
     ref = read_hdr64(os.path.join(REPO, "refbuild", "baseline_spheres_256.hdr64"))
-    scene, cam = builders.baseline_sphere_scene(256, 256, spp=1)
+    scene, cam = builders.baseline_sphere_scene(256, 256, spp=1, device="cpu")
     img = render_hdr(scene, cam, CFG).numpy()
     p999, bad_frac = reference_frame_stats(img, ref)
     print(f"baseline_spheres_256: p99.9 HDR diff {p999:.2e}, bad LDR subpixels {bad_frac:.2e}")

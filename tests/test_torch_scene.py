@@ -74,7 +74,7 @@ def assert_same_leaves(ours: dict, ref: dict):
 def build_pair(name):
     spec = SCENES[name]
     j_scene, j_cam = getattr(jax_builders, spec["fn"])(**spec["kw"])
-    t_scene, t_cam = getattr(builders, spec["fn"])(**spec["kw"])
+    t_scene, t_cam = getattr(builders, spec["fn"])(**spec["kw"], device="cpu")
     return (j_scene, j_cam), (t_scene, t_cam)
 
 
@@ -91,7 +91,8 @@ def test_scene_builders_match_jax(name):
     )
     assert_same_leaves(torch_leaves(carried), jax_leaves(j_scene))
     cam = camera_from_numpy(
-        jax_leaves(j_cam), width=j_cam.width, height=j_cam.height, spp=j_cam.spp
+        jax_leaves(j_cam), width=j_cam.width, height=j_cam.height, spp=j_cam.spp,
+        device="cpu",
     )
     assert_same_leaves(torch_leaves(cam), jax_leaves(j_cam))
 
@@ -116,13 +117,15 @@ def test_flatten_and_tables_match_jax(name):
 
 
 def test_padded_slots_are_degenerate():
-    scene, _ = builders.baseline_sphere_scene(width=8, height=8, n_lights=2, pad_multiple=8)
+    scene, _ = builders.baseline_sphere_scene(
+        width=8, height=8, n_lights=2, pad_multiple=8, device="cpu"
+    )
     t = pack_scene_tables(flatten_scene(scene))
     assert t.n_spheres == 8 and t.n_lights == 8
     assert (t.sph[3, 3:] == -1.0).all()  # r^2 = -1: never hits
     assert (t.pl[:3, 1:] == 0.0).all()  # n = 0: never hits
     assert (t.light[:3, 2:] == 1.0e7).all() and (t.light[3:6, 2:] == 0.0).all()
-    head, _ = builders.head_box_scene(width=8, height=8)
+    head, _ = builders.head_box_scene(width=8, height=8, device="cpu")
     h = pack_scene_tables(flatten_scene(head))
     assert h.n_spheres == 0 and h.sph.shape == (4, 1) and (h.sph == 0).all()
 
@@ -176,7 +179,7 @@ def test_vecmath_matches_jax(fn):
 
 def test_materials_stack_and_concat_match_jax():
     specs = [dict(color=(0.1, 0.2, 0.3), specular=0.5), dict(shininess=0.128), {}]
-    ours = Materials.concat([Materials.stack([Material(**s)]) for s in specs] + [Materials.stack([])])
+    ours = Materials.concat([Materials.stack([Material(**s)], device="cpu") for s in specs] + [Materials.stack([], device="cpu")])
     ref = JaxMaterials.concat([JaxMaterials.stack([JaxMaterial(**s)]) for s in specs])
     assert len(ours) == 3
     assert_same_leaves(torch_leaves(ours), jax_leaves(ref))

@@ -45,7 +45,7 @@ JAX_CFG = JaxConfig(shadow_mode="binary")
 def test_spp_plain_with_given_jitter_matches_jax(fn):
     """(d) spp=4 at 16x16 with one seeded jitter array [spp, R, 2]."""
     spp, size = 4, 16
-    scene, cam = getattr(builders, fn)(width=size, height=size, spp=spp)
+    scene, cam = getattr(builders, fn)(width=size, height=size, spp=spp, device="cpu")
     r = cam.num_pixels
     jitter = np.random.default_rng(11).random((spp, r, 2), dtype=np.float32)
     jitter[0] = 0.0  # sample 0 is the unjittered center ray
@@ -78,7 +78,7 @@ def test_spp_render_statistically_matches_jax():
     AA estimates of one image, so the same statistical bounds as the JAX
     in-kernel sampler's test against the center render."""
     size = 24
-    scene, cam = builders.baseline_sphere_scene(width=size, height=size, spp=8)
+    scene, cam = builders.baseline_sphere_scene(width=size, height=size, spp=8, device="cpu")
     a = render_hdr(scene, cam, CFG, seed=3).numpy()
     b = render_hdr(scene, cam, CFG, seed=3).numpy()
     np.testing.assert_array_equal(a, b)  # deterministic per seed
@@ -128,14 +128,14 @@ def test_philox_known_answer():
 
 def test_spp_render_is_chunking_independent():
     """The jitter is keyed on the pixel id, so chunking changes nothing."""
-    scene, cam = builders.head_box_scene(width=20, height=12, spp=3)
+    scene, cam = builders.head_box_scene(width=20, height=12, spp=3, device="cpu")
     whole = render_hdr(scene, cam, CFG, seed=5).numpy()
     chunked = render_hdr(scene, cam, dataclasses.replace(CFG, chunk_size=37), seed=5).numpy()
     np.testing.assert_allclose(chunked, whole, rtol=0, atol=1e-6)
 
 
 def test_spp_wrapper_routes_cpu_to_plain():
-    scene, cam = builders.head_box_scene(width=8, height=8, spp=2)
+    scene, cam = builders.head_box_scene(width=8, height=8, spp=2, device="cpu")
     tables = pack_scene_tables(flatten_scene(scene))
     px, py = cam.pixel_grid()
     before = spp_trace.launches
