@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (raytracingengine_tpu_torch).
 
-Builds the CUDA trace kernels from csrc/, checks each against its plain
-PyTorch version on the card, checks the rendered frames against the real
-C++ engine's dump and the pinned goldens, drives the main render path at
-full resolution, and times kernels against plain versions:
+Builds the CUDA kernels from csrc/, checks each against its plain PyTorch
+version on the card, checks the rendered frames against the real C++
+engine's dump and the pinned goldens, drives the main render path and the
+training step at full resolution, and times kernels against plain versions:
 
   1. device     nvidia-smi name and power limit; exits non-zero without CUDA
   2. build      nvcc build of csrc/*.cu (sm_90a), with ptxas' register report
@@ -14,12 +14,23 @@ full resolution, and times kernels against plain versions:
   6. goldens    head box 128^2 -> aces/simple -> uint8 vs goldens/*.ppm
   7. main path  render_hdr at 1080p spp=1, 1080p spp=8 and 1000^2 spp=32, with
                 the launch counters reset before and read after; PNGs to out/
-  8. timing     CUDA events after warm-up, kernel and plain version in turns
+  8. timing     CUDA events after warm-up, kernel and plain version in turns;
+                each kernel's roofline bound from this run's work counts
+  9. grad       chain_grad vs chain_grad_plain, head box 1920x1080 with the main
+                path's camera, g = d mean(img^2) / d img; run-to-run spread
+ 10. train      the training step of bench.py:95-124 through the entry points:
+                head box 1920x1080, partition -> make_train_step with
+                torch.optim.SGD(lr=1e-6) on mean(img^2), 8 steps, the launch
+                counters reset before and read after; then its time per step
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
 contracts a*b+c into FMAs, plain PyTorch does not, so a ray that grazes an
-edge can pick the other primitive).
+edge can pick the other primitive). The adjoint's ray cotangents take the
+same pixel budget at atol 1e-3 of the largest plain entry; each table
+cotangent must lie within 2e-3 of its table's largest plain entry (fp32
+sums over 2M rays in another order, shared-memory atomics, and the rays of
+the flipped pixels, each one ray's share of a sum over ~10^5 rays).
 
 Run with no arguments on a machine with one CUDA card:  python3 chip_smoke.py
 Any failed phase raises and the script exits non-zero. The last line is
@@ -48,6 +59,8 @@ def card_line() -> str:
 
 
 def main() -> int:
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -57,7 +70,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
     from raytracingengine_tpu_torch.imageio import read_hdr64, read_ppm, write_png
+    from raytracingengine_tpu_torch.inverse import make_train_step, partition
     from raytracingengine_tpu_torch.kernels import _build
+    from raytracingengine_tpu_torch.kernels import chain_grad as cg
     from raytracingengine_tpu_torch.kernels import chain_trace as ct
     from raytracingengine_tpu_torch.kernels import spp_trace as st
     from raytracingengine_tpu_torch.parity import (
@@ -67,6 +82,7 @@ def main() -> int:
     )
     from raytracingengine_tpu_torch.render.config import RenderConfig
     from raytracingengine_tpu_torch.render.pipeline import render_hdr
+    from raytracingengine_tpu_torch.roofline import ChainWork, bound_ms, chain_work, table_bytes
     from raytracingengine_tpu_torch.scenes import baseline_sphere_scene, head_box_scene
     from raytracingengine_tpu_torch.tonemap import to_uint8, tonemap
 
@@ -94,8 +110,8 @@ def main() -> int:
     def cfg_for(width: int, height: int) -> RenderConfig:
         return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
 
-    def budget(name: str, ours: torch.Tensor, ref: torch.Tensor):
-        report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+    def budget(name: str, ours: torch.Tensor, ref: torch.Tensor, atol: float = 1e-4):
+        report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy(), atol=atol)
         ok = report.ok and bool(torch.isfinite(ours).all())
         print(f"  {'PASS' if ok else 'FAIL'} {name}: {report}", flush=True)
         if not ok:
@@ -115,6 +131,7 @@ def main() -> int:
     sync()
     print("[3 chain] head box 1920x1080 spp=1", flush=True)
     chain_report = budget("chain_trace vs trace_chain_plain", chain_out, chain_ref)
+    del chain_ref
 
     # 4. AA kernel vs plain, same seed -> same jitter bits
     _, cam8 = head_box_scene(width=W1080, height=H1080, spp=8, device=dev)
@@ -124,7 +141,7 @@ def main() -> int:
     sync()
     print("[4 AA] head box 1920x1080 spp=8 seed=1234", flush=True)
     spp_report = budget("spp_trace vs spp_trace_plain", spp_out, spp_ref)
-    del chain_ref, spp_ref
+    del spp_ref
 
     # 5. the real C++ engine's frame
     ref = read_hdr64(str(ROOT / "refbuild" / "baseline_spheres_256.hdr64"))
@@ -191,6 +208,75 @@ def main() -> int:
             raise AssertionError(f"main path render {w}x{h} spp={spp} failed its checks")
     del frames, hdr
 
+    # 9. the adjoint kernel vs its plain version, at the main path's camera
+    print("[9 grad] head box 1920x1080 spp=1, g = d mean(img^2) / d img", flush=True)
+    g = (2.0 * chain_out / chain_out.numel()).contiguous()
+    grad_out = cg.chain_grad(tables, o, d, g, cfg)
+    sync()
+    t0 = time.perf_counter()
+    grad_ref = cg.chain_grad_plain(tables, o, d, g, cfg)
+    sync()
+    print(f"  chain_grad_plain first call {time.perf_counter() - t0:.2f} s", flush=True)
+    grad_rerun = cg.chain_grad(tables, o, d, g, cfg)
+    sync()
+    cot_reports = {}
+    for name, ours, ref in (("d_o", grad_out[1], grad_ref[1]), ("d_d", grad_out[2], grad_ref[2])):
+        scale = float(ref.abs().max())
+        cot_reports[name] = budget(f"chain_grad {name} vs plain", ours, ref, atol=1e-3 * scale)
+    grad_err = max(r.max_abs for r in cot_reports.values())
+    for name, ours, ref in zip(("sph", "pl", "tri", "mat", "light"), grad_out[0], grad_ref[0]):
+        err, scale = float((ours - ref).abs().max()), float(ref.abs().max())
+        ok = err <= 2e-3 * scale and bool(torch.isfinite(ours).all())
+        grad_err = max(grad_err, err)
+        print(f"  {'PASS' if ok else 'FAIL'} table {name} {tuple(ours.shape)}: max|diff| "
+              f"{err:.3e} <= 2e-3 * max|plain| {scale:.3e}", flush=True)
+        if not ok:
+            raise AssertionError(f"chain_grad table {name}: {err} > 2e-3 * {scale}")
+    spread = max(float((a - b).abs().max()) for a, b in zip(
+        (*grad_out[0], grad_out[1], grad_out[2]), (*grad_rerun[0], grad_rerun[1], grad_rerun[2])))
+    print(f"  run-to-run max|diff| of two chain_grad calls (shared-memory atomics): {spread:.3e}",
+          flush=True)
+    del grad_ref, grad_rerun
+
+    # 10. the training step, as a user calls it (bench.py:95-124)
+    print("[10 train] head box 1920x1080 spp=1, SGD(lr=1e-6) on mean(img^2), 8 steps", flush=True)
+    t_scene, t_cam = head_box_scene(width=W1080, height=H1080, spp=1, device=dev)
+    params, static = partition(t_scene)
+    focal = t_cam.focal.clone().requires_grad_(True)  # the camera trains too
+    t_cam = dataclasses.replace(t_cam, focal=focal)
+    opt = torch.optim.SGD([*params.values(), focal], lr=1e-6)
+    mean_sq = lambda img, _target: (img * img).mean()  # noqa: E731
+    train_step = make_train_step(t_cam, cfg, opt, loss_fn=mean_sq)
+    sync()
+    ct.chain_trace.launches = 0
+    cg.chain_grad.launches = 0
+    losses, grads = [], {}
+    for _ in range(8):
+        loss, grads = train_step(params, static, None)
+        losses.append(loss)
+        grads = {**grads, "camera.focal": focal.grad}
+    sync()
+    train_launches = {"chain_trace": ct.chain_trace.launches, "chain_grad": cg.chain_grad.launches}
+    losses = [float(x) for x in losses]
+    # a leaf that never reaches the loss (an empty sphere family) has no grad
+    finite = all(np.isfinite(losses)) and all(
+        v is None or bool(torch.isfinite(v).all()) for v in grads.values())
+    groups = {
+        "geometry": ("spheres.centers", "spheres.radii", "triangles.v0", "triangles.v1",
+                     "triangles.v2"),
+        "materials": tuple(k for k in grads if ".materials." in k),
+        "lights": tuple(k for k in grads if k.startswith("lights.")),
+        "camera focal": ("camera.focal",),
+    }
+    nonzero = {name: any(grads.get(k) is not None and bool((grads[k] != 0).any()) for k in keys)
+               for name, keys in groups.items()}
+    print(f"  launches {train_launches} (8 each); losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"finite={finite}; non-zero grads {nonzero}", flush=True)
+    if train_launches != {"chain_trace": 8, "chain_grad": 8}:
+        raise AssertionError(f"the training step did not run through both kernels: {train_launches}")
+    if not finite or not all(nonzero.values()):
+        raise AssertionError(f"training step: finite={finite}, non-zero gradients {nonzero}")
+
     # 8. timing: CUDA events around `iters` calls after one warm-up call
     def time_ms(fn, iters: int) -> float:
         fn()
@@ -214,7 +300,7 @@ def main() -> int:
         return (k1 + k2) / 2, (p1 + p2) / 2
 
     def report(label: str, ms: float, rays: int) -> None:
-        print(f"  {label}: {ms:.3f} ms/frame, {rays / ms / 1e3:.1f} Mrays/s [{card}]", flush=True)
+        print(f"  {label}: {ms:.3f} ms, {rays / ms / 1e3:.1f} Mrays/s [{card}]", flush=True)
 
     print("[8 timing]", flush=True)
     rays1 = W1080 * H1080
@@ -230,6 +316,14 @@ def main() -> int:
     )
     report("spp_trace kernel, 1080p spp=8", spp_ms, rays1 * 8)
     report("spp_trace_plain, 1080p spp=8", spp_plain_ms, rays1 * 8)
+    grad_ms, grad_plain_ms = in_turns(
+        lambda: cg.chain_grad(tables, o, d, g, cfg),
+        lambda: cg.chain_grad_plain(tables, o, d, g, cfg), 10, 1,
+    )
+    report("chain_grad kernel, 1080p", grad_ms, rays1)
+    report("chain_grad_plain, 1080p", grad_plain_ms, rays1)
+    step_ms = time_ms(lambda: train_step(params, static, None), 10)
+    report("training step (forward, backward, SGD), 1080p", step_ms, rays1)
     _, cam32 = head_box_scene(width=1000, height=1000, spp=32, device=dev)
     px32, py32 = cam32.pixel_grid()
     spp32_ms = time_ms(lambda: st.spp_trace(tables, cam32, px32, py32, cfg, seed=7), 5)
@@ -239,20 +333,83 @@ def main() -> int:
         ms = time_ms(lambda: render_hdr(m_scene, m_cam, cfg_for(w, h), seed=2024), 5)
         report(f"render_hdr end to end, head box {w}x{h} spp={spp}", ms, w * h * spp)
 
+    # The training step's device time by kernel, from the profiler.
+    import re
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    train_step(params, static, None)
+    sync()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                train_step(params, static, None)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+        dev_us = {e.key: getattr(e, "device_time_total", 0.0) / 3 for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and getattr(e, "device_time_total", 0.0) > 0}
+    if dev_us:
+        total_ms = sum(dev_us.values()) / 1e3
+        ours = {}
+        for k, v in dev_us.items():
+            m = re.search(r"chain_\w+_kernel", k)
+            if m:
+                ours[m.group(0)] = ours.get(m.group(0), 0.0) + v / 1e3
+        other = total_ms - sum(ours.values())
+        print(f"  training step under the profiler (it adds host time): wall {wall:.3f} ms, "
+              f"device kernels {total_ms:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
+              + f", {len(dev_us) - len(ours)} other kernel kinds {other:.3f} ms [{card}]", flush=True)
+    else:
+        print("  training step under the profiler: no device time recorded (not measured)")
+
+    # Roofline bounds from this run's work (roofline.py: intersection tests only)
+    work1 = chain_work(tables, o, d, cfg)
+    work8 = ChainWork(rays=0)
+    pids = py.to(torch.int64) * W1080 + px.to(torch.int64)
+    for sample in range(cam8.spp):
+        o8, d8 = cam8.rays_for_pixels(px, py, st.pixel_jitter(1234, pids, sample))
+        work8 += chain_work(tables, o8.contiguous(), d8.contiguous(), cfg)
+    tb = table_bytes(tables)
+    bounds = {
+        "chain_trace": bound_ms(work1.closest_ops + work1.shadow_ops, rays1 * (24 + 12) + tb),
+        "spp_trace": bound_ms(work8.closest_ops + work8.shadow_ops, rays1 * (8 + 12) + tb),
+        "chain_grad": bound_ms(2 * work1.closest_ops + work1.shadow_ops, rays1 * (36 + 24) + 2 * tb),
+    }
+    print(f"  work at 1080p spp=1: {work1.bounces / rays1:.3f} bounces/ray, "
+          f"{work1.shadow_rays / rays1:.3f} shadow rays/ray, closest-hit {work1.closest_ops / rays1:.0f} "
+          f"+ shadow {work1.shadow_ops / rays1:.0f} fp32 ops/ray; spp=8: "
+          f"{(work8.closest_ops + work8.shadow_ops) / rays1:.0f} ops/pixel")
+    for name, (b, by) in bounds.items():
+        print(f"  bound {name}: {b:.4f} ms ({by}) [H100 SXM peaks; {card}]")
+
     kernels = [
         {"name": "chain_trace", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/chain_trace.cu",
          "replaces": "raytracingengine_tpu/kernels/chain_trace.py:1401",
          "launches": launches["chain_trace"], "max_abs_err": chain_report.max_abs,
-         "ms": chain_ms, "plain_ms": chain_plain_ms},
+         "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": bounds["chain_trace"][0],
+         "bound_by": bounds["chain_trace"][1], "library_ms": None},
         {"name": "spp_trace", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/spp_trace.cu",
          "replaces": "raytracingengine_tpu/kernels/spp_trace.py:109",
          "launches": launches["spp_trace"], "max_abs_err": spp_report.max_abs,
-         "ms": spp_ms, "plain_ms": spp_plain_ms},
+         "ms": spp_ms, "plain_ms": spp_plain_ms, "bound_ms": bounds["spp_trace"][0],
+         "bound_by": bounds["spp_trace"][1], "library_ms": None},
+        {"name": "chain_grad", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/chain_grad.cu",
+         "replaces": "raytracingengine_tpu/kernels/chain_grad.py:555",
+         "launches": train_launches["chain_grad"], "max_abs_err": grad_err,
+         "ms": grad_ms, "plain_ms": grad_plain_ms, "bound_ms": bounds["chain_grad"][0],
+         "bound_by": bounds["chain_grad"][1], "library_ms": None},
     ]
     print(f"seam-flip pixels: chain_trace {chain_report.flips}/{chain_report.pixels}, "
-          f"spp_trace {spp_report.flips}/{spp_report.pixels}")
+          f"spp_trace {spp_report.flips}/{spp_report.pixels}, chain_grad "
+          f"{cot_reports['d_d'].flips}/{cot_reports['d_d'].pixels}; training-path launches "
+          f"{train_launches}; no PyTorch call traces rays, so library_ms is null")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Carry JAX-package state into the port, as numpy arrays.
+"""Carry JAX-package state into the port and back, as numpy arrays.
 
 The leaves of the JAX package's `Scene` and `Camera` pytrees arrive as a
 dict of numpy arrays keyed by their dotted field paths ("spheres.centers",
 "triangles.materials.color", "position", ...). This module never imports
-JAX: the caller does the `np.asarray` on its side.
+JAX: the caller does the `np.asarray` on its side. The same keys name the
+port's trainable params (inverse/params.py), so a parameter set or its
+gradients can be compared key by key.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from raytracingengine_tpu_torch.geometry.primitives import (
     Spheres,
     Triangles,
 )
+from raytracingengine_tpu_torch.inverse.params import _leaves
 from raytracingengine_tpu_torch.scene import Scene
 
 
@@ -92,3 +95,23 @@ def camera_from_numpy(
         height=int(height),
         spp=int(spp),
     )
+
+
+def params_from_numpy(
+    leaves: dict[str, np.ndarray], device: torch.device | str = "cuda"
+) -> dict[str, torch.Tensor]:
+    """The float leaves as trainable tensors (requires_grad), same keys:
+    a JAX `partition` params tree carried into the port's `combine`."""
+    return {
+        k: _tensor(leaves, k, device).requires_grad_(True)
+        for k, v in leaves.items()
+        if np.issubdtype(np.asarray(v).dtype, np.floating)
+    }
+
+
+def scene_to_numpy(scene) -> dict[str, np.ndarray]:
+    """A Scene's (or any dataclass tree's) tensor leaves as numpy arrays
+    under their dotted paths."""
+    return {
+        k: v.detach().cpu().numpy() for k, v in _leaves(scene).items() if v is not None
+    }

@@ -1,10 +1,10 @@
-"""Build the CUDA trace kernels with nvcc and load them with ctypes.
+"""Build the CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ../csrc are compiled at first use into one shared library
 with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> chain_trace.cu spp_trace.cu
+         -Xcompiler -fPIC -Xptxas -v -o <lib> chain_trace.cu spp_trace.cu chain_grad.cu
 
 No fast-math flags: the kernels are fp32 with IEEE division and square
 root, like the reference. The library goes to build/raytracingengine_tpu_torch/
@@ -26,7 +26,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("chain_trace.cu", "spp_trace.cu")
+SOURCES = ("chain_trace.cu", "spp_trace.cu", "chain_grad.cu")
 HEADERS = ("trace_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -93,6 +93,12 @@ def load_library() -> ctypes.CDLL:
         + _TRACE_ARGTYPES
     )
     lib.rte_spp_trace.restype = _I
+    lib.rte_chain_grad.argtypes = (
+        _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _I] + _TRACE_ARGTYPES
+    )
+    lib.rte_chain_grad.restype = _I
+    lib.rte_chain_grad_reduce.argtypes = [_P, _I, _I, _P, _P]
+    lib.rte_chain_grad_reduce.restype = _I
     lib.rte_error_string.argtypes = [_I]
     lib.rte_error_string.restype = ctypes.c_char_p
     return lib

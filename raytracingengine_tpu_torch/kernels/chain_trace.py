@@ -400,8 +400,8 @@ def check_no_grad(*tensors: torch.Tensor) -> None:
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             "the CUDA trace kernels are forward-only: a CUDA input requires "
-            "grad, and the adjoint kernel (chain_grad_pallas, ROADMAP "
-            "queue 2 item 2) comes with the training port"
+            "grad; differentiate through kernels.chain_grad.chain_trace_fused "
+            "(spp=1), whose backward is the adjoint kernel"
         )
 
 

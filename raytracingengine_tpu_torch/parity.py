@@ -5,6 +5,14 @@ a different winner when two implementations round a distance differently
 (FMA contraction on the GPU, fp32 vs fp64 against the reference). Such a
 pixel differs by a whole shading level, so it is counted against a pixel
 budget instead of loosening the elementwise tolerance.
+
+Gradient budgets (the JAX package's tests/test_chain_grad.py:35-57,
+86-101): fp32 sums of many per-ray terms in different orders, so each
+scene leaf gets rtol 2e-3 and an atol of 2e-4 plus 1e-3 of the leaf's
+largest reference entry. Ray-direction cotangents are compared on their
+part tangential to the ray: the adjoint's sky term skips sky_color's
+normalize of the already-unit direction, which changes only the radial
+part, and the camera's own normalize removes that.
 """
 
 from __future__ import annotations
@@ -96,3 +104,49 @@ def reference_frame_stats(img, ref) -> tuple[float, float]:
     ldr = lambda x: (np.clip(x, 0.0, 1.0) * 255.0).astype(np.int32)
     bad_frac = float((np.abs(ldr(img) - ldr(ref)) > 1).mean())
     return p999, bad_frac
+
+
+def grad_leaf_mismatches(
+    ours: dict[str, np.ndarray], ref: dict[str, np.ndarray], rtol: float = 2e-3, atol: float = 2e-4
+) -> list[str]:
+    """Leaf-by-leaf gradient comparison -> list of violations (empty when
+    every leaf of `ref` is within rtol and atol + 1e-3 * max|ref leaf|)."""
+    errors = []
+    if sorted(ours) != sorted(ref):
+        return [f"keys differ: {sorted(set(ours) ^ set(ref))}"]
+    for k in sorted(ref):
+        a = np.asarray(ours[k], np.float64)
+        b = np.asarray(ref[k], np.float64)
+        if a.shape != b.shape:
+            errors.append(f"{k}: shape {a.shape} != {b.shape}")
+            continue
+        if b.size == 0:
+            continue
+        tol = atol + 1e-3 * (np.abs(b).max() + 1e-6) + rtol * np.abs(b)
+        bad = ~(np.abs(a - b) <= tol)
+        if bad.any():
+            i = np.unravel_index(np.argmax(np.where(bad, np.abs(a - b), -1.0)), a.shape)
+            errors.append(f"{k}: {int(bad.sum())} entries off, worst {a[i]:.6g} vs {b[i]:.6g}")
+    return errors
+
+
+def origin_cot_ok(ours, ref) -> tuple[bool, float, float]:
+    """Ray-origin cotangents [R,3]: max|diff| <= 1e-4 * max|ref| ->
+    (ok, max|diff|, bound)."""
+    a, b = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(a - b).max()) if a.size else 0.0
+    bound = 1e-4 * (float(np.abs(b).max()) + 1e-6)
+    return err <= bound, err, bound
+
+
+def direction_cot_ok(ours, ref, d) -> tuple[bool, float, float, float]:
+    """Ray-direction cotangents [R,3], tangential parts against unit
+    directions d: p99 < 2e-3 * scale and max < 2e-2 * scale, scale =
+    max|tangential ref| -> (ok, p99, max, scale)."""
+    dn = np.asarray(d, np.float64)
+    proj = lambda g: np.asarray(g, np.float64) - dn * np.sum(np.asarray(g, np.float64) * dn, 1, keepdims=True)  # noqa: E731
+    ta, tb = proj(ours), proj(ref)
+    scale = float(np.abs(tb).max()) + 1e-6
+    err = np.abs(ta - tb)
+    p99, mx = float(np.quantile(err, 0.99)), float(err.max())
+    return p99 < 2e-3 * scale and mx < 2e-2 * scale, p99, mx, scale

@@ -2,28 +2,38 @@
 
 The reference's RenderImage is one parallel loop over the flat pixel
 index with an AA loop per pixel (Scene.h:283-328). Here pixels are traced
-in chunks of `cfg.chunk_size`, each chunk one launch of a trace kernel:
+in chunks of `cfg.chunk_size`:
 
-  * spp == 1: camera rays (Camera.rays_for_pixels) -> kernels.chain_trace,
+  * spp == 1, `use_pallas=True`: camera rays (Camera.rays_for_pixels) ->
+    kernels.chain_grad.chain_trace_fused: the chain trace kernel forward
+    and, when a scene or camera tensor requires grad, the adjoint kernel
+    backward;
+  * spp == 1, `use_pallas=False`: camera rays -> render.integrator.
+    integrate_chain, the all-pairs integrator that autograd differentiates;
   * spp > 1: pixel coordinates -> kernels.spp_trace, which runs the whole
     AA loop per pixel with jitter keyed by (seed, pixel id, sample), so a
-    render does not depend on how the frame is chunked.
+    render does not depend on how the frame is chunked. It is forward-only.
 
-The device of the scene decides: CUDA tensors launch the CUDA kernels,
-CPU tensors run their plain PyTorch versions. Paths of the JAX pipeline
-that have no port yet raise NotImplementedError naming the ROADMAP item
-that brings them.
+The chunks are joined with torch.cat, so gradients flow through the frame.
+The device of the scene decides: CUDA tensors launch the CUDA kernels, CPU
+tensors run their plain PyTorch versions. Paths of the JAX pipeline that
+have no port yet raise NotImplementedError naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from raytracingengine_tpu_torch.core.camera import Camera
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
-from raytracingengine_tpu_torch.kernels.chain_trace import chain_trace, pack_scene_tables
+from raytracingengine_tpu_torch.kernels.chain_grad import chain_trace_fused
+from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
 from raytracingengine_tpu_torch.kernels.spp_trace import spp_trace
 from raytracingengine_tpu_torch.render.config import RenderConfig
+from raytracingengine_tpu_torch.render.integrator import integrate_chain
 from raytracingengine_tpu_torch.scene import Scene
 
 
@@ -33,7 +43,23 @@ def resolve_mode(scene: Scene, cfg: RenderConfig) -> str:
     return "wavefront" if scene.has_transparency else "chain"
 
 
-def check_supported(mode: str, cfg: RenderConfig) -> None:
+def _requires_grad(*objs) -> bool:
+    """Does autograd record, and does any tensor of these dataclasses
+    (scene, camera) or tensors require grad?"""
+    if not torch.is_grad_enabled():
+        return False
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                yield from leaves(getattr(x, f.name))
+
+    return any(t.requires_grad for x in objs for t in leaves(x))
+
+
+def check_supported(mode: str, cfg: RenderConfig, spp: int = 1, grad: bool = False) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     todo = None
     if mode != "chain":
@@ -43,12 +69,9 @@ def check_supported(mode: str, cfg: RenderConfig) -> None:
                 "soft shadows (ROADMAP queue 1 item 3)")
     elif cfg.soft_primary:
         todo = "soft_primary: render/soft_primary.py (ROADMAP queue 1 item 11)"
-    elif cfg.differentiable:
-        todo = ("differentiable=True: the adjoint kernels and integrate_chain "
-                "(ROADMAP queue 1 items 3-4, queue 2 item 2)")
-    elif not cfg.use_pallas:
-        todo = ("use_pallas=False: the integrate_chain integrator "
-                "(ROADMAP queue 1 item 3); pass use_pallas=True")
+    elif spp > 1 and (grad or cfg.differentiable or not cfg.use_pallas):
+        todo = ("spp > 1 with gradients, differentiable=True or use_pallas=False: "
+                "the per-sample differentiable loop (ROADMAP queue 1 item 13)")
     if todo is not None:
         raise NotImplementedError(f"not ported yet: {todo}")
 
@@ -61,8 +84,10 @@ def render_rays(
 ) -> torch.Tensor:
     """Trace an arbitrary ray block [R,3] x [R,3] -> HDR [R,3]."""
     check_supported(resolve_mode(scene, cfg), cfg)
-    tables = pack_scene_tables(flatten_scene(scene))
-    return chain_trace(tables, o.contiguous(), d.contiguous(), cfg)
+    flat = flatten_scene(scene)
+    if not cfg.use_pallas:
+        return integrate_chain(flat, o, d, cfg)
+    return chain_trace_fused(pack_scene_tables(flat), o, d, cfg)
 
 
 def render_hdr(
@@ -77,7 +102,7 @@ def render_hdr(
 
     `seed` keys the AA jitter (spp > 1). Without a seed, it is drawn from
     `generator`; without either it is 0, so a render is reproducible."""
-    check_supported(resolve_mode(scene, cfg), cfg)
+    check_supported(resolve_mode(scene, cfg), cfg, camera.spp, _requires_grad(scene, camera))
     device = scene.device
     if camera.device != device:
         raise ValueError(f"camera on {camera.device}, scene on {device}")
@@ -85,17 +110,20 @@ def render_hdr(
         seed = 0 if generator is None else int(
             torch.randint(0, 2**31 - 1, (), generator=generator, device=generator.device)
         )
-    tables = pack_scene_tables(flatten_scene(scene))
+    flat = flatten_scene(scene)
+    tables = pack_scene_tables(flat) if cfg.use_pallas else None
     r = camera.num_pixels
     chunk = max(1, min(cfg.chunk_size, r))
-    out = torch.empty((r, 3), dtype=torch.float32, device=device)
+    parts = []
     for start in range(0, r, chunk):
-        stop = min(start + chunk, r)
-        pid = torch.arange(start, stop, dtype=torch.int32, device=device)
+        pid = torch.arange(start, min(start + chunk, r), dtype=torch.int32, device=device)
         px, py = pid % camera.width, pid // camera.width
         if camera.spp > 1:
-            out[start:stop] = spp_trace(tables, camera, px, py, cfg, seed=seed)
+            parts.append(spp_trace(tables, camera, px, py, cfg, seed=seed))
+            continue
+        o, d = camera.rays_for_pixels(px, py)
+        if tables is None:
+            parts.append(integrate_chain(flat, o, d, cfg))
         else:
-            o, d = camera.rays_for_pixels(px, py)
-            out[start:stop] = chain_trace(tables, o.contiguous(), d, cfg)
-    return out.reshape(camera.height, camera.width, 3)
+            parts.append(chain_trace_fused(tables, o, d, cfg))
+    return torch.cat(parts).reshape(camera.height, camera.width, 3)

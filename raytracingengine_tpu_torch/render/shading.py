@@ -1,0 +1,113 @@
+"""Shading: sky, binary shadow visibility, direct lighting.
+
+The same formulas as the JAX package's render/shading.py, on tensors:
+
+  * `sky_color` — vertical sky gradient (Scene.h:30-33),
+  * `transmittance_binary` — hard visibility in one any-hit pass, equal to
+    the reference's transmittance march on opaque scenes,
+  * `direct_light` — per-light diffuse + Blinn-Phong specular with 1/d^2
+    falloff (Scene.h:79-129).
+
+Every guard that keeps the JAX backward pass NaN-free is kept: square
+roots and reciprocals are taken on masked-safe operands, so a masked lane
+never feeds inf into a zero cotangent. The transmittance march and soft
+shadows (`shadow_mode="march"`, `"soft"`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracingengine_tpu_torch.core import vecmath as vm
+from raytracingengine_tpu_torch.geometry.intersect import FlatScene, Hit, all_distances
+
+
+def sky_color(d: torch.Tensor) -> torch.Tensor:
+    """lerp(white, (0.5, 0.7, 1.0), 0.5 * (dir.y + 1)) — Scene.h:30-33."""
+    dn = vm.normalize(d)
+    t = 0.5 * (dn[..., 1] + 1.0)
+    white = torch.ones(3, dtype=d.dtype, device=d.device)
+    blue = torch.tensor([0.5, 0.7, 1.0], dtype=d.dtype, device=d.device)
+    return white * (1.0 - t)[..., None] + blue * t[..., None]
+
+
+def transmittance_binary(
+    flat: FlatScene,
+    origin: torch.Tensor,  # [B,3]
+    direction: torch.Tensor,  # [B,3]
+    max_dist: torch.Tensor,  # [B]
+    cfg,
+) -> torch.Tensor:
+    """Hard binary visibility -> T in {0, 1} [B]: 0 iff any surface lies at
+    bias < t < max_dist. Its gradient is the a.e.-zero one of a hard shadow."""
+    t_all = all_distances(flat, origin, direction)
+    occluded = ((t_all > cfg.bias) & (t_all < max_dist[None, :])).any(dim=0)
+    return torch.where(occluded, 0.0, 1.0).to(max_dist.dtype)
+
+
+def _not_ported(mode: str):
+    raise NotImplementedError(
+        f"not ported yet: shadow_mode={mode!r} (the transmittance march and "
+        "soft visibility, ROADMAP queue 1 item 3)"
+    )
+
+
+def direct_light(
+    flat: FlatScene,
+    hit: Hit,
+    view_dir: torch.Tensor,  # [R,3] (-incoming)
+    normal: torch.Tensor,  # [R,3] front-face-flipped unit normal
+    active: torch.Tensor,  # [R] bool, lanes being shaded
+    cfg,
+) -> torch.Tensor:
+    """directLightning (Scene.h:79-129) -> [R,3].
+
+    Per light: skip if dist <= 0, N.L <= 0 or dist <= bias; shadow ray from
+    point + normal * bias to dist - bias; skip if T <= bias; diffuse +=
+    emitted / d^2 * N.L * T; Blinn-Phong specular (opaque materials with
+    specular > 0) shares the falloff and T. Result = albedo * sum(diffuse)
+    + sum(spec) * specular."""
+    if cfg.shadow_mode != "binary":
+        _not_ported(cfg.shadow_mode)
+    bias = cfg.bias
+    r = hit.point.shape[0]
+    zeros3 = torch.zeros((r, 3), dtype=hit.point.dtype, device=hit.point.device)
+    if flat.n_lights == 0:
+        return zeros3
+    shadow_o = hit.point + normal * bias
+    spec_enabled = (hit.transparency <= 0.0) & (hit.specular > 0.0)
+    diffuse, spec = zeros3, zeros3
+    zero = torch.zeros_like(hit.t)
+    one = torch.ones_like(hit.t)
+
+    for li in range(flat.n_lights):
+        vec = flat.light_positions[li][None, :] - hit.point
+        # sqrt of the squared distance with the zero case masked: the norm's
+        # VJP v/|v| is NaN at v = 0 even under a zero cotangent.
+        dist2 = vm.dot(vec, vec)
+        dist_pos = dist2 > 0.0
+        dist = torch.sqrt(torch.where(dist_pos, dist2, one))
+        dist = torch.where(dist_pos, dist, zero)
+        dist_safe = torch.where(dist > 0.0, dist, one)
+        ldir = vec / dist_safe[:, None]
+        ndotl = torch.maximum(zero, vm.dot(normal, ldir))
+        ok0 = (
+            active & flat.light_active[li] & (dist > 0.0) & (ndotl > 0.0) & (dist > bias)
+        )
+        T = transmittance_binary(flat, shadow_o, ldir, dist - bias, cfg)
+        ok = ok0 & (T > bias)
+
+        emitted = flat.light_colors[li] * flat.light_intensities[li]  # [3]
+        inv_d2 = 1.0 / (dist_safe * dist_safe)
+        contrib = (inv_d2 * ndotl * T)[:, None] * emitted[None, :]
+        diffuse = diffuse + torch.where(ok[:, None], contrib, 0.0)
+
+        half = vm.normalize(ldir + view_dir)
+        ndoth = torch.maximum(zero, vm.dot(normal, half))
+        spec_ok = ok & (ndoth > 0.0) & spec_enabled
+        ndoth_safe = torch.where(spec_ok, ndoth, one)  # pow's gradient stays finite
+        spec_factor = ndoth_safe**hit.shininess
+        spec_term = (inv_d2 * spec_factor * T)[:, None] * emitted[None, :]
+        spec = spec + torch.where(spec_ok[:, None], spec_term, 0.0)
+
+    return hit.albedo * diffuse + spec * hit.specular[:, None]

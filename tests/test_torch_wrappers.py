@@ -3,8 +3,9 @@
 (h) A CPU tensor reaches the plain version and leaves the launch counter
 unchanged; unsupported configurations raise NotImplementedError; bad
 inputs raise. The tests marked `gpu` need a CUDA card: they launch the
-kernels against their plain versions and check that a CUDA input with
-requires_grad raises. They skip on a host without one.
+kernels against their plain versions (the adjoint too) and check that a
+forward kernel's CUDA input with requires_grad raises. They skip on a host
+without one.
 """
 
 import dataclasses
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import raytracingengine_tpu_torch.kernels.chain_grad as cg
 import raytracingengine_tpu_torch.kernels.chain_trace as ct
 import raytracingengine_tpu_torch.kernels.spp_trace as st
 import raytracingengine_tpu_torch.render.pipeline as pipeline
@@ -55,28 +57,31 @@ def test_render_routes_cpu_to_plain_versions(monkeypatch, spp):
     assert calls == ({"chain": n_chunks, "spp": 0} if spp == 1 else {"chain": 0, "spp": n_chunks})
 
 
+#: name -> (config overrides, spp). differentiable=True and use_pallas=False
+#: run at spp=1 (the chain adjoint, integrate_chain); at spp > 1 they need
+#: the per-sample differentiable loop, which is not ported.
 UNSUPPORTED = {
-    "wavefront": dict(mode="wavefront"),
-    "march": dict(shadow_mode="march"),
-    "soft": dict(shadow_mode="soft"),
-    "soft_primary": dict(soft_primary=True),
-    "differentiable": dict(differentiable=True),
-    "no_kernels": dict(use_pallas=False),
-    "defaults": None,
+    "wavefront": (dict(mode="wavefront"), 1),
+    "march": (dict(shadow_mode="march"), 1),
+    "soft": (dict(shadow_mode="soft"), 1),
+    "soft_primary": (dict(soft_primary=True), 1),
+    "differentiable": (dict(differentiable=True), 3),
+    "no_kernels": (dict(use_pallas=False), 3),
+    "defaults": (None, 1),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_configs_raise(name):
-    cfg = RenderConfig() if UNSUPPORTED[name] is None else dataclasses.replace(
-        CFG, **UNSUPPORTED[name]
-    )
-    scene, cam, _ = small_head_box()
+    overrides, spp = UNSUPPORTED[name]
+    cfg = RenderConfig() if overrides is None else dataclasses.replace(CFG, **overrides)
+    scene, cam, _ = small_head_box(spp=spp)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         pipeline.render_hdr(scene, cam, cfg)
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pipeline.render_rays(scene, o, d, cfg)
+    if spp == 1:
+        o, d = cam.rays_for_pixels(*cam.pixel_grid())
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            pipeline.render_rays(scene, o, d, cfg)
 
 
 def test_bad_inputs_raise():
@@ -141,3 +146,31 @@ def test_cuda_kernels_match_plain(cuda_device, spp):
     report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
     print(f"spp={spp}: {report}")
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+
+
+@pytest.mark.gpu
+def test_cuda_chain_grad_matches_plain(cuda_device):
+    """The adjoint kernel against chain_grad_plain at 64x48, g = d mean(img^2)
+    / d img. Ray cotangents under the seam budget with atol 1e-3 of the
+    largest plain entry; each table cotangent within 2e-3 of its table's
+    largest plain entry (fp32 sums in another order, shared-memory atomics)."""
+    scene, cam = builders.head_box_scene(width=64, height=48, spp=1, device=cuda_device)
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    o = o.contiguous()
+    img = ct.chain_trace(tables, o, d, CFG)
+    g = (2.0 * img / img.numel()).contiguous()
+    before = cg.chain_grad.launches
+    cots, go, gd = cg.chain_grad(tables, o, d, g, CFG)
+    assert cg.chain_grad.launches == before + 1
+    ref_cots, ref_go, ref_gd = cg.chain_grad_plain(tables, o, d, g, CFG)
+    torch.cuda.synchronize()
+    for name, ours, ref in (("d_o", go, ref_go), ("d_d", gd, ref_gd)):
+        ref = ref.cpu().numpy()
+        report = seam_budget(ours.cpu().numpy(), ref, atol=1e-3 * float(np.abs(ref).max()))
+        print(f"{name}: {report}")
+        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, report)
+    for name, ours, ref in zip(("sph", "pl", "tri", "mat", "light"), cots, ref_cots):
+        assert ours.shape == ref.shape
+        err = float((ours - ref).abs().max())
+        assert err <= 2e-3 * float(ref.abs().max()) + 1e-12, (name, err)
