@@ -2,9 +2,9 @@
 """Where the adjoint kernel's time goes: csrc/chain_grad.cu built three ways.
 
   * as committed: table cotangents summed over a warp with shuffles, then
-    one shared-memory atomic per warp and entry (`kWarpAggregate = true`);
-  * lane atomics: every lane adds its own values (`kWarpAggregate = false`,
-    the kernel's first form);
+    one shared-memory atomic per warp and entry (`add_column`);
+  * lane atomics: every lane adds its own values (the warp-sum branch of
+    `add_column` disabled: the kernel's first form);
   * no atomics: the adds to shared memory removed, so the table cotangents
     are wrong; it times the rest of the kernel.
 
@@ -25,7 +25,7 @@ sys.path.insert(0, str(ROOT))
 
 VARIANTS = {
     "warp sums (committed)": {},
-    "lane atomics": {"constexpr bool kWarpAggregate = true;": "constexpr bool kWarpAggregate = false;"},
+    "lane atomics": {"if (__all_sync(kFullWarp, !mine || base == base0)) {": "if (false) {"},
     "no atomics": {"atomicAdd(acc + ": "no_add(acc + ",
                    "constexpr unsigned kFullWarp": "__device__ __forceinline__ void no_add(float* a, float v) "
                                                    "{ if (v == 1.2345e-30f) *a = v; }\nconstexpr unsigned kFullWarp"},

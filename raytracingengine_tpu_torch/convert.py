@@ -21,8 +21,7 @@ from raytracingengine_tpu_torch.geometry.primitives import (
     Spheres,
     Triangles,
 )
-from raytracingengine_tpu_torch.inverse.params import _leaves
-from raytracingengine_tpu_torch.scene import Scene
+from raytracingengine_tpu_torch.scene import Scene, tensor_leaves
 
 
 def _tensor(leaves: dict[str, np.ndarray], key: str, device) -> torch.Tensor:
@@ -113,5 +112,5 @@ def scene_to_numpy(scene) -> dict[str, np.ndarray]:
     """A Scene's (or any dataclass tree's) tensor leaves as numpy arrays
     under their dotted paths."""
     return {
-        k: v.detach().cpu().numpy() for k, v in _leaves(scene).items() if v is not None
+        k: v.detach().cpu().numpy() for k, v in tensor_leaves(scene).items() if v is not None
     }

@@ -44,10 +44,11 @@
 // kernel. Per ray it reads o, d and g (36 bytes) and writes d_o and d_d (24
 // bytes); the saved states add 28 bytes per bounce each way. Against that it
 // runs the closest-hit scan twice per bounce (checkpoint and re-run), the
-// shadow scans once, and the adjoint arithmetic: on the head box at 1080p
-// thousands of fp32 operations per ray against under 100 bytes, so the fp32
-// rate (67 TFLOP/s), not the 3.35 TB/s of device memory, is the bound.
-// chip_smoke.py counts this run's operations and prints the bound.
+// shadow scans once, and the adjoint arithmetic. On the head box at 1080p
+// (five bounces per ray) the intersection tests alone are ~12,000 fp32
+// operations per ray (roofline.py's count in chip_smoke.py, on an NVIDIA
+// H100 80GB HBM3 at 700 W): 0.37 ms at 67 TFLOP/s, against 0.04 ms for the
+// 60 bytes per ray at 3.35 TB/s. The fp32 rate is the bound.
 //
 // What the design does about it: one thread per ray with per-ray exits (the
 // depth loop, the shadow scan's first blocker), the forward kernel's
@@ -109,10 +110,6 @@ __device__ __forceinline__ V3 tab3(const float* t, int cols, int row, int i) {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Reduce a warp's table cotangents with shuffles and let one lane add the sum
-// to shared memory (false: every lane adds its own, the first version).
-constexpr bool kWarpAggregate = true;
-
 __device__ __forceinline__ float warp_sum(float v) {  // all 32 lanes converged
   for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(kFullWarp, v, s);
   return v;
@@ -131,7 +128,7 @@ __device__ __forceinline__ void add_column(float* acc, bool mine, int base, int 
   if (who == 0u) return;
   const int lead = __ffs(who) - 1;
   const int base0 = __shfl_sync(kFullWarp, base, lead);
-  if (kWarpAggregate && __all_sync(kFullWarp, !mine || base == base0)) {
+  if (__all_sync(kFullWarp, !mine || base == base0)) {
     const int n0 = __shfl_sync(kFullWarp, n, lead);
     const int cols0 = __shfl_sync(kFullWarp, cols, lead);
 #pragma unroll

@@ -14,17 +14,7 @@ import dataclasses
 
 import torch
 
-
-def _leaves(obj, prefix: str = "") -> dict[str, torch.Tensor | None]:
-    """Dataclass tree -> {dotted field path: leaf}."""
-    out = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if dataclasses.is_dataclass(v):
-            out.update(_leaves(v, f"{prefix}{f.name}."))
-        elif v is None or isinstance(v, torch.Tensor):
-            out[f"{prefix}{f.name}"] = v
-    return out
+from raytracingengine_tpu_torch.scene import tensor_leaves
 
 
 def _replace(obj, values: dict, prefix: str = ""):
@@ -43,7 +33,7 @@ def _replace(obj, values: dict, prefix: str = ""):
 def partition(scene):
     """-> (params, static). params: {path: float leaf}, each a fresh leaf
     tensor that requires grad; static: the scene with those leaves None."""
-    floats = {k: v for k, v in _leaves(scene).items() if v is not None and v.is_floating_point()}
+    floats = {k: v for k, v in tensor_leaves(scene).items() if v is not None and v.is_floating_point()}
     params = {k: v.detach().clone().requires_grad_(True) for k, v in floats.items()}
     return params, _replace(scene, dict.fromkeys(floats))
 

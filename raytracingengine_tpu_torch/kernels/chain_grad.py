@@ -67,9 +67,6 @@ MAX_PRIMS = 512
 THREADS = 128
 MAX_SMEM_BYTES = 227 * 1024
 
-#: Ray state of one bounce: (ox, oy, oz, dx, dy, dz, weight, live as 0/1).
-N_STATE = 8
-
 
 def _rsqrt_where(x: torch.Tensor, floor: float) -> torch.Tensor:
     """rsqrt(x) where x > floor, else 0, with a finite gradient everywhere."""
@@ -283,7 +280,7 @@ def chain_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     saved = []
     with torch.no_grad():
         for _ in range(cfg.max_depth):
-            if not bool((state[N_STATE - 1] > 0.0).any()):
+            if not bool((state[7] > 0.0).any()):  # live
                 break
             saved.append(state)
             state = state_bounce_plain(state, T, cfg)
@@ -304,11 +301,6 @@ def chain_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
-
-
-def smem_floats(tables: SceneTables) -> int:
-    """One block's table-cotangent accumulator: every table entry, floats."""
-    return sum(t.numel() for t in tables.tensors())
 
 
 def _check_scope(tables: SceneTables) -> None:
@@ -339,7 +331,7 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
         raise ValueError(f"chain_grad: unsupported device {o.device}")
     if not all(t.is_contiguous() for t in (o, d, gbar)):
         raise ValueError("chain_grad: o, d and gbar must be contiguous")
-    total = smem_floats(tables)
+    total = sum(t.numel() for t in tables.tensors())  # one float per table entry
     if 4 * total > MAX_SMEM_BYTES:
         raise NotImplementedError(
             f"chain_grad: {4 * total} bytes of table cotangents exceed one "

@@ -150,3 +150,22 @@ def direction_cot_ok(ours, ref, d) -> tuple[bool, float, float, float]:
     err = np.abs(ta - tb)
     p99, mx = float(np.quantile(err, 0.99)), float(err.max())
     return p99 < 2e-3 * scale and mx < 2e-2 * scale, p99, mx, scale
+
+
+def ray_cot_seam_budget(ours, ref) -> SeamReport:
+    """Adjoint kernel vs its plain version, ray cotangents [R,3]: the seam
+    budget at atol 1e-3 of the largest plain entry (a flipped pixel's rays
+    took another path, so its cotangents differ as a whole)."""
+    b = np.asarray(ref, np.float64)
+    return seam_budget(ours, b, atol=1e-3 * float(np.abs(b).max()) if b.size else 0.0)
+
+
+def table_cot_ok(ours, ref, rel: float = 2e-3) -> tuple[bool, float, float]:
+    """Adjoint kernel vs its plain version, one table's cotangent (a sum over
+    all rays): max|diff| <= rel * max|plain entry of the table| -> (ok,
+    max|diff|, bound). fp32 sums in another order and the flipped pixels'
+    rays, each one ray's share of sums over many rays, stay far inside."""
+    a, b = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(a - b).max()) if a.size else 0.0
+    bound = rel * (float(np.abs(b).max()) if b.size else 0.0)
+    return bool(np.isfinite(a).all()) and err <= bound, err, bound

@@ -23,8 +23,6 @@ brings them.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from raytracingengine_tpu_torch.core.camera import Camera
@@ -34,7 +32,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
 from raytracingengine_tpu_torch.kernels.spp_trace import spp_trace
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.integrator import integrate_chain
-from raytracingengine_tpu_torch.scene import Scene
+from raytracingengine_tpu_torch.scene import Scene, tensor_leaves
 
 
 def resolve_mode(scene: Scene, cfg: RenderConfig) -> str:
@@ -44,19 +42,11 @@ def resolve_mode(scene: Scene, cfg: RenderConfig) -> str:
 
 
 def _requires_grad(*objs) -> bool:
-    """Does autograd record, and does any tensor of these dataclasses
-    (scene, camera) or tensors require grad?"""
-    if not torch.is_grad_enabled():
-        return False
-
-    def leaves(x):
-        if isinstance(x, torch.Tensor):
-            yield x
-        elif dataclasses.is_dataclass(x):
-            for f in dataclasses.fields(x):
-                yield from leaves(getattr(x, f.name))
-
-    return any(t.requires_grad for x in objs for t in leaves(x))
+    """Does autograd record, and does a tensor of these dataclasses (scene,
+    camera) require grad?"""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for x in objs for t in tensor_leaves(x).values()
+    )
 
 
 def check_supported(mode: str, cfg: RenderConfig, spp: int = 1, grad: bool = False) -> None:

@@ -20,13 +20,15 @@ import dataclasses
 
 import torch
 
-from raytracingengine_tpu_torch.geometry.intersect import EPS
 from raytracingengine_tpu_torch.kernels.chain_grad import state_bounce_plain
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
     SceneTables,
     _closest_hit,
     _HostTables,
+    _plane_t,
+    _sphere_t,
+    _tri_t,
 )
 
 H100_BYTES_PER_S = 3.35e12
@@ -62,51 +64,24 @@ class ChainWork:
 
 
 def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None):
-    """fp32 operations of one scan for each ray of `active` [R] bool. With
-    lo/hi it is an any-hit scan, which stops at the first primitive with
-    lo < t < hi; else a closest-hit scan of every primitive."""
+    """fp32 operations of one scan for each ray of `active` [R] bool, with the
+    plain version's tests. With lo/hi it is an any-hit scan, which stops at
+    the first primitive with lo < t < hi; else a closest-hit scan of every
+    primitive."""
     scanning = active.clone()
     ops = torch.where(active, float(SCAN_SETUP), 0.0)
     a_coef = dx * dx + dy * dy + dz * dz
-
-    def visit(cost, t_new, hit):
-        nonlocal scanning, ops
-        ops = ops + torch.where(scanning, cost, 0.0)
-        if lo is not None:
-            scanning = scanning & ~(hit & (t_new > lo) & (t_new < hi))
-
-    for i in range(T.ns):
-        cx, cy, cz, r2 = T.sph[0][i], T.sph[1][i], T.sph[2][i], T.sph[3][i]
-        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
-        c = ocx * ocx + ocy * ocy + ocz * ocz - r2
-        disc = b * b - 4.0 * a_coef * c
-        sq = torch.sqrt(disc.clamp_min(0.0))
-        tt0 = (-b - sq) * (0.5 / a_coef)
-        t_new = torch.where(tt0 >= EPS, tt0, (-b + sq) * (0.5 / a_coef))
-        ok = disc >= 0.0
-        visit(torch.where(ok, float(SPHERE_FULL), float(SPHERE_MISS)), t_new, ok & (t_new >= EPS))
-    for i in range(T.np):
-        nx, ny, nz, pn = T.pl[0][i], T.pl[1][i], T.pl[2][i], T.pl[3][i]
-        denom = dx * nx + dy * ny + dz * nz
-        ok = denom.abs() > EPS
-        t_new = (pn - (ox * nx + oy * ny + oz * nz)) / torch.where(ok, denom, 1.0)
-        visit(torch.where(ok, float(PLANE_FULL), float(PLANE_PARALLEL)), t_new, ok & (t_new >= 0.0))
-    for i in range(T.nt):
-        v0x, v0y, v0z = T.tri[0][i], T.tri[1][i], T.tri[2][i]
-        e1x, e1y, e1z = T.tri[3][i], T.tri[4][i], T.tri[5][i]
-        e2x, e2y, e2z = T.tri[6][i], T.tri[7][i], T.tri[8][i]
-        hx, hy, hz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
-        a = e1x * hx + e1y * hy + e1z * hz
-        ok = a.abs() > EPS
-        f = 1.0 / torch.where(ok, a, 1.0)
-        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-        u = f * (sx * hx + sy * hy + sz * hz)
-        qx, qy, qz = sy * e1z - sz * e1y, sz * e1x - sx * e1z, sx * e1y - sy * e1x
-        v = f * (dx * qx + dy * qy + dz * qz)
-        t_new = f * (e2x * qx + e2y * qy + e2z * qz)
-        hit = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t_new > EPS)
-        visit(torch.where(ok, float(TRI_FULL), float(TRI_PARALLEL)), t_new, hit)
+    scans = (
+        (T.ns, lambda i: _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz), SPHERE_MISS, SPHERE_FULL),
+        (T.np, lambda i: _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz), PLANE_PARALLEL, PLANE_FULL),
+        (T.nt, lambda i: _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz), TRI_PARALLEL, TRI_FULL),
+    )
+    for n, test, short, full in scans:
+        for i in range(n):
+            t_new, hit, past_exit = test(i)
+            ops = ops + torch.where(scanning, torch.where(past_exit, float(full), float(short)), 0.0)
+            if lo is not None:
+                scanning = scanning & ~(hit & (t_new > lo) & (t_new < hi))
     return float(ops.to(torch.float64).sum())
 
 

@@ -42,6 +42,19 @@ class Scene:
         return self.planes.points.device
 
 
+def tensor_leaves(obj, prefix: str = "") -> dict[str, torch.Tensor | None]:
+    """Dataclass tree (a Scene, a Camera) -> {dotted field path: tensor
+    leaf}, e.g. "spheres.materials.color"; None leaves are kept."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(tensor_leaves(v, f"{prefix}{f.name}."))
+        elif v is None or isinstance(v, torch.Tensor):
+            out[f"{prefix}{f.name}"] = v
+    return out
+
+
 def _pad_to(n: int, multiple: int | None) -> int:
     if not multiple or multiple <= 1:
         return n

@@ -29,6 +29,7 @@ from raytracingengine_tpu.render.pipeline import render_hdr as jax_render_hdr
 from raytracingengine_tpu.scenes import builders as jax_builders
 from raytracingengine_tpu_torch.core import vecmath as vm
 from raytracingengine_tpu_torch.geometry import intersect as isect
+from raytracingengine_tpu_torch.geometry.materials import Material
 from raytracingengine_tpu_torch.inverse import combine, partition
 from raytracingengine_tpu_torch.kernels.chain_grad import MAX_PRIMS, chain_trace_fused
 from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
@@ -42,7 +43,6 @@ from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.integrator import integrate_chain
 from raytracingengine_tpu_torch.render.pipeline import render_hdr
 from raytracingengine_tpu_torch.scene import SceneBuilder
-from raytracingengine_tpu_torch.geometry.materials import Material
 from raytracingengine_tpu_torch.scenes import builders
 
 torch.set_num_threads(2)
@@ -76,7 +76,7 @@ def jax_reference(name):
     img, vjp = jax.vjp(fwd, scene, o, d)
     g_scene, g_o, g_d = vjp(2.0 * img)
     grads = {k: v for k, v in jax_leaves(g_scene).items() if np.issubdtype(v.dtype, np.floating)}
-    return np.asarray(o), np.asarray(d), np.asarray(img), grads, np.asarray(g_o), np.asarray(g_d)
+    return np.array(o), np.array(d), np.asarray(img), grads, np.asarray(g_o), np.asarray(g_d)
 
 
 def integrate_chain_jax(scene, o, d, cfg):
