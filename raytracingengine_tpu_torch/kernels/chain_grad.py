@@ -286,7 +286,7 @@ def chain_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
             state = state_bounce_plain(state, T, cfg)
     g = list(gbar.unbind(-1))
     with torch.enable_grad():
-        st = [x.requires_grad_(True) for x in (x.clone() for x in state[:7])]
+        st = [x.clone().requires_grad_(True) for x in state[:7]]
         cot = _grads_or_zeros(final_sky((*st, state[7])), g, st)
         table_cot = [torch.zeros_like(t) for t in leaves]
         for s in reversed(saved):
