@@ -42,13 +42,15 @@
 //
 // What bounds it on the H100: fp32 work and divergence, as the forward
 // kernel. Per ray it reads o, d and g (36 bytes) and writes d_o and d_d (24
-// bytes); the saved states add 28 bytes per bounce each way. Against that it
-// runs the closest-hit scan twice per bounce (checkpoint and re-run), the
-// shadow scans once, and the adjoint arithmetic. On the head box at 1080p
-// (five bounces per ray) the intersection tests alone are ~12,000 fp32
-// operations per ray (roofline.py's count in chip_smoke.py, on an NVIDIA
-// H100 80GB HBM3 at 700 W): 0.37 ms at 67 TFLOP/s, against 0.04 ms for the
-// 60 bytes per ray at 3.35 TB/s. The fp32 rate is the bound.
+// bytes). The function needs at least the forward's intersection tests: one
+// closest-hit scan per bounce and the shadow scans. On the head box at 1080p
+// (five bounces per ray) they are ~9,000 fp32 operations per ray
+// (roofline.py's count in chip_smoke.py, on an NVIDIA H100 80GB HBM3 at
+// 700 W; the shading and the adjoint arithmetic are left out, so it is a
+// lower bound): 0.28 ms at 67 TFLOP/s, against 0.04 ms for the 60 bytes per
+// ray at 3.35 TB/s. The fp32 rate is the bound. This design adds to it a
+// second closest-hit scan per bounce (checkpoint, then re-run) and 28 bytes
+// of saved state per bounce each way.
 //
 // What the design does about it: one thread per ray with per-ray exits (the
 // depth loop, the shadow scan's first blocker), the forward kernel's
@@ -190,10 +192,9 @@ __device__ __forceinline__ void sphere_pullback(const Tables& T, int i, const Ra
   const V3 ctr = tab3(T.sph, T.sph_cols, 0, i);
   const float r2 = tab(T.sph, T.sph_cols, 3, i);
   const V3 oc = r.o - ctr;
-  const float a = dot(r.d, r.d);
-  const float b = 2.0f * dot(oc, r.d);
-  const float cc = dot(oc, oc) - r2;
-  const float disc = b * b - 4.0f * a * cc;
+  const float a = rte::dot3(r.d.x, r.d.y, r.d.z, r.d.x, r.d.y, r.d.z);
+  float b, cc;  // rounded as closest_hit rounds them (rte::sphere_disc)
+  const float disc = rte::sphere_disc(a, oc.x, oc.y, oc.z, r.d.x, r.d.y, r.d.z, r2, b, cc);
   const float sq = sqrtf(fmaxf(disc, 0.0f));
   const float inv2a = 0.5f / a;
   const float sgn = ((-b - sq) * inv2a >= kEps) ? -1.0f : 1.0f;  // near or far root

@@ -23,7 +23,8 @@ def save_checkpoint(path: str, params: dict[str, torch.Tensor], opt_state: dict,
     os.replace(tmp, path)
 
 
-def restore_checkpoint(path: str, device: torch.device | str = "cpu") -> dict:
+def restore_checkpoint(path: str, device: torch.device | str = "cuda") -> dict:
     """-> {"params": {path: tensor on device}, "opt_state": dict, "step": int}.
-    Load the optimizer state with `optimizer.load_state_dict`."""
+    Tensors land on the card unless `device` says otherwise. Load the
+    optimizer state with `optimizer.load_state_dict`."""
     return torch.load(path, map_location=device, weights_only=True)

@@ -167,10 +167,7 @@ def _sky(dy):
 
 
 def _sphere_t(sph, i, a_coef, ox, oy, oz, dx, dy, dz):
-    """Sphere quadratic with a = d.d, near root if >= EPS (Shape.h:72-98).
-
-    -> (t, hit, ok); this and the other tests return as `ok` whether the
-    test got past its first early exit (here disc >= 0)."""
+    """Sphere quadratic with a = d.d, near root if >= EPS (Shape.h:72-98)."""
     cx, cy, cz, r2 = sph[0][i], sph[1][i], sph[2][i], sph[3][i]
     ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
     b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
@@ -182,7 +179,7 @@ def _sphere_t(sph, i, a_coef, ox, oy, oz, dx, dy, dz):
     tt0 = (-b - sq) * inv2a
     tt1 = (-b + sq) * inv2a
     t_new = torch.where(tt0 >= EPS, tt0, tt1)
-    return t_new, ok & (t_new >= EPS), ok
+    return t_new, ok & (t_new >= EPS)
 
 
 def _plane_t(pl, i, ox, oy, oz, dx, dy, dz):
@@ -192,7 +189,7 @@ def _plane_t(pl, i, ox, oy, oz, dx, dy, dz):
     ok = denom.abs() > EPS
     on = ox * nx_ + oy * ny_ + oz * nz_
     t_new = (pn - on) / torch.where(ok, denom, 1.0)
-    return t_new, ok & (t_new >= 0.0), ok
+    return t_new, ok & (t_new >= 0.0)
 
 
 def _tri_t(tri, i, ox, oy, oz, dx, dy, dz):
@@ -217,7 +214,7 @@ def _tri_t(tri, i, ox, oy, oz, dx, dy, dz):
         ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
         & (t_new > EPS)
     )
-    return t_new, hit, ok
+    return t_new, hit
 
 
 def _closest_hit(T: _HostTables, ox, oy, oz, dx, dy, dz):
@@ -239,17 +236,17 @@ def _closest_hit(T: _HostTables, ox, oy, oz, dx, dy, dz):
         gi = torch.where(closer, g, gi)
 
     for i in range(T.ns):
-        t_new, hit, _ = _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz)
+        t_new, hit = _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz)
         gx = ox + dx * t_new - T.sph[0][i]
         gy = oy + dy * t_new - T.sph[1][i]
         gz = oz + dz * t_new - T.sph[2][i]
         inv = torch.rsqrt((gx * gx + gy * gy + gz * gz).clamp_min(1e-24))
         upd(t_new, hit, (gx * inv, gy * inv, gz * inv), i)
     for i in range(T.np):
-        t_new, hit, _ = _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz)
+        t_new, hit = _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz)
         upd(t_new, hit, (T.pl[0][i], T.pl[1][i], T.pl[2][i]), T.ns + i)
     for i in range(T.nt):
-        t_new, hit, _ = _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz)
+        t_new, hit = _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz)
         upd(t_new, hit, (T.tri[9][i], T.tri[10][i], T.tri[11][i]), T.ns + T.np + i)
     m = T.mat_t[:, gi]  # [7, R]; miss lanes read column 0 and are masked
     return t, nx, ny, nz, m[0], m[1], m[2], m[3], m[4]
@@ -266,7 +263,7 @@ def _any_hit(T: _HostTables, ox, oy, oz, dx, dy, dz, lo, hi):
     )
     for n, prim_t in scans:
         for i in range(n):
-            t_new, hit, _ = prim_t(i)
+            t_new, hit = prim_t(i)
             occ = occ | (hit & (t_new > lo) & (t_new < hi))
     return occ
 

@@ -12,7 +12,9 @@ scene leaf gets rtol 2e-3 and an atol of 2e-4 plus 1e-3 of the leaf's
 largest reference entry. Ray-direction cotangents are compared on their
 part tangential to the ray: the adjoint's sky term skips sky_color's
 normalize of the already-unit direction, which changes only the radial
-part, and the camera's own normalize removes that.
+part, and the camera's own normalize removes that. The adjoint kernel's
+table cotangents are held to its plain version row by row
+(`table_cot_rows`).
 """
 
 from __future__ import annotations
@@ -160,12 +162,61 @@ def ray_cot_seam_budget(ours, ref) -> SeamReport:
     return seam_budget(ours, b, atol=1e-3 * float(np.abs(b).max()) if b.size else 0.0)
 
 
-def table_cot_ok(ours, ref, rel: float = 2e-3) -> tuple[bool, float, float]:
-    """Adjoint kernel vs its plain version, one table's cotangent (a sum over
-    all rays): max|diff| <= rel * max|plain entry of the table| -> (ok,
-    max|diff|, bound). fp32 sums in another order and the flipped pixels'
-    rays, each one ray's share of sums over many rays, stay far inside."""
+#: Row names of the scene tables (kernels/chain_trace.py::SceneTables).
+TABLE_ROWS = {
+    "sph": ("center.x", "center.y", "center.z", "r^2"),
+    "pl": ("normal.x", "normal.y", "normal.z", "p.n"),
+    "tri": tuple(f"{v}.{c}" for v in ("v0", "e1", "e2", "normal") for c in "xyz"),
+    "mat": ("albedo.r", "albedo.g", "albedo.b", "specular", "shininess", "transparency", "ior"),
+    "light": ("position.x", "position.y", "position.z", "emission.r", "emission.g",
+              "emission.b", "active"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowReport:
+    """One table row's cotangent against its plain version, at the entry
+    nearest to (or furthest past) its bound."""
+
+    table: str
+    row: str
+    err: float  # |diff| at that entry (inf where ours is not finite)
+    bound: float  # that entry's bound
+    row_max: float  # max|plain row|
+
+    @property
+    def ok(self) -> bool:
+        return self.err <= self.bound
+
+    def __str__(self) -> str:
+        return (f"{self.table}.{self.row}: |diff| {self.err:.3e} <= {self.bound:.3e} "
+                f"(max|plain row| {self.row_max:.3e})")
+
+
+def table_cot_rows(
+    table: str, ours, ref, rtol: float = 2e-3, rel: float = 1e-3, floor: float = 1e-6
+) -> list[RowReport]:
+    """Adjoint kernel vs its plain version, one table's cotangent [rows,
+    cols] (each entry a sum over all rays), row by row: every entry within
+    rel * max|plain row| + rtol * |plain entry| + floor * max|plain table|.
+
+    The form is grad_leaf_mismatches'. The rows of a table differ in scale
+    (albedo and shininess, position and emission), so each row is held to
+    its own largest entry: a sign or factor error in any row that carries a
+    cotangent fails it. fp32 sums of ~10^6 rays in another order, and the
+    flipped pixels' rays, each one ray's share of a sum over ~10^5 rays,
+    stay far inside. The floor holds a row that is zero in the plain
+    version (ior: the chain traces no refraction) to fp32 noise at the
+    table's scale."""
     a, b = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
-    err = float(np.abs(a - b).max()) if a.size else 0.0
-    bound = rel * (float(np.abs(b).max()) if b.size else 0.0)
-    return bool(np.isfinite(a).all()) and err <= bound, err, bound
+    if a.shape != b.shape or a.shape[0] != len(TABLE_ROWS[table]):
+        raise ValueError(f"table {table}: shape {a.shape} vs plain {b.shape}")
+    table_max = float(np.abs(b).max())  # a table has at least one column
+    reports = []
+    for r, row in enumerate(TABLE_ROWS[table]):
+        diff = np.where(np.isfinite(a[r]), np.abs(a[r] - b[r]), np.inf)
+        row_max = float(np.abs(b[r]).max())
+        bound = rel * row_max + rtol * np.abs(b[r]) + floor * table_max
+        j = int(np.argmax(diff - bound))
+        reports.append(RowReport(table, row, float(diff[j]), float(bound[j]), row_max))
+    return reports

@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from raytracingengine_tpu_torch.geometry.intersect import EPS
 from raytracingengine_tpu_torch.kernels.chain_grad import state_bounce_plain
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
@@ -63,6 +64,28 @@ class ChainWork:
         return self
 
 
+def _past_exit(T: _HostTables, a_coef, ox, oy, oz, dx, dy, dz):
+    """Per family, i -> whether each ray's test of primitive i gets past its
+    first early exit: disc >= 0 for a sphere, |d.n| > EPS for a plane,
+    |e1.(d x e2)| > EPS for a triangle."""
+
+    def sphere(i):
+        ocx, ocy, ocz = ox - T.sph[0][i], oy - T.sph[1][i], oz - T.sph[2][i]
+        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+        c = ocx * ocx + ocy * ocy + ocz * ocz - T.sph[3][i]
+        return b * b - 4.0 * a_coef * c >= 0.0
+
+    def plane(i):
+        return (dx * T.pl[0][i] + dy * T.pl[1][i] + dz * T.pl[2][i]).abs() > EPS
+
+    def tri(i):
+        e1x, e1y, e1z, e2x, e2y, e2z = (T.tri[k][i] for k in range(3, 9))
+        hx, hy, hz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
+        return (e1x * hx + e1y * hy + e1z * hz).abs() > EPS
+
+    return sphere, plane, tri
+
+
 def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None):
     """fp32 operations of one scan for each ray of `active` [R] bool, with the
     plain version's tests. With lo/hi it is an any-hit scan, which stops at
@@ -71,16 +94,18 @@ def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None):
     scanning = active.clone()
     ops = torch.where(active, float(SCAN_SETUP), 0.0)
     a_coef = dx * dx + dy * dy + dz * dz
+    exits = _past_exit(T, a_coef, ox, oy, oz, dx, dy, dz)
     scans = (
         (T.ns, lambda i: _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz), SPHERE_MISS, SPHERE_FULL),
         (T.np, lambda i: _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz), PLANE_PARALLEL, PLANE_FULL),
         (T.nt, lambda i: _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz), TRI_PARALLEL, TRI_FULL),
     )
-    for n, test, short, full in scans:
+    for (n, test, short, full), past_exit in zip(scans, exits):
         for i in range(n):
-            t_new, hit, past_exit = test(i)
-            ops = ops + torch.where(scanning, torch.where(past_exit, float(full), float(short)), 0.0)
+            cost = torch.where(past_exit(i), float(full), float(short))
+            ops = ops + torch.where(scanning, cost, 0.0)
             if lo is not None:
+                t_new, hit = test(i)
                 scanning = scanning & ~(hit & (t_new > lo) & (t_new < hi))
     return float(ops.to(torch.float64).sum())
 

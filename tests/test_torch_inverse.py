@@ -96,7 +96,7 @@ def test_checkpoint_roundtrip(tmp_path):
     step(params, static, None)
     path = str(tmp_path / "ckpt.pt")
     save_checkpoint(path, params, opt.state_dict(), step=17)
-    restored = restore_checkpoint(path)
+    restored = restore_checkpoint(path, device="cpu")
     assert restored["step"] == 17
     for k, p in params.items():
         np.testing.assert_array_equal(restored["params"][k].numpy(), p.detach().numpy())

@@ -9,6 +9,7 @@ without one.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -19,7 +20,12 @@ import raytracingengine_tpu_torch.kernels.chain_trace as ct
 import raytracingengine_tpu_torch.kernels.spp_trace as st
 import raytracingengine_tpu_torch.render.pipeline as pipeline
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
-from raytracingengine_tpu_torch.parity import ray_cot_seam_budget, seam_budget, table_cot_ok
+from raytracingengine_tpu_torch.parity import (
+    TABLE_ROWS,
+    ray_cot_seam_budget,
+    seam_budget,
+    table_cot_rows,
+)
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.scenes import builders
 
@@ -31,6 +37,21 @@ CFG = RenderConfig(shadow_mode="binary", use_pallas=True)
 def small_head_box(spp=1, device="cpu"):
     scene, cam = builders.head_box_scene(width=8, height=6, spp=spp, device=device)
     return scene, cam, ct.pack_scene_tables(flatten_scene(scene))
+
+
+def grad_inputs(scene_name, width, height, device):
+    """-> (tables, o, d, g) of an adjoint check: the head box, or baseline
+    spheres with 2 lights (the head box has no spheres), and g = d mean(img^2)
+    / d img."""
+    if scene_name == "head_box":
+        scene, cam = builders.head_box_scene(width=width, height=height, spp=1, device=device)
+    else:
+        scene, cam = builders.baseline_sphere_scene(width, height, n_lights=2, device=device)
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    o = o.contiguous()
+    img = ct.chain_trace(tables, o, d, CFG)
+    return tables, o, d, (2.0 * img / img.numel()).contiguous()
 
 
 @pytest.mark.parametrize("spp", [1, 3])
@@ -167,17 +188,14 @@ def test_cuda_kernels_match_plain(cuda_device, spp):
 
 
 @pytest.mark.gpu
-def test_cuda_chain_grad_matches_plain(cuda_device):
-    """The adjoint kernel against chain_grad_plain at 64x48, g = d mean(img^2)
-    / d img. Ray cotangents under the seam budget with atol 1e-3 of the
-    largest plain entry; each table cotangent within 2e-3 of its table's
-    largest plain entry (fp32 sums in another order, shared-memory atomics)."""
-    scene, cam = builders.head_box_scene(width=64, height=48, spp=1, device=cuda_device)
-    tables = ct.pack_scene_tables(flatten_scene(scene))
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
-    o = o.contiguous()
-    img = ct.chain_trace(tables, o, d, CFG)
-    g = (2.0 * img / img.numel()).contiguous()
+@pytest.mark.parametrize("scene_name", ["head_box", "spheres"])
+def test_cuda_chain_grad_matches_plain(cuda_device, scene_name):
+    """The adjoint kernel against chain_grad_plain at 64x48, on the head box
+    and on baseline spheres (the sphere pullback). Ray cotangents under the
+    seam budget with atol 1e-3 of the largest plain entry; table cotangents
+    row by row (parity.table_cot_rows: fp32 sums in another order,
+    shared-memory atomics)."""
+    tables, o, d, g = grad_inputs(scene_name, 64, 48, cuda_device)
     before = cg.chain_grad.launches
     cots, go, gd = cg.chain_grad(tables, o, d, g, CFG)
     assert cg.chain_grad.launches == before + 1
@@ -187,10 +205,43 @@ def test_cuda_chain_grad_matches_plain(cuda_device):
         report = ray_cot_seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
         print(f"{name}: {report}")
         assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, report)
-    for name, ours, ref in zip(("sph", "pl", "tri", "mat", "light"), cots, ref_cots):
+    for name, ours, ref in zip(TABLE_ROWS, cots, ref_cots):
         assert ours.shape == ref.shape
-        ok, err, bound = table_cot_ok(ours.cpu().numpy(), ref.cpu().numpy())
-        assert ok, (name, err, bound)
+        rows = table_cot_rows(name, ours.cpu().numpy(), ref.cpu().numpy())
+        print("\n".join(map(str, rows)))
+        assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
+    if scene_name == "spheres":
+        assert float(ref_cots[0].abs().max()) > 0.0  # the sphere rows carry cotangents
+
+
+@functools.lru_cache(maxsize=None)
+def plain_table_cots(scene_name):
+    tables, o, d, g = grad_inputs(scene_name, 16, 12, "cpu")
+    return tuple(c.numpy() for c in cg.chain_grad_plain(tables, o, d, g, CFG)[0])
+
+
+#: name -> (scene, table, row, wrong factor)
+ROW_ERRORS = {
+    "box_shininess_sign": ("head_box", "mat", "shininess", -1.0),
+    "box_transparency_twice": ("head_box", "mat", "transparency", 2.0),
+    "box_emission_half": ("head_box", "light", "emission.b", 0.5),
+    "spheres_radius_sign": ("spheres", "sph", "r^2", -1.0),
+    "spheres_shininess_twice": ("spheres", "mat", "shininess", 2.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROW_ERRORS))
+def test_table_cot_rows_catch_one_wrong_row(case):
+    """The adjoint's table budget, row by row: the plain cotangents pass
+    against themselves, and one row off by a sign or a factor of 2 fails on
+    that row alone, small rows (shininess) too."""
+    scene_name, table, row, factor = ROW_ERRORS[case]
+    for name, ref in zip(TABLE_ROWS, plain_table_cots(scene_name)):
+        ours = ref.copy()
+        if name == table:
+            ours[TABLE_ROWS[table].index(row)] *= factor
+        bad = [r.row for r in table_cot_rows(name, ours, ref) if not r.ok]
+        assert bad == ([row] if name == table else []), (name, bad)
 
 
 def test_roofline_work_counts():
