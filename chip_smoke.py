@@ -24,6 +24,14 @@ training step at full resolution, and times kernels against plain versions:
                 head box 1920x1080, partition -> make_train_step with
                 torch.optim.SGD(lr=1e-6) on mean(img^2), 8 steps, the launch
                 counters reset before and read after; then its time per step
+ 11. glass      wavefront_trace vs trace_wavefront_plain (march and binary
+                shadows) and wavefront_spp_trace vs its plain version (spp=8,
+                same seed) on glass_sphere_scene 1920x1080 with the main path's
+                camera; dropped pushes, the largest pop count of any ray
+ 12. glass path render_hdr of glass_sphere_scene at 1080p spp=1 and spp=8 with
+                RenderConfig(use_pallas=True, chunk_size=whole frame), as
+                bench.py:160-193 calls it, the launch counters reset before and
+                read after; the spp=1 frame equals phase 11's kernel output
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -34,6 +42,10 @@ cotangents lie within 1e-3 of the row's largest plain entry plus 2e-3 of
 their own (parity.table_cot_rows: fp32 sums over 2M rays in another order,
 shared-memory atomics, and the rays of the flipped pixels, each one ray's
 share of a sum over ~10^5 rays).
+
+The glass kernels are held to their plain versions under the same seam
+budget; a flip there is a shadow or refraction ray that grazes a sphere and
+takes the other branch.
 
 Run with no arguments on a machine with one CUDA card:  python3 chip_smoke.py
 Any failed phase raises and the script exits non-zero. The last line is
@@ -78,6 +90,7 @@ def main() -> int:
     from raytracingengine_tpu_torch.kernels import chain_grad as cg
     from raytracingengine_tpu_torch.kernels import chain_trace as ct
     from raytracingengine_tpu_torch.kernels import spp_trace as st
+    from raytracingengine_tpu_torch.kernels import wavefront_trace as wt
     from raytracingengine_tpu_torch.parity import (
         golden_ldr_mismatches,
         ray_cot_seam_budget,
@@ -87,8 +100,19 @@ def main() -> int:
     )
     from raytracingengine_tpu_torch.render.config import RenderConfig
     from raytracingengine_tpu_torch.render.pipeline import render_hdr
-    from raytracingengine_tpu_torch.roofline import ChainWork, bound_ms, chain_work, table_bytes
-    from raytracingengine_tpu_torch.scenes import baseline_sphere_scene, head_box_scene
+    from raytracingengine_tpu_torch.roofline import (
+        ChainWork,
+        WavefrontWork,
+        bound_ms,
+        chain_work,
+        table_bytes,
+        wavefront_work,
+    )
+    from raytracingengine_tpu_torch.scenes import (
+        baseline_sphere_scene,
+        glass_sphere_scene,
+        head_box_scene,
+    )
     from raytracingengine_tpu_torch.tonemap import to_uint8, tonemap
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -303,6 +327,77 @@ def main() -> int:
     if not finite or not all(nonzero.values()):
         raise AssertionError(f"training step: finite={finite}, non-zero gradients {nonzero}")
 
+    # 11. the glass kernels vs their plain versions at the main path's shapes
+    print("[11 glass] glass_sphere_scene 1920x1080, main path camera", flush=True)
+    glass, gcam = glass_sphere_scene(W1080, H1080, spp=1, device=dev)
+    g_tables = ct.pack_scene_tables(flatten_scene(glass))
+    g_o, g_d = gcam.rays_for_pixels(px, py)
+    g_o = g_o.contiguous()
+    glass_cfg = RenderConfig(use_pallas=True, chunk_size=W1080 * H1080)  # march shadows
+    glass_reports, glass_out, g_work = {}, {}, {}
+    for mode in ("march", "binary"):
+        gcfg = dataclasses.replace(glass_cfg, shadow_mode=mode)
+        glass_out[mode] = wt.wavefront_trace(g_tables, g_o, g_d, gcfg)
+        sync()
+        t0 = time.perf_counter()
+        ref = wt.trace_wavefront_plain(g_tables, g_o, g_d, gcfg)
+        sync()
+        print(f"  {mode}: trace_wavefront_plain first call {time.perf_counter() - t0:.2f} s", flush=True)
+        glass_reports[mode] = budget(f"wavefront_trace vs trace_wavefront_plain, {mode} shadows",
+                                     glass_out[mode], ref)
+        g_work[mode] = wavefront_work(g_tables, g_o, g_d, gcfg)
+        del ref
+    _, gcam8 = glass_sphere_scene(W1080, H1080, spp=8, device=dev)
+    g_spp_out = wt.wavefront_spp_trace(g_tables, gcam8, px, py, glass_cfg, seed=1234)
+    sync()
+    t0 = time.perf_counter()
+    g_spp_ref = wt.wavefront_spp_trace_plain(g_tables, gcam8, px, py, glass_cfg, seed=1234)
+    sync()
+    print(f"  wavefront_spp_trace_plain first call {time.perf_counter() - t0:.2f} s", flush=True)
+    g_spp_report = budget("wavefront_spp_trace vs plain, spp=8 seed=1234", g_spp_out, g_spp_ref)
+    del g_spp_ref
+    dropped = wt.dropped_pushes()
+    w = g_work["march"]
+    print(f"  dropped pushes {dropped} (0); nodes popped per ray {w.pops / w.rays:.3f}, the most "
+          f"by one ray {w.max_pops} (budget {glass_cfg.budget()}); shadow rays per ray "
+          f"{w.shadow_rays / w.rays:.3f}, march steps per shadow ray "
+          f"{w.march_steps / max(w.shadow_rays, 1):.3f}", flush=True)
+    if dropped:
+        raise AssertionError(f"the wavefront kernels dropped {dropped} pushes on a full stack")
+
+    # 12. the glass path, as a user calls it (bench.py:160-193)
+    glass_cells = [(W1080, H1080, 1), (W1080, H1080, 8)]
+    sync()
+    wt.wavefront_trace.launches = 0
+    wt.wavefront_spp_trace.launches = 0
+    glass_frames = {}
+    for w_, h_, spp in glass_cells:
+        m_scene, m_cam = glass_sphere_scene(w_, h_, spp=spp, device=dev)
+        t0 = time.perf_counter()
+        hdr = render_hdr(m_scene, m_cam, RenderConfig(use_pallas=True, chunk_size=w_ * h_), seed=2024)
+        sync()
+        glass_frames[spp] = (hdr, time.perf_counter() - t0)
+    glass_launches = {"wavefront_trace": wt.wavefront_trace.launches,
+                      "wavefront_spp_trace": wt.wavefront_spp_trace.launches}
+    print(f"[12 glass path] launches {glass_launches}", flush=True)
+    if min(glass_launches.values()) < 1:
+        raise AssertionError(f"a kernel of the glass path never launched: {glass_launches}")
+    for spp, (hdr, secs) in glass_frames.items():
+        finite = bool(torch.isfinite(hdr).all())
+        ok = finite and hdr.shape == (H1080, W1080, 3)
+        if spp == 1:  # the same camera rays as phase 11
+            same = float((hdr.reshape(-1, 3) - glass_out["march"]).abs().max())
+            ok = ok and same <= 1e-6
+        path = out_dir / f"glass_sphere_{W1080}x{H1080}_spp{spp}.png"
+        write_png(str(path), to_uint8(tonemap(hdr, "aces")).cpu().numpy())
+        print(f"  {'PASS' if ok else 'FAIL'} glass 1080p spp={spp}: first call {secs * 1e3:.1f} ms, "
+              f"finite={finite}, mean {float(hdr.mean()):.4f}"
+              + (f", max|diff| vs phase 11 kernel {same:.3e} (<= 1e-6)" if spp == 1 else "")
+              + f" -> {path.relative_to(ROOT)}", flush=True)
+        if not ok:
+            raise AssertionError(f"glass path render spp={spp} failed its checks")
+    del glass_frames, hdr
+
     # 8. timing: CUDA events around `iters` calls after one warm-up call
     def time_ms(fn, iters: int) -> float:
         fn()
@@ -357,6 +452,26 @@ def main() -> int:
         sync()
     step_sync_ms = (time.perf_counter() - t0) * 1e3 / 10
     report("training step, 1080p, synchronised after every step (host clock)", step_sync_ms, rays1)
+    wf_ms, wf_plain_ms = in_turns(
+        lambda: wt.wavefront_trace(g_tables, g_o, g_d, glass_cfg),
+        lambda: wt.trace_wavefront_plain(g_tables, g_o, g_d, glass_cfg), 20, 3,
+    )
+    report("wavefront_trace kernel, glass 1080p spp=1, march", wf_ms, rays1)
+    report("trace_wavefront_plain, glass 1080p spp=1, march", wf_plain_ms, rays1)
+    binary_cfg = dataclasses.replace(glass_cfg, shadow_mode="binary")
+    report("wavefront_trace kernel, glass 1080p spp=1, binary",
+           time_ms(lambda: wt.wavefront_trace(g_tables, g_o, g_d, binary_cfg), 20), rays1)
+    wf_spp_ms, wf_spp_plain_ms = in_turns(
+        lambda: wt.wavefront_spp_trace(g_tables, gcam8, px, py, glass_cfg, seed=1234),
+        lambda: wt.wavefront_spp_trace_plain(g_tables, gcam8, px, py, glass_cfg, seed=1234), 10, 1,
+    )
+    report("wavefront_spp_trace kernel, glass 1080p spp=8", wf_spp_ms, rays1 * 8)
+    report("wavefront_spp_trace_plain, glass 1080p spp=8", wf_spp_plain_ms, rays1 * 8)
+    for w_, h_, spp in glass_cells:
+        m_scene, m_cam = glass_sphere_scene(w_, h_, spp=spp, device=dev)
+        gc = RenderConfig(use_pallas=True, chunk_size=w_ * h_)
+        ms = time_ms(lambda: render_hdr(m_scene, m_cam, gc, seed=2024), 5)
+        report(f"render_hdr end to end, glass {w_}x{h_} spp={spp}", ms, w_ * h_ * spp)
     _, cam32 = head_box_scene(width=1000, height=1000, spp=32, device=dev)
     px32, py32 = cam32.pixel_grid()
     spp32_ms = time_ms(lambda: st.spp_trace(tables, cam32, px32, py32, cfg, seed=7), 5)
@@ -409,16 +524,31 @@ def main() -> int:
     for sample in range(cam8.spp):
         o8, d8 = cam8.rays_for_pixels(px, py, st.pixel_jitter(1234, pids, sample))
         work8 += chain_work(tables, o8.contiguous(), d8.contiguous(), cfg)
+    g_work8 = WavefrontWork(rays=0)
+    for sample in range(gcam8.spp):
+        o8, d8 = gcam8.rays_for_pixels(px, py, st.pixel_jitter(1234, pids, sample))
+        g_work8 += wavefront_work(g_tables, o8.contiguous(), d8.contiguous(), glass_cfg)
     tb = table_bytes(tables)
+    gtb = table_bytes(g_tables)
+    g_work1 = g_work["march"]
     bounds = {
         "chain_trace": bound_ms(work1.closest_ops + work1.shadow_ops, rays1 * (24 + 12) + tb),
         "spp_trace": bound_ms(work8.closest_ops + work8.shadow_ops, rays1 * (8 + 12) + tb),
         "chain_grad": bound_ms(work1.closest_ops + work1.shadow_ops, rays1 * (36 + 24) + 2 * tb),
+        "wavefront_trace": bound_ms(g_work1.closest_ops + g_work1.shadow_ops, rays1 * (24 + 12) + gtb),
+        "wavefront_spp_trace": bound_ms(g_work8.closest_ops + g_work8.shadow_ops,
+                                        rays1 * (8 + 12) + gtb),
     }
     print(f"  work at 1080p spp=1: {work1.bounces / rays1:.3f} bounces/ray, "
           f"{work1.shadow_rays / rays1:.3f} shadow rays/ray, closest-hit {work1.closest_ops / rays1:.0f} "
           f"+ shadow {work1.shadow_ops / rays1:.0f} fp32 ops/ray; spp=8: "
           f"{(work8.closest_ops + work8.shadow_ops) / rays1:.0f} ops/pixel")
+    print(f"  glass work at 1080p spp=1 (march): {g_work1.pops / rays1:.3f} nodes/ray (at most "
+          f"{g_work1.max_pops}), {g_work1.shadow_rays / rays1:.3f} shadow rays/ray, "
+          f"{g_work1.march_steps / rays1:.3f} march steps/ray, closest-hit "
+          f"{g_work1.closest_ops / rays1:.0f} + march {g_work1.shadow_ops / rays1:.0f} fp32 ops/ray; "
+          f"spp=8: {(g_work8.closest_ops + g_work8.shadow_ops) / rays1:.0f} ops/pixel, at most "
+          f"{g_work8.max_pops} nodes in one sample's tree")
     for name, (b, by) in bounds.items():
         print(f"  bound {name}: {b:.4f} ms ({by}) [H100 SXM peaks; {card}]")
 
@@ -441,12 +571,28 @@ def main() -> int:
          "launches": train_launches["chain_grad"], "max_abs_err": grad_err,
          "ms": grad_ms, "plain_ms": grad_plain_ms, "bound_ms": bounds["chain_grad"][0],
          "bound_by": bounds["chain_grad"][1], "library_ms": None},
+        {"name": "wavefront_trace", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/wavefront_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:655",
+         "launches": glass_launches["wavefront_trace"],
+         "max_abs_err": max(r.max_abs for r in glass_reports.values()),
+         "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": bounds["wavefront_trace"][0],
+         "bound_by": bounds["wavefront_trace"][1], "library_ms": None},
+        {"name": "wavefront_spp_trace", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/wavefront_spp_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:758",
+         "launches": glass_launches["wavefront_spp_trace"], "max_abs_err": g_spp_report.max_abs,
+         "ms": wf_spp_ms, "plain_ms": wf_spp_plain_ms, "bound_ms": bounds["wavefront_spp_trace"][0],
+         "bound_by": bounds["wavefront_spp_trace"][1], "library_ms": None},
     ]
     print(f"seam-flip pixels: chain_trace {chain_report.flips}/{chain_report.pixels}, "
           f"spp_trace {spp_report.flips}/{spp_report.pixels}, chain_grad "
           f"{cot_reports['d_d'].flips}/{cot_reports['d_d'].pixels} (spheres "
-          f"{b_reports['d_d'].flips}/{b_reports['d_d'].pixels}); training-path launches "
-          f"{train_launches}; no PyTorch call traces rays, so library_ms is null")
+          f"{b_reports['d_d'].flips}/{b_reports['d_d'].pixels}), wavefront_trace "
+          + ", ".join(f"{m} {r.flips}/{r.pixels}" for m, r in glass_reports.items())
+          + f", wavefront_spp_trace {g_spp_report.flips}/{g_spp_report.pixels}; training-path "
+          f"launches {train_launches}; glass-path launches {glass_launches}; no PyTorch call "
+          "traces rays, so library_ms is null")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

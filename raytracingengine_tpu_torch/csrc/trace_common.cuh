@@ -1,11 +1,19 @@
-// Per-ray body of the opaque Whitted chain, shared by chain_trace.cu and
-// spp_trace.cu. It is the per-ray form of the TPU kernel body
-// raytracingengine_tpu/kernels/chain_trace.py::_trace_tile, and the plain
-// PyTorch version kernels/chain_trace.py::trace_chain_plain follows it line
-// by line. Where the TPU kernel masks lanes of a tile, a thread here
-// branches: the whole-tile early exit of the depth loop becomes a per-ray
-// `break`, and the "any lane needs this light" skip of the shadow scan
-// becomes a per-ray `if`.
+// Per-ray bodies shared by the trace kernels, one copy of each primitive
+// test:
+//   * `trace_ray`, the opaque Whitted chain (chain_trace.cu, spp_trace.cu):
+//     the per-ray form of raytracingengine_tpu/kernels/chain_trace.py::
+//     _trace_tile, which kernels/chain_trace.py::trace_chain_plain follows
+//     line by line;
+//   * `trace_wavefront_ray`, the full Whitted DFS with refraction, Fresnel,
+//     TIR and march or binary shadows (wavefront_trace.cu,
+//     wavefront_spp_trace.cu): the per-ray form of raytracingengine_tpu/
+//     kernels/wavefront_trace.py::_dfs_trace_tile, which kernels/
+//     wavefront_trace.py::trace_wavefront_plain follows line by line;
+//   * the Philox4x32-10 jitter of the in-kernel AA loops.
+// Where the TPU kernels mask lanes of a tile, a thread here branches: the
+// whole-tile early exits of the depth, DFS and march loops become per-ray
+// exits, and the "any lane needs this light" skip of a shadow scan becomes
+// a per-ray `if`.
 //
 // Tables: float32, row-major [rows, cols], one column per primitive, as
 // kernels/chain_trace.py::pack_scene_tables lays them out:
@@ -273,6 +281,301 @@ static __device__ __forceinline__ float3 trace_ray(
     acc_b += weight * s.z;
   }
   return make_float3(acc_r, acc_g, acc_b);
+}
+
+// ---------------------------------------------------------------------------
+// The full Whitted DFS (wavefront kernels)
+// ---------------------------------------------------------------------------
+
+// Largest stack the wavefront kernels compile: max_depth + 2 <= kMaxCap
+// (kernels/wavefront_trace.py::MAX_CAP).
+constexpr int kMaxCap = 32;
+
+struct WavefrontParams {
+  int max_depth;
+  float bias, min_weight;
+  int march;  // 1: transmittance march, 0: binary any-hit shadows
+  int shadow_max_steps;
+  float shadow_min_t;
+  int budget;  // nodes popped per ray before the DFS stops
+};
+
+// One node of the per-ray LIFO stack.
+struct Node {
+  float ox, oy, oz, dx, dy, dz, w;
+  int depth;
+};
+
+static __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+// The march's reduced closest-hit scan (wavefront_trace.py::_nearest_t_tau):
+// the same tests, order and strict < as closest_hit, without the normal;
+// returns t (kInf on a miss) and the winner's transparency, mat row 5.
+static __device__ __forceinline__ float nearest_t_tau(
+    const Tables& T, float ox, float oy, float oz, float dx, float dy, float dz, float& tau) {
+  float best = kInf;
+  int gi = -1;
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float inv2a = 0.5f / a;
+  float t;
+  for (int i = 0; i < T.ns; ++i)
+    if (sphere_t(T, i, a, inv2a, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = i; }
+  for (int i = 0; i < T.np; ++i)
+    if (plane_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + i; }
+  for (int i = 0; i < T.nt; ++i)
+    if (tri_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + T.np + i; }
+  tau = gi >= 0 ? tab(T.mat, T.mat_cols, 5, gi) : 0.0f;
+  return best;
+}
+
+// computeTransmittance (Scene.h:35-77; wavefront_trace.py::_march_T) for one
+// shadow ray -> T in [0, 1]. Per step: no hit ends the march; t <= 0 steps
+// by bias; 0 < t <= bias steps past the surface without attenuating; a hit
+// at or beyond max_dist ends it; else T *= clip(tau, 0, 1) and the march
+// steps past the hit. The state updates in the TPU kernel's order (origin,
+// traveled, T), then the exits T <= min_t and traveled >= max_dist.
+static __device__ __forceinline__ float march_T(
+    const Tables& T, float ox, float oy, float oz, float dx, float dy, float dz,
+    float max_dist, float bias, int max_steps, float min_t) {
+  float tr = 1.0f, traveled = 0.0f;
+  if (!(max_dist > 0.0f)) return 1.0f;
+  for (int it = 0; it < max_steps; ++it) {
+    float tau;
+    const float t = nearest_t_tau(T, ox, oy, oz, dx, dy, dz, tau);
+    if (!(t < kInf)) break;
+    float step;
+    if (t <= 0.0f) {
+      step = bias;
+    } else if (t <= bias) {
+      step = t + bias;
+    } else if (traveled + t >= max_dist) {
+      break;
+    } else {
+      step = t + bias;
+      tr *= clip01(tau);
+    }
+    ox += dx * step;
+    oy += dy * step;
+    oz += dz * step;
+    traveled += step;
+    if (!(tr > min_t && traveled < max_dist)) break;
+  }
+  return clip01(tr);
+}
+
+// The full Whitted recursion for one ray -> HDR radiance: the DFS of
+// _dfs_trace_tile over a per-thread LIFO stack of (o, d, weight, depth) in
+// local memory, indexed by sp. Each pop shades one node: sky at depth >=
+// max_depth or on a miss; else direct light weighted by (1 - tau), then the
+// reflection child (weight F on transparent hits, TIR forcing F = 1;
+// specular on opaque ones) and the refraction child (weight tau * (1 - F),
+// F before TIR), pushed in that order so that refraction pops first, each
+// pruned by min_weight. A push finding the stack full is dropped and
+// counted in `dropped` (cap = max_depth + 2 bounds the DFS, so it stays 0).
+// `pops` counts the nodes popped, at most P.budget.
+static __device__ __forceinline__ float3 trace_wavefront_ray(
+    const Tables& T, const WavefrontParams& P, float ox, float oy, float oz, float dx,
+    float dy, float dz, int& pops, int& dropped) {
+  const int cap = P.max_depth + 2;
+  const float bias = P.bias;
+  Node stack[kMaxCap];
+  stack[0] = Node{ox, oy, oz, dx, dy, dz, 1.0f, 0};
+  int sp = 1;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  while (sp > 0 && pops < P.budget) {
+    const Node n = stack[--sp];
+    ++pops;
+    if (n.depth >= P.max_depth) {  // depth exhaustion -> sky (Scene.h:132-134)
+      const float3 s = sky(n.dy);
+      acc_r += n.w * s.x;
+      acc_g += n.w * s.y;
+      acc_b += n.w * s.z;
+      continue;
+    }
+    const Hit h = closest_hit(T, n.ox, n.oy, n.oz, n.dx, n.dy, n.dz);
+    if (!(h.t < kInf)) {  // miss -> sky
+      const float3 s = sky(n.dy);
+      acc_r += n.w * s.x;
+      acc_g += n.w * s.y;
+      acc_b += n.w * s.z;
+      continue;
+    }
+    // Front-face flip (Scene.h:145-146)
+    const bool front = h.nx * n.dx + h.ny * n.dy + h.nz * n.dz < 0.0f;
+    const float flip = front ? 1.0f : -1.0f;
+    const float nx = h.nx * flip, ny = h.ny * flip, nz = h.nz * flip;
+    const float px = n.ox + n.dx * h.t, py = n.oy + n.dy * h.t, pz = n.oz + n.dz * h.t;
+    const int c = T.mat_cols;
+    const float ar = tab(T.mat, c, 0, h.gi), ag = tab(T.mat, c, 1, h.gi);
+    const float ab = tab(T.mat, c, 2, h.gi), spec = tab(T.mat, c, 3, h.gi);
+    const float shin = tab(T.mat, c, 4, h.gi), tau_raw = tab(T.mat, c, 5, h.gi);
+    const float eta_t = tab(T.mat, c, 6, h.gi);
+    const float tau = clip01(tau_raw);
+
+    // Direct lighting (Scene.h:79-129)
+    float diff_r = 0.0f, diff_g = 0.0f, diff_b = 0.0f;
+    float spec_r = 0.0f, spec_g = 0.0f, spec_b = 0.0f;
+    const float sox = px + nx * bias, soy = py + ny * bias, soz = pz + nz * bias;
+    const bool spec_on = tau_raw <= 0.0f && spec > 0.0f;  // Scene.h:115
+    for (int li = 0; li < T.nl; ++li) {
+      const int lc = T.light_cols;
+      if (!(tab(T.light, lc, 6, li) > 0.0f)) continue;
+      const float lx = tab(T.light, lc, 0, li), ly = tab(T.light, lc, 1, li);
+      const float lz = tab(T.light, lc, 2, li);
+      const float er = tab(T.light, lc, 3, li), eg = tab(T.light, lc, 4, li);
+      const float eb = tab(T.light, lc, 5, li);
+      const float vx = lx - px, vy = ly - py, vz = lz - pz;
+      const float dist = sqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1e-30f));
+      const float inv_d = 1.0f / dist;
+      const float ldx = vx * inv_d, ldy = vy * inv_d, ldz = vz * inv_d;
+      const float ndotl = fmaxf(0.0f, nx * ldx + ny * ldy + nz * ldz);
+      if (!(dist > bias && ndotl > 0.0f)) continue;
+      float tr;
+      if (P.march) {
+        tr = march_T(T, sox, soy, soz, ldx, ldy, ldz, dist - bias, bias, P.shadow_max_steps,
+                     P.shadow_min_t);
+      } else {
+        tr = any_hit(T, sox, soy, soz, ldx, ldy, ldz, bias, dist - bias) ? 0.0f : 1.0f;
+      }
+      if (!(tr > bias)) continue;
+      const float inv_d2 = inv_d * inv_d;
+      const float contrib = inv_d2 * ndotl * tr;
+      diff_r += er * contrib;
+      diff_g += eg * contrib;
+      diff_b += eb * contrib;
+      const float hx = ldx - n.dx, hy = ldy - n.dy, hz = ldz - n.dz;
+      const float invh = rsqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-24f));
+      const float ndoth = fmaxf(0.0f, (nx * hx + ny * hy + nz * hz) * invh);
+      if (spec_on && ndoth > 0.0f) {
+        const float sf = expf(shin * logf(ndoth)) * inv_d2 * tr;
+        spec_r += er * sf;
+        spec_g += eg * sf;
+        spec_b += eb * sf;
+      }
+    }
+    const float wl = n.w * (1.0f - tau);  // Scene.h:171-173
+    acc_r += wl * (ar * diff_r + spec_r * spec);
+    acc_g += wl * (ag * diff_g + spec_g * spec);
+    acc_b += wl * (ab * diff_b + spec_b * spec);
+
+    // Schlick Fresnel (Scene.h:161-168)
+    const float ddn = n.dx * nx + n.dy * ny + n.dz * nz;
+    const float cos_theta = fmaxf(0.0f, -ddn);
+    const float f0r = (eta_t - 1.0f) / (eta_t + 1.0f);
+    const float f0 = f0r * f0r;
+    const float omc = 1.0f - cos_theta;
+    const float omc2 = omc * omc;
+    const float fresnel = f0 + (1.0f - f0) * omc2 * omc2 * omc;
+
+    // Refraction (Scene.h:175-187): d and n are unit, cosi = d.n, TIR -> 0.
+    const float eta = front ? 1.0f / eta_t : eta_t;
+    const float cosi = fminf(fmaxf(ddn, -1.0f), 1.0f);
+    const float k = 1.0f - eta * eta * (1.0f - cosi * cosi);
+    float rfx = 0.0f, rfy = 0.0f, rfz = 0.0f;
+    if (!(k < 0.0f)) {
+      const float coef = eta * cosi + sqrtf(k);
+      rfx = n.dx * eta - nx * coef;
+      rfy = n.dy * eta - ny * coef;
+      rfz = n.dz * eta - nz * coef;
+    }
+    const float rf2 = rfx * rfx + rfy * rfy + rfz * rfz;
+    const float rflen = sqrtf(rf2);
+    const bool wants_refr = tau > 0.0f;
+    const bool has_refr = wants_refr && rflen > bias;
+    const bool tir = wants_refr && !(rflen > bias);
+    const float inv_rf = rsqrtf(fmaxf(rf2, 1e-24f));
+    rfx *= inv_rf;
+    rfy *= inv_rf;
+    rfz *= inv_rf;
+    const float refr_w = n.w * tau * (1.0f - fresnel);  // F before TIR (Scene.h:182)
+
+    // Reflection (Scene.h:189-195)
+    const float reflectiveness = tau > 0.0f ? (tir ? 1.0f : fresnel) : spec;
+    float rlx = n.dx - 2.0f * ddn * nx;
+    float rly = n.dy - 2.0f * ddn * ny;
+    float rlz = n.dz - 2.0f * ddn * nz;
+    const float inv_rl = rsqrtf(fmaxf(rlx * rlx + rly * rly + rlz * rlz, 1e-24f));
+    rlx *= inv_rl;
+    rly *= inv_rl;
+    rlz *= inv_rl;
+    const float refl_w = n.w * reflectiveness;
+
+    // Reflection first, refraction second: refraction pops first, as the
+    // reference's recursion visits it (Scene.h:175-195).
+    if (reflectiveness > bias && refl_w >= P.min_weight) {
+      if (sp < cap) {
+        stack[sp++] = Node{px + rlx * bias, py + rly * bias, pz + rlz * bias,
+                           rlx, rly, rlz, refl_w, n.depth + 1};
+      } else {
+        ++dropped;
+      }
+    }
+    if (has_refr && refr_w >= P.min_weight) {
+      const float b100 = bias * 1e2f;  // Scene.h:180
+      if (sp < cap) {
+        stack[sp++] = Node{px + rfx * b100, py + rfy * b100, pz + rfz * b100,
+                           rfx, rfy, rfz, refr_w, n.depth + 1};
+      } else {
+        ++dropped;
+      }
+    }
+  }
+  return make_float3(acc_r, acc_g, acc_b);
+}
+
+// ---------------------------------------------------------------------------
+// Jitter of the in-kernel AA loops
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+
+// Philox4x32-10 (Salmon et al., SC'11) keyed by (seed, 0) on the counter
+// (pixel id, sample, 0, 0); returns the first two output words.
+static __device__ __forceinline__ uint2 philox_xy(uint32_t seed, uint32_t pid, uint32_t sample) {
+  uint32_t c0 = pid, c1 = sample, c2 = 0u, c3 = 0u;
+  uint32_t k0 = seed, k1 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c0), lo0 = kPhiloxM0 * c0;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c2), lo1 = kPhiloxM1 * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+    k0 += kPhiloxW0;
+    k1 += kPhiloxW1;
+  }
+  return make_uint2(c0, c1);
+}
+
+// uint32 -> [0, 1): the top 23 bits under exponent 0x3F8 give [1, 2), minus 1.
+static __device__ __forceinline__ float uniform01(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// The camera ray of sample s of pixel (x, y) (Math.h:100-120), as the TPU
+// kernels build it: sx = x - w/2 + jx, sy = h/2 - y + jy, dir =
+// normalize((sx - cx, sy - cy, focal)); sample 0 is unjittered
+// (Scene.h:289-296), samples 1.. draw (jx, jy) from philox_xy.
+static __device__ __forceinline__ float3 camera_dir(
+    const float* cam, int x, int y, int width, int height, uint32_t seed, int s) {
+  const float sx0 = static_cast<float>(x) - 0.5f * static_cast<float>(width);
+  const float sy0 = 0.5f * static_cast<float>(height) - static_cast<float>(y);
+  float jx = 0.0f, jy = 0.0f;
+  if (s > 0) {
+    const uint32_t pid = static_cast<uint32_t>(y) * static_cast<uint32_t>(width) +
+                         static_cast<uint32_t>(x);
+    const uint2 bits = philox_xy(seed, pid, static_cast<uint32_t>(s));
+    jx = uniform01(bits.x);
+    jy = uniform01(bits.y);
+  }
+  const float ddx = (sx0 + jx) - cam[0];
+  const float ddy = (sy0 + jy) - cam[1];
+  const float ddz = cam[3];
+  const float inv = rsqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+  return make_float3(ddx * inv, ddy * inv, ddz * inv);
 }
 
 inline Tables make_tables(const float* sph, int sph_cols, int ns, const float* pl,

@@ -1,0 +1,61 @@
+// Wavefront (full Whitted) trace kernel: [R,3] ray origins and directions
+// -> [R,3] HDR, with refraction, Schlick Fresnel, TIR and march or binary
+// shadows.
+//
+// Replaces raytracingengine_tpu/kernels/wavefront_trace.py::
+// wavefront_trace_pallas. The TPU kernel keeps a [cap, 8, SUB, LANE] ray
+// stack in VMEM and pushes and pops with one-hot selects over cap for a
+// tile of lanes. Here one thread traces one ray: its stack is a local
+// array of kMaxCap nodes indexed by sp (trace_common.cuh::
+// trace_wavefront_ray), its DFS ends when its own stack is empty, and its
+// shadow march when its own shadow ray is done.
+//
+// What bounds it on the H100: fp32 ALU work and warp divergence. A ray
+// reads 24 bytes and writes 12; its work is a tree of closest-hit scans,
+// each with a shadow march (or an any-hit scan) per light, and the trees
+// of neighbouring rays differ in size wherever a warp straddles the edge of
+// a transparent object. The stack sits in local memory (L1-cached); a node
+// is written once and read once. What the design does about it: per-ray
+// exits end work the TPU kernel could only skip when a whole tile agreed,
+// consecutive rays are neighbouring pixels, and a dropped push (stack full,
+// which cap = max_depth + 2 rules out) is counted into *dropped for the
+// wrapper to read, never silent.
+#include "trace_common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(128) wavefront_trace_kernel(
+    rte::Tables T, rte::WavefrontParams P, const float* __restrict__ o,
+    const float* __restrict__ d, float* __restrict__ out, int n_rays, int* __restrict__ dropped) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  int pops = 0, n_dropped = 0;
+  const float3 c = rte::trace_wavefront_ray(T, P, o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                                            d[3 * i], d[3 * i + 1], d[3 * i + 2], pops,
+                                            n_dropped);
+  out[3 * i] = c.x;
+  out[3 * i + 1] = c.y;
+  out[3 * i + 2] = c.z;
+  if (n_dropped) atomicAdd(dropped, n_dropped);
+}
+
+}  // namespace
+
+extern "C" int rte_wavefront_trace(
+    const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
+    const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
+    const float* light, int light_cols, int nl, const float* o, const float* d, float* out,
+    int n_rays, int max_depth, float bias, float min_weight, int march, int shadow_max_steps,
+    float shadow_min_t, int budget, int* dropped, void* stream) {
+  if (max_depth < 0 || max_depth + 2 > rte::kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays <= 0) return 0;
+  const rte::Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols,
+                                         nt, mat, mat_cols, light, light_cols, nl);
+  const rte::WavefrontParams P{max_depth, bias, min_weight, march, shadow_max_steps,
+                               shadow_min_t, budget};
+  const int threads = 128;
+  const int blocks = (n_rays + threads - 1) / threads;
+  wavefront_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      T, P, o, d, out, n_rays, dropped);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,10 +1,12 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ../csrc are compiled at first use into one shared library
-with a plain C interface:
+with a plain C interface. Each source is compiled by its own nvcc, all
+started together, and one more links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> chain_trace.cu spp_trace.cu chain_grad.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> <source>   (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 No fast-math flags: the kernels are fp32 with IEEE division and square
 root, like the reference. The library goes to build/raytracingengine_tpu_torch/
@@ -26,13 +28,13 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("chain_trace.cu", "spp_trace.cu", "chain_grad.cu")
-HEADERS = ("trace_common.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+SOURCES = (
+    "chain_trace.cu", "spp_trace.cu", "chain_grad.cu", "wavefront_trace.cu",
+    "wavefront_spp_trace.cu",
 )
+HEADERS = ("trace_common.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracingengine_tpu_torch"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,6 +42,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: columns, count; mat: pointer, columns).
 _TABLE_ARGTYPES = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I]
 _TRACE_ARGTYPES = [_I, _F, _F, _P]  # max_depth, bias, min_weight, stream
+#: max_depth, bias, min_weight, march, shadow_max_steps, shadow_min_t,
+#: budget, dropped-push counter, stream
+_WAVEFRONT_ARGTYPES = [_I, _F, _F, _I, _I, _F, _I, _P, _P]
 
 
 def nvcc() -> str:
@@ -59,6 +64,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"librte_trace-{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every nvcc -> their joined output; raise if one failed."""
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> tuple[Path, str]:
     """Compile the library if it is not built yet -> (path, compiler log).
 
@@ -68,17 +90,16 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, s.replace(".cu", ".o")) for s in SOURCES]
+        log = _run([
+            _start([nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / s)])
+            for s, obj in zip(SOURCES, objs)
+        ])
+        lib = os.path.join(tmp, out.name)
+        log += _run([_start([nvcc(), *ARCH_FLAGS, "-shared", "-o", lib, *objs])])
+        os.replace(lib, out)
+    return out, log
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,6 +118,13 @@ def load_library() -> ctypes.CDLL:
         _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _I] + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad.restype = _I
+    lib.rte_wavefront_trace.argtypes = _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
+    lib.rte_wavefront_trace.restype = _I
+    lib.rte_wavefront_spp_trace.argtypes = (
+        _TABLE_ARGTYPES + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32]
+        + _WAVEFRONT_ARGTYPES
+    )
+    lib.rte_wavefront_spp_trace.restype = _I
     lib.rte_chain_grad_reduce.argtypes = [_P, _I, _I, _P, _P]
     lib.rte_chain_grad_reduce.restype = _I
     lib.rte_error_string.argtypes = [_I]

@@ -217,10 +217,11 @@ def _tri_t(tri, i, ox, oy, oz, dx, dy, dz):
     return t_new, hit
 
 
-def _closest_hit(T: _HostTables, ox, oy, oz, dx, dy, dz):
-    """Linear scan -> (t, nx, ny, nz, ar, ag, ab, spec, shin); t >= _INF
-    means miss. Every hit field updates under ONE `closer` predicate, so
-    an exact edge hit cannot update t without its normal and material."""
+def _closest_scan(T: _HostTables, ox, oy, oz, dx, dy, dz):
+    """Linear scan -> (t, nx, ny, nz, gi); t >= _INF means miss, gi is the
+    winner's global index (spheres, planes, triangles). Every hit field
+    updates under ONE `closer` predicate, so an exact edge hit cannot
+    update t without its normal and material."""
     t = torch.full_like(ox, _INF)
     nx, ny, nz = torch.zeros_like(ox), torch.zeros_like(ox), torch.zeros_like(ox)
     gi = torch.zeros(ox.shape, dtype=torch.long, device=ox.device)
@@ -248,6 +249,13 @@ def _closest_hit(T: _HostTables, ox, oy, oz, dx, dy, dz):
     for i in range(T.nt):
         t_new, hit = _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz)
         upd(t_new, hit, (T.tri[9][i], T.tri[10][i], T.tri[11][i]), T.ns + T.np + i)
+    return t, nx, ny, nz, gi
+
+
+def _closest_hit(T: _HostTables, ox, oy, oz, dx, dy, dz):
+    """Linear scan -> (t, nx, ny, nz, ar, ag, ab, spec, shin); t >= _INF
+    means miss."""
+    t, nx, ny, nz, gi = _closest_scan(T, ox, oy, oz, dx, dy, dz)
     m = T.mat_t[:, gi]  # [7, R]; miss lanes read column 0 and are masked
     return t, nx, ny, nz, m[0], m[1], m[2], m[3], m[4]
 
@@ -394,6 +402,21 @@ def check_tables(tables: SceneTables, device: torch.device) -> None:
             raise ValueError(f"table {name}: expected float32 [{r}, n], got {t.dtype} {tuple(t.shape)}")
         if t.shape[1] < max(n, 1) or not t.is_contiguous():
             raise ValueError(f"table {name}: {tuple(t.shape)} for {n} primitives, contiguous={t.is_contiguous()}")
+
+
+def pallas_applicable(cfg, mode: str) -> bool:
+    """Does a trace kernel cover (config, mode)? Chain mode: the chain
+    kernels, with binary shadows only (on the opaque scenes chain mode is
+    chosen for, the march is binary; a caller forcing chain mode on a
+    transparent scene keeps the march on the integrator). Wavefront mode:
+    the wavefront kernels (kernels/wavefront_trace.py), with binary or
+    march shadows. The JAX package's primitive ceiling is its TPU's SMEM
+    size; these kernels read the tables from device memory and have none."""
+    if mode == "chain":
+        return cfg.shadow_mode == "binary"
+    if mode == "wavefront":
+        return cfg.shadow_mode in ("binary", "march")
+    return False
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:

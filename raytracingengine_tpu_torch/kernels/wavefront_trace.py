@@ -1,0 +1,392 @@
+"""The full Whitted recursion (glass): plain versions and CUDA kernels.
+
+One call traces [R,3] origins and directions to [R,3] HDR radiance through
+the reference's binary recursion tree (Scene.h:131-198): at each hit the
+local light weighted by (1 - transparency), a reflection child weighted by
+the Schlick Fresnel term F (transparent; TIR forces F = 1) or by the
+specular (opaque), and a refraction child weighted transparency * (1 - F).
+A per-lane LIFO stack of (o, d, weight, depth) with cap = max_depth + 2
+slots holds the children; each iteration pops one node per live lane, and
+a lane's trace ends when its stack is empty or after `cfg.budget()` pops.
+Shadows are the reference's transmittance march (`shadow_mode="march"`)
+or one any-hit scan (`"binary"`).
+
+  * `trace_wavefront_plain` is the plain PyTorch version, a line-by-line
+    mirror of the TPU kernel body `_dfs_trace_tile` on [R] lanes, reading
+    the tables as Python floats (`_HostTables`). It carries no gradient.
+  * `wavefront_spp_trace_plain` is its AA loop: sample 0 unjittered,
+    samples 1.. with the Philox jitter of kernels/spp_trace.py.
+  * `wavefront_trace` and `wavefront_spp_trace` are the wrappers: for CPU
+    tensors they call the plain versions; for CUDA tensors they launch
+    csrc/wavefront_trace.cu and csrc/wavefront_spp_trace.cu and count the
+    launch in `.launches`. Both are forward-only on either device.
+
+They replace raytracingengine_tpu/kernels/wavefront_trace.py::
+wavefront_trace_pallas and wavefront_spp_trace_pallas.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracingengine_tpu_torch.core import vecmath as vm
+from raytracingengine_tpu_torch.kernels import _build
+from raytracingengine_tpu_torch.kernels.chain_trace import (
+    _INF,
+    SceneTables,
+    _any_hit,
+    _check_rays,
+    _closest_scan,
+    _HostTables,
+    _sky,
+    check_tables,
+)
+from raytracingengine_tpu_torch.kernels.spp_trace import check_pixels, mean_over_samples
+
+#: Largest stack the CUDA kernels compile (csrc/trace_common.cuh kMaxCap):
+#: max_depth + 2 <= MAX_CAP.
+MAX_CAP = 32
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _nearest_t_tau(T: _HostTables, ox, oy, oz, dx, dy, dz):
+    """The march's scan -> (t, transparency of the winner): the closest-hit
+    scan's t and winner (the kernel's reduced scan skips the normal)."""
+    t, _, _, _, gi = _closest_scan(T, ox, oy, oz, dx, dy, dz)
+    return t, T.mat_t[5, gi]  # miss lanes read column 0 and are masked
+
+
+def _march_T(T: _HostTables, cfg, ox, oy, oz, ldx, ldy, ldz, max_dist, active, observer=None):
+    """computeTransmittance (Scene.h:35-77) for a lane batch -> T [R]: the
+    TPU kernel's `_march_T`, a masked loop that steps every live lane until
+    none is left or after shadow_max_steps steps."""
+    bias = cfg.bias
+    live = active & (max_dist > 0.0)
+    traveled = torch.zeros_like(ox)
+    tr = torch.ones_like(ox)
+    for _ in range(cfg.shadow_max_steps):
+        if not bool(live.any()):
+            break
+        if observer is not None:
+            observer.march_step(ox, oy, oz, ldx, ldy, ldz, live)
+        t, tau_raw = _nearest_t_tau(T, ox, oy, oz, ldx, ldy, ldz)
+        valid = t < _INF
+        t = torch.where(valid, t, 0.0)
+        c_zero = valid & (t <= 0.0)
+        c_near = valid & (t > 0.0) & (t <= bias)
+        c_beyond = valid & (t > bias) & (traveled + t >= max_dist)
+        c_pass = valid & (t > bias) & (traveled + t < max_dist)
+        step = torch.where(c_zero, bias, torch.where(c_near | c_pass, t + bias, 0.0))
+        n_tr = torch.where(c_pass, tr * vm.clip(tau_raw, 0.0, 1.0), tr)
+        ox = torch.where(live, ox + ldx * step, ox)
+        oy = torch.where(live, oy + ldy * step, oy)
+        oz = torch.where(live, oz + ldz * step, oz)
+        traveled = torch.where(live, traveled + step, traveled)
+        tr = torch.where(live, n_tr, tr)
+        live = live & valid & ~c_beyond & (tr > cfg.shadow_min_t) & (traveled < max_dist)
+    return vm.clip(tr, 0.0, 1.0)
+
+
+def trace_wavefront_plain(
+    tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg, observer=None
+) -> torch.Tensor:
+    """[R,3] origins/directions -> [R,3] HDR radiance, in plain PyTorch.
+
+    A line-by-line mirror of the TPU kernel's `_dfs_trace_tile`. The stack
+    is a [cap, R, 8] tensor (o, d, weight, depth per slot) indexed per lane
+    by sp; a dead lane pops slot 0 and is masked. `observer`, if given, is
+    told of every pop, closest-hit scan, shadow ray, march step and any-hit
+    scan (roofline.wavefront_work counts the work with it)."""
+    T = _HostTables(tables)
+    bias, min_weight, max_depth = cfg.bias, cfg.min_weight, cfg.max_depth
+    march = cfg.shadow_mode == "march"
+    cap = max_depth + 2
+    r = o.shape[0]
+    lanes = torch.arange(r, device=o.device)
+    zero = torch.zeros(r, dtype=torch.float32, device=o.device)
+    one = torch.ones_like(zero)
+    stack = torch.zeros((cap, r, 8), dtype=torch.float32, device=o.device)
+    stack[0] = torch.stack([*o.unbind(-1), *d.unbind(-1), one, zero], dim=-1)
+    sp = torch.ones(r, dtype=torch.long, device=o.device)
+    acc_r, acc_g, acc_b = zero, zero, zero
+
+    def push(sp, mask, fields):
+        """Write `fields` at each masked lane's sp while sp < cap."""
+        mask = mask & (sp < cap)
+        slot = sp.clamp_max(cap - 1)
+        new = torch.stack(fields, dim=-1)
+        stack[slot, lanes] = torch.where(mask[:, None], new, stack[slot, lanes])
+        return sp + mask.long()
+
+    for _ in range(cfg.budget()):
+        live = sp > 0
+        if not bool(live.any()):
+            break
+        if observer is not None:
+            observer.pop(live)
+        node = stack[(sp - 1).clamp_min(0), lanes]
+        ox, oy, oz, dx, dy, dz, weight, depth = node.unbind(-1)
+        sp = torch.where(live, sp - 1, sp)
+
+        at_max = depth >= max_depth
+        if_max_sky = live & at_max
+        shadeable = live & ~at_max
+        skr, skg, skb = _sky(dy)
+        if observer is not None:
+            observer.closest(ox, oy, oz, dx, dy, dz, shadeable)
+        t, nx, ny, nz, gi = _closest_scan(T, ox, oy, oz, dx, dy, dz)
+        ar, ag, ab, spec, shin, tau_raw, eta_t = T.mat_t[:, gi]
+        hit = t < _INF
+        miss = shadeable & ~hit
+        shade = shadeable & hit
+        sky_lanes = if_max_sky | miss
+        acc_r = acc_r + torch.where(sky_lanes, weight * skr, 0.0)
+        acc_g = acc_g + torch.where(sky_lanes, weight * skg, 0.0)
+        acc_b = acc_b + torch.where(sky_lanes, weight * skb, 0.0)
+
+        # Front-face flip (Scene.h:145-146)
+        front = nx * dx + ny * dy + nz * dz < 0.0
+        flip = torch.where(front, 1.0, -1.0)
+        nx, ny, nz = nx * flip, ny * flip, nz * flip
+        t_safe = torch.where(hit, t, 0.0)
+        px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
+        tau = vm.clip(tau_raw, 0.0, 1.0)
+
+        # Direct lighting (Scene.h:79-129)
+        sox, soy, soz = px + nx * bias, py + ny * bias, pz + nz * bias
+        spec_on = (tau_raw <= 0.0) & (spec > 0.0)  # Scene.h:115
+        dr, dg, db, sr, sg, sb = zero, zero, zero, zero, zero, zero
+        for li in range(T.nl):
+            lx, ly, lz = T.light[0][li], T.light[1][li], T.light[2][li]
+            er, eg, eb = T.light[3][li], T.light[4][li], T.light[5][li]
+            vx, vy, vz = lx - px, ly - py, lz - pz
+            dist = torch.sqrt((vx * vx + vy * vy + vz * vz).clamp_min(1e-30))
+            inv_d = 1.0 / dist
+            ldx, ldy, ldz = vx * inv_d, vy * inv_d, vz * inv_d
+            ndotl = (nx * ldx + ny * ldy + nz * ldz).clamp_min(0.0)
+            ok = shade & (T.light[6][li] > 0.0) & (dist > bias) & (ndotl > 0.0)
+            if observer is not None:
+                observer.shadow(ok)
+            if march:
+                tr = _march_T(T, cfg, sox, soy, soz, ldx, ldy, ldz, dist - bias, ok, observer)
+            else:
+                if observer is not None:
+                    observer.any_hit(sox, soy, soz, ldx, ldy, ldz, ok, bias, dist - bias)
+                occ = (_any_hit(T, sox, soy, soz, ldx, ldy, ldz, bias, dist - bias)
+                       if bool(ok.any()) else torch.ones_like(ok))
+                tr = torch.where(occ, 0.0, 1.0)
+            vis = ok & (tr > bias)
+            inv_d2 = inv_d * inv_d
+            contrib = inv_d2 * ndotl * tr
+            dr = dr + torch.where(vis, er * contrib, 0.0)
+            dg = dg + torch.where(vis, eg * contrib, 0.0)
+            db = db + torch.where(vis, eb * contrib, 0.0)
+            hx_, hy_, hz_ = ldx - dx, ldy - dy, ldz - dz
+            invh = torch.rsqrt((hx_ * hx_ + hy_ * hy_ + hz_ * hz_).clamp_min(1e-24))
+            ndoth = ((nx * hx_ + ny * hy_ + nz * hz_) * invh).clamp_min(0.0)
+            s_ok = vis & spec_on & (ndoth > 0.0)
+            ndoth_s = torch.where(s_ok, ndoth, 1.0)
+            sf = torch.exp(shin * torch.log(ndoth_s)) * inv_d2 * tr
+            sr = sr + torch.where(s_ok, er * sf, 0.0)
+            sg = sg + torch.where(s_ok, eg * sf, 0.0)
+            sb = sb + torch.where(s_ok, eb * sf, 0.0)
+        wl = weight * (1.0 - tau)  # Scene.h:171-173
+        acc_r = acc_r + torch.where(shade, wl * (ar * dr + sr * spec), 0.0)
+        acc_g = acc_g + torch.where(shade, wl * (ag * dg + sg * spec), 0.0)
+        acc_b = acc_b + torch.where(shade, wl * (ab * db + sb * spec), 0.0)
+
+        # Schlick Fresnel (Scene.h:161-168)
+        ddn = dx * nx + dy * ny + dz * nz
+        cos_theta = (-ddn).clamp_min(0.0)
+        f0r = (eta_t - 1.0) / (eta_t + 1.0)
+        f0 = f0r * f0r
+        omc = 1.0 - cos_theta
+        omc2 = omc * omc
+        fresnel = f0 + (1.0 - f0) * omc2 * omc2 * omc
+
+        # Refraction (Scene.h:175-187): d, n unit, cosi = d.n, TIR -> 0.
+        eta = torch.where(front, 1.0 / eta_t, eta_t)
+        cosi = vm.clip(ddn, -1.0, 1.0)
+        k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+        tir_k = k < 0.0
+        coef = eta * cosi + torch.sqrt(k.clamp_min(0.0))
+        rfx = torch.where(tir_k, 0.0, dx * eta - nx * coef)
+        rfy = torch.where(tir_k, 0.0, dy * eta - ny * coef)
+        rfz = torch.where(tir_k, 0.0, dz * eta - nz * coef)
+        rf2 = rfx * rfx + rfy * rfy + rfz * rfz
+        rflen = torch.sqrt(rf2)
+        wants_refr = shade & (tau > 0.0)
+        has_refr = wants_refr & (rflen > bias)
+        tir = wants_refr & ~(rflen > bias)
+        inv_rf = torch.rsqrt(rf2.clamp_min(1e-24))
+        rfx, rfy, rfz = rfx * inv_rf, rfy * inv_rf, rfz * inv_rf
+        refr_w = weight * tau * (1.0 - fresnel)  # F before TIR (Scene.h:182)
+
+        # Reflection (Scene.h:189-195)
+        reflectiveness = torch.where(tau > 0.0, torch.where(tir, 1.0, fresnel), spec)
+        rlx = dx - 2.0 * ddn * nx
+        rly = dy - 2.0 * ddn * ny
+        rlz = dz - 2.0 * ddn * nz
+        inv_rl = torch.rsqrt((rlx * rlx + rly * rly + rlz * rlz).clamp_min(1e-24))
+        rlx, rly, rlz = rlx * inv_rl, rly * inv_rl, rlz * inv_rl
+        refl_w = weight * reflectiveness
+
+        # Reflection first, refraction second: refraction pops first, as the
+        # reference's recursion visits it.
+        child = depth + 1.0
+        sp = push(
+            sp, shade & (reflectiveness > bias) & (refl_w >= min_weight),
+            (px + rlx * bias, py + rly * bias, pz + rlz * bias, rlx, rly, rlz, refl_w, child),
+        )
+        b100 = bias * 1e2  # Scene.h:180
+        sp = push(
+            sp, has_refr & (refr_w >= min_weight),
+            (px + rfx * b100, py + rfy * b100, pz + rfz * b100, rfx, rfy, rfz, refr_w, child),
+        )
+    return torch.stack([acc_r, acc_g, acc_b], dim=-1)
+
+
+def wavefront_spp_trace_plain(
+    tables: SceneTables,
+    camera,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    cfg,
+    *,
+    seed: int = 0,
+    jitter: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pixels px/py [R] -> mean HDR [R, 3] over `camera.spp` samples, each
+    traced by `trace_wavefront_plain`. `jitter` [spp, R, 2] replaces the
+    generator, as in kernels/spp_trace.py::spp_trace_plain."""
+    trace = lambda o, d: trace_wavefront_plain(tables, o, d, cfg)  # noqa: E731
+    return mean_over_samples(trace, camera, px, py, seed=seed, jitter=jitter)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    """The wavefront kernels and their plain versions are forward-only; the
+    plain versions read the tables as Python floats, so a gradient through
+    them would be silently zero."""
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "not ported yet: gradients through the wavefront trace; its adjoint, "
+            "the glass adjoint wavefront_grad_pallas (ROADMAP queue 2 item 6), is "
+            "the next slice. Differentiate through render.integrator."
+            "integrate_wavefront (use_pallas=False) instead"
+        )
+
+
+def _check_cfg(cfg) -> None:
+    if cfg.shadow_mode not in ("binary", "march"):
+        raise ValueError(f"wavefront trace: shadow_mode {cfg.shadow_mode!r} is not binary or march")
+    if not 0 <= cfg.max_depth <= MAX_CAP - 2:
+        raise ValueError(
+            f"wavefront trace: max_depth {cfg.max_depth} outside [0, {MAX_CAP - 2}] "
+            f"(the kernels compile a stack of {MAX_CAP} nodes)"
+        )
+
+
+#: device -> int32 [1] count of pushes the kernels dropped on a full stack.
+_DROPPED: dict[torch.device, torch.Tensor] = {}
+
+
+def _dropped_counter(device: torch.device) -> torch.Tensor:
+    if device not in _DROPPED:
+        _DROPPED[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _DROPPED[device]
+
+
+def dropped_pushes() -> int:
+    """Pushes the CUDA kernels dropped on a full stack since the first
+    launch, over all devices (0 unless cap = max_depth + 2 fails to bound
+    the DFS)."""
+    return sum(int(c.item()) for c in _DROPPED.values())
+
+
+def _wavefront_args(cfg, dropped: torch.Tensor) -> list:
+    return [
+        cfg.max_depth, cfg.bias, cfg.min_weight, int(cfg.shadow_mode == "march"),
+        cfg.shadow_max_steps, cfg.shadow_min_t, cfg.budget(), dropped.data_ptr(),
+    ]
+
+
+def wavefront_trace(
+    tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg
+) -> torch.Tensor:
+    """[R,3] origins/directions -> [R,3] HDR radiance.
+
+    CPU tensors run `trace_wavefront_plain`; CUDA tensors launch the CUDA
+    kernel (csrc/wavefront_trace.cu) on the current stream."""
+    _check_rays(o, d)
+    check_tables(tables, o.device)
+    _check_cfg(cfg)
+    check_no_grad(o, d, *tables.tensors())
+    if o.device.type == "cpu":
+        return trace_wavefront_plain(tables, o, d, cfg)
+    if o.device.type != "cuda":
+        raise ValueError(f"wavefront_trace: unsupported device {o.device}")
+    if not (o.is_contiguous() and d.is_contiguous()):
+        raise ValueError("wavefront_trace: o and d must be contiguous")
+    lib = _build.load_library()
+    out = torch.empty_like(o)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rte_wavefront_trace(
+            *_build.table_args(tables),
+            o.data_ptr(), d.data_ptr(), out.data_ptr(), o.shape[0],
+            *_wavefront_args(cfg, _dropped_counter(o.device)), stream,
+        )
+    _build.check(lib, err, "wavefront_trace")
+    wavefront_trace.launches += 1
+    return out
+
+
+def wavefront_spp_trace(
+    tables: SceneTables,
+    camera,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    cfg,
+    *,
+    seed: int = 0,
+) -> torch.Tensor:
+    """Pixels px/py (int32 [R]) -> mean HDR [R, 3] over `camera.spp`.
+
+    CPU tensors run `wavefront_spp_trace_plain`; CUDA tensors launch the
+    CUDA kernel (csrc/wavefront_spp_trace.cu) on the current stream."""
+    check_pixels(tables, camera, px, py)
+    _check_cfg(cfg)
+    check_no_grad(camera.position, camera.focal, *tables.tensors())
+    if px.device.type == "cpu":
+        return wavefront_spp_trace_plain(tables, camera, px, py, cfg, seed=seed)
+    if px.device.type != "cuda":
+        raise ValueError(f"wavefront_spp_trace: unsupported device {px.device}")
+    lib = _build.load_library()
+    cam = torch.stack([camera.position[0], camera.position[1], camera.position[2],
+                       camera.focal]).to(torch.float32).contiguous()
+    out = torch.empty((px.shape[0], 3), dtype=torch.float32, device=px.device)
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rte_wavefront_spp_trace(
+            *_build.table_args(tables),
+            cam.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(),
+            px.shape[0], camera.width, camera.height, camera.spp, seed & 0xFFFFFFFF,
+            *_wavefront_args(cfg, _dropped_counter(px.device)), stream,
+        )
+    _build.check(lib, err, "wavefront_spp_trace")
+    wavefront_spp_trace.launches += 1
+    return out
+
+
+#: Kernel launches since the last reset (the CPU path does not count).
+wavefront_trace.launches = 0
+wavefront_spp_trace.launches = 0

@@ -46,3 +46,9 @@ class RenderConfig:
     chunk_size: int = 16384
     #: Use the hand-written trace kernels (kernels/) where they apply.
     use_pallas: bool = False
+
+    def budget(self) -> int:
+        """Wavefront iterations (nodes popped per pixel) before the loop stops."""
+        if self.wavefront_budget is not None:
+            return self.wavefront_budget
+        return min(2 ** (self.max_depth + 1), 4096)

@@ -1,17 +1,23 @@
-"""Whitted integrator for opaque scenes: the recursion as a reflection chain.
+"""Whitted integrator: the recursion re-expressed as masked ray batches.
 
 The reference TraceRay (Scene.h:131-198) adds at each hit the local direct
-lighting weighted by (1 - transparency) and recurses into a reflection ray
-weighted by material.specular (opaque) or the Schlick Fresnel term
-(transparent). Misses and depth exhaustion return the sky. With no
-transparency every node has at most one child, so the recursion is a chain
-and a loop over depth carries (ray, weight, live) per lane.
+lighting weighted by (1 - transparency), then recurses into a refraction
+ray weighted transparency * (1 - F) and a reflection ray weighted F
+(transparent) or material.specular (opaque), with Schlick Fresnel F and
+TIR forcing F = 1 (Scene.h:161-195). Misses and depth exhaustion return
+the sky. Radiance is linear in the children, so the tree flattens into a
+sum over nodes of (path weight x local term), run two ways:
 
-This is the JAX package's render/integrator.py::integrate_chain, the
-all-pairs tensor form: plain PyTorch that autograd differentiates. It is
-the reference the hand-written adjoint (kernels/chain_grad.py) is held to,
-and the route of `render_hdr` with `use_pallas=False`. The branching
-wavefront integrator is not ported yet.
+  * `integrate_chain`: with no transparency every node has at most one
+    child, so a loop over depth carries (ray, weight, live) per lane;
+  * `integrate_wavefront`: the general case, a per-lane LIFO stack of
+    (o, d, weight, depth) with cap = max_depth + 2 slots; each iteration
+    pops one node per lane and pushes up to two children.
+
+These are the JAX package's render/integrator.py, the all-pairs tensor
+form: plain PyTorch that autograd differentiates. They are the route of
+`render_hdr` with `use_pallas=False` and the references the hand-written
+adjoints are held to (integrate_chain: kernels/chain_grad.py).
 """
 
 from __future__ import annotations
@@ -103,3 +109,66 @@ def _chain_scan(flat, o, d, w, live, accum, start_depth, cfg):
         w = torch.where(cont, w * nd["refl_w"], w)
         live = cont
     return accum + torch.where(live[:, None], w[:, None] * sky_color(d), 0.0)
+
+
+def integrate_wavefront(flat: FlatScene, o: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
+    """General integrator [R,3] x [R,3] -> HDR [R,3]: per-lane DFS over the
+    binary recursion tree.
+
+    The stack is [R, cap] tensors of origins, directions, weights and
+    depths. A push writes slot clip(sp, 0, cap - 1) where its mask holds:
+    the reflection child first, then the refraction child, so refraction
+    pops first, as the reference visits it; each is pruned by min_weight.
+    The loop stops when every stack is empty or after `cfg.budget()`
+    iterations; with `cfg.differentiable` it runs all `cfg.budget()`
+    iterations, which gives the same result (an empty lane adds zeros)."""
+    r = o.shape[0]
+    cap = cfg.max_depth + 2  # the DFS bound: net +1 per level
+    lanes = torch.arange(r, device=o.device)
+    slots = torch.arange(cap, device=o.device)
+    stack_o = torch.cat([o[:, None], o.new_zeros((r, cap - 1, 3))], dim=1)
+    unused_d = o.new_tensor([0.0, 0.0, 1.0]).expand(r, cap - 1, 3)  # benign unit dir
+    stack_d = torch.cat([d[:, None], unused_d], dim=1)
+    stack_w = torch.cat([o.new_ones((r, 1)), o.new_zeros((r, cap - 1))], dim=1)
+    stack_depth = torch.zeros((r, cap), dtype=torch.long, device=o.device)
+    sp = torch.ones(r, dtype=torch.long, device=o.device)
+    accum = o.new_zeros((r, 3))
+
+    def push(stacks, sp, mask, o_new, d_new, w_new, depth_new):
+        at = mask[:, None] & (slots[None, :] == sp.clamp(0, cap - 1)[:, None])  # [R, cap]
+        s_o, s_d, s_w, s_dep = stacks
+        stacks = (
+            torch.where(at[..., None], o_new[:, None], s_o),
+            torch.where(at[..., None], d_new[:, None], s_d),
+            torch.where(at, w_new[:, None], s_w),
+            torch.where(at, depth_new[:, None], s_dep),
+        )
+        return stacks, sp + mask.long()
+
+    stacks = (stack_o, stack_d, stack_w, stack_depth)
+    for _ in range(cfg.budget()):
+        live = sp > 0
+        if not cfg.differentiable and not bool(live.any()):
+            break
+        s_o, s_d, s_w, s_dep = stacks
+        top = (sp - 1).clamp(0, cap - 1)
+        o_c, d_c, w, depth = s_o[lanes, top], s_d[lanes, top], s_w[lanes, top], s_dep[lanes, top]
+        sp = sp - live.long()
+
+        at_max = depth >= cfg.max_depth
+        if_max_sky = live & at_max
+        nd = _shade_node(flat, o_c, d_c, live & ~at_max, cfg)
+        sky_lanes = if_max_sky | nd["miss"]
+        accum = accum + torch.where(sky_lanes[:, None], w[:, None] * sky_color(d_c), 0.0)
+        accum = accum + torch.where(nd["shade"][:, None], w[:, None] * nd["local_term"], 0.0)
+
+        refl_w, refr_w = w * nd["refl_w"], w * nd["refr_w"]
+        stacks, sp = push(
+            stacks, sp, nd["has_refl"] & (refl_w >= cfg.min_weight),
+            nd["refl_o"], nd["refl_dir"], refl_w, depth + 1,
+        )
+        stacks, sp = push(
+            stacks, sp, nd["has_refr"] & (refr_w >= cfg.min_weight),
+            nd["refr_o"], nd["refr_dir"], refr_w, depth + 1,
+        )
+    return accum

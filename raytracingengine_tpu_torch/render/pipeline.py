@@ -2,17 +2,28 @@
 
 The reference's RenderImage is one parallel loop over the flat pixel
 index with an AA loop per pixel (Scene.h:283-328). Here pixels are traced
-in chunks of `cfg.chunk_size`:
+in chunks of `cfg.chunk_size`. The mode is "chain" for opaque scenes and
+"wavefront" when a material transmits (or as `cfg.mode` forces). Where a
+kernel covers the mode and shadows (`kernels.chain_trace.
+pallas_applicable`) and `use_pallas=True`, the routes are, as the JAX
+package's `_render_chunk`:
 
-  * spp == 1, `use_pallas=True`: camera rays (Camera.rays_for_pixels) ->
+  * chain, spp == 1: camera rays (Camera.rays_for_pixels) ->
     kernels.chain_grad.chain_trace_fused: the chain trace kernel forward
     and, when a scene or camera tensor requires grad, the adjoint kernel
     backward;
-  * spp == 1, `use_pallas=False`: camera rays -> render.integrator.
-    integrate_chain, the all-pairs integrator that autograd differentiates;
-  * spp > 1: pixel coordinates -> kernels.spp_trace, which runs the whole
-    AA loop per pixel with jitter keyed by (seed, pixel id, sample), so a
-    render does not depend on how the frame is chunked. It is forward-only.
+  * chain, spp > 1: pixel coordinates -> kernels.spp_trace, the whole AA
+    loop per pixel;
+  * wavefront, spp == 1: camera rays -> kernels.wavefront_trace.
+    wavefront_trace (forward-only);
+  * wavefront, spp > 1: pixel coordinates -> wavefront_spp_trace.
+
+Otherwise (`use_pallas=False`, or chain mode with march shadows) camera
+rays go to render.integrator.integrate_chain or integrate_wavefront, the
+all-pairs integrators that autograd differentiates: no kernel covers that
+case in either package. The AA loops key their jitter by (seed, pixel id,
+sample), so a render does not depend on how the frame is chunked; they are
+forward-only.
 
 The chunks are joined with torch.cat, so gradients flow through the frame.
 The device of the scene decides: CUDA tensors launch the CUDA kernels, CPU
@@ -26,12 +37,13 @@ from __future__ import annotations
 import torch
 
 from raytracingengine_tpu_torch.core.camera import Camera
-from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+from raytracingengine_tpu_torch.geometry.intersect import FlatScene, flatten_scene
 from raytracingengine_tpu_torch.kernels.chain_grad import chain_trace_fused
-from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
+from raytracingengine_tpu_torch.kernels.chain_trace import SceneTables, pack_scene_tables, pallas_applicable
 from raytracingengine_tpu_torch.kernels.spp_trace import spp_trace
+from raytracingengine_tpu_torch.kernels.wavefront_trace import wavefront_spp_trace, wavefront_trace
 from raytracingengine_tpu_torch.render.config import RenderConfig
-from raytracingengine_tpu_torch.render.integrator import integrate_chain
+from raytracingengine_tpu_torch.render.integrator import integrate_chain, integrate_wavefront
 from raytracingengine_tpu_torch.scene import Scene, tensor_leaves
 
 
@@ -49,21 +61,39 @@ def _requires_grad(*objs) -> bool:
     )
 
 
+def uses_kernels(mode: str, cfg: RenderConfig) -> bool:
+    return cfg.use_pallas and pallas_applicable(cfg, mode)
+
+
 def check_supported(mode: str, cfg: RenderConfig, spp: int = 1, grad: bool = False) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
+    if mode not in ("chain", "wavefront"):
+        raise ValueError(f"mode {mode!r}: expected 'auto', 'chain' or 'wavefront'")
+    kernels = uses_kernels(mode, cfg)
     todo = None
-    if mode != "chain":
-        todo = f"mode={mode!r}: the wavefront path (ROADMAP queue 1 item 9)"
-    elif cfg.shadow_mode != "binary":
-        todo = (f"shadow_mode={cfg.shadow_mode!r}: the transmittance march and "
-                "soft shadows (ROADMAP queue 1 item 3)")
+    if cfg.shadow_mode not in ("binary", "march"):
+        todo = f"shadow_mode={cfg.shadow_mode!r}: soft visibility (ROADMAP queue 1 item 3)"
     elif cfg.soft_primary:
         todo = "soft_primary: render/soft_primary.py (ROADMAP queue 1 item 11)"
-    elif spp > 1 and (grad or cfg.differentiable or not cfg.use_pallas):
-        todo = ("spp > 1 with gradients, differentiable=True or use_pallas=False: "
-                "the per-sample differentiable loop (ROADMAP queue 1 item 13)")
+    elif spp > 1 and (grad or cfg.differentiable or not kernels):
+        todo = ("spp > 1 with gradients, differentiable=True or no kernel for the mode "
+                "and shadows: the per-sample differentiable loop (ROADMAP queue 1 item 13)")
+    elif grad and kernels and mode == "wavefront":
+        todo = ("gradients through the wavefront kernel: the glass adjoint "
+                "wavefront_grad_pallas (ROADMAP queue 2 item 6); use_pallas=False "
+                "differentiates integrate_wavefront")
     if todo is not None:
         raise NotImplementedError(f"not ported yet: {todo}")
+
+
+def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg) -> torch.Tensor:
+    """Camera or arbitrary rays [R,3] -> HDR [R,3] by the mode's route."""
+    if tables is None:
+        integrate = integrate_wavefront if mode == "wavefront" else integrate_chain
+        return integrate(flat, o, d, cfg)
+    if mode == "wavefront":
+        return wavefront_trace(tables, o.contiguous(), d.contiguous(), cfg)
+    return chain_trace_fused(tables, o, d, cfg)
 
 
 def render_rays(
@@ -73,11 +103,12 @@ def render_rays(
     cfg: RenderConfig,
 ) -> torch.Tensor:
     """Trace an arbitrary ray block [R,3] x [R,3] -> HDR [R,3]."""
-    check_supported(resolve_mode(scene, cfg), cfg)
+    mode = resolve_mode(scene, cfg)
+    grad = _requires_grad(scene) or (torch.is_grad_enabled() and (o.requires_grad or d.requires_grad))
+    check_supported(mode, cfg, 1, grad)
     flat = flatten_scene(scene)
-    if not cfg.use_pallas:
-        return integrate_chain(flat, o, d, cfg)
-    return chain_trace_fused(pack_scene_tables(flat), o, d, cfg)
+    tables = pack_scene_tables(flat) if uses_kernels(mode, cfg) else None
+    return _trace(flat, tables, mode, o, d, cfg)
 
 
 def render_hdr(
@@ -92,7 +123,8 @@ def render_hdr(
 
     `seed` keys the AA jitter (spp > 1). Without a seed, it is drawn from
     `generator`; without either it is 0, so a render is reproducible."""
-    check_supported(resolve_mode(scene, cfg), cfg, camera.spp, _requires_grad(scene, camera))
+    mode = resolve_mode(scene, cfg)
+    check_supported(mode, cfg, camera.spp, _requires_grad(scene, camera))
     device = scene.device
     if camera.device != device:
         raise ValueError(f"camera on {camera.device}, scene on {device}")
@@ -101,7 +133,8 @@ def render_hdr(
             torch.randint(0, 2**31 - 1, (), generator=generator, device=generator.device)
         )
     flat = flatten_scene(scene)
-    tables = pack_scene_tables(flat) if cfg.use_pallas else None
+    tables = pack_scene_tables(flat) if uses_kernels(mode, cfg) else None
+    aa = wavefront_spp_trace if mode == "wavefront" else spp_trace
     r = camera.num_pixels
     chunk = max(1, min(cfg.chunk_size, r))
     parts = []
@@ -109,11 +142,8 @@ def render_hdr(
         pid = torch.arange(start, min(start + chunk, r), dtype=torch.int32, device=device)
         px, py = pid % camera.width, pid // camera.width
         if camera.spp > 1:
-            parts.append(spp_trace(tables, camera, px, py, cfg, seed=seed))
+            parts.append(aa(tables, camera, px, py, cfg, seed=seed))
             continue
         o, d = camera.rays_for_pixels(px, py)
-        if tables is None:
-            parts.append(integrate_chain(flat, o, d, cfg))
-        else:
-            parts.append(chain_trace_fused(tables, o, d, cfg))
+        parts.append(_trace(flat, tables, mode, o, d, cfg))
     return torch.cat(parts).reshape(camera.height, camera.width, 3)

@@ -1,17 +1,20 @@
-"""Shading: sky, binary shadow visibility, direct lighting.
+"""Shading: sky, shadow transmittance, direct lighting.
 
 The same formulas as the JAX package's render/shading.py, on tensors:
 
   * `sky_color` — vertical sky gradient (Scene.h:30-33),
+  * `transmittance_hard` — the reference's multiplicative-transparency
+    shadow march (Scene.h:35-77, `shadow_mode="march"`), a masked loop in
+    which every lane steps in lockstep until all are done,
   * `transmittance_binary` — hard visibility in one any-hit pass, equal to
-    the reference's transmittance march on opaque scenes,
+    the march on opaque scenes,
   * `direct_light` — per-light diffuse + Blinn-Phong specular with 1/d^2
     falloff (Scene.h:79-129).
 
 Every guard that keeps the JAX backward pass NaN-free is kept: square
 roots and reciprocals are taken on masked-safe operands, so a masked lane
-never feeds inf into a zero cotangent. The transmittance march and soft
-shadows (`shadow_mode="march"`, `"soft"`) are not ported yet.
+never feeds inf into a zero cotangent. Soft shadows (`shadow_mode="soft"`)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ from __future__ import annotations
 import torch
 
 from raytracingengine_tpu_torch.core import vecmath as vm
-from raytracingengine_tpu_torch.geometry.intersect import FlatScene, Hit, all_distances
+from raytracingengine_tpu_torch.geometry.intersect import (
+    FlatScene,
+    Hit,
+    all_distances,
+    closest_hit,
+)
 
 
 def sky_color(d: torch.Tensor) -> torch.Tensor:
@@ -29,6 +37,49 @@ def sky_color(d: torch.Tensor) -> torch.Tensor:
     white = torch.ones(3, dtype=d.dtype, device=d.device)
     blue = torch.tensor([0.5, 0.7, 1.0], dtype=d.dtype, device=d.device)
     return white * (1.0 - t)[..., None] + blue * t[..., None]
+
+
+def transmittance_hard(
+    flat: FlatScene,
+    origin: torch.Tensor,  # [B,3]
+    direction: torch.Tensor,  # [B,3]
+    max_dist: torch.Tensor,  # [B]
+    active: torch.Tensor,  # [B] bool, lanes to march
+    cfg,
+) -> torch.Tensor:
+    """computeTransmittance (Scene.h:35-77) for a lane batch -> T [B].
+
+    Per step: closest hit from the current origin; no hit ends the march;
+    t <= 0 micro-steps by bias; 0 < t <= bias steps past the surface
+    without attenuating; a hit at or beyond max_dist ends it; otherwise
+    T *= clip(transparency, 0, 1) and the march steps past the hit. A lane
+    stops when T <= shadow_min_t, traveled >= max_dist, or after
+    shadow_max_steps steps. The while form stops once no lane is live;
+    `cfg.differentiable` runs all shadow_max_steps steps, which gives the
+    same T (a dead lane's state is held)."""
+    bias = cfg.bias
+    o = origin
+    traveled = torch.zeros_like(max_dist)
+    T = torch.ones_like(max_dist)
+    live = active & (max_dist > 0.0)
+    for _ in range(cfg.shadow_max_steps):
+        if not cfg.differentiable and not bool(live.any()):
+            break
+        hit = closest_hit(flat, o, direction)
+        valid = hit.valid
+        t = torch.where(valid, hit.t, 0.0)  # keeps the arithmetic NaN-free
+        c_zero = valid & (t <= 0.0)
+        c_near = valid & (t > 0.0) & (t <= bias)
+        c_beyond = valid & (t > bias) & (traveled + t >= max_dist)
+        c_pass = valid & (t > bias) & (traveled + t < max_dist)
+
+        step = torch.where(c_zero, bias, torch.where(c_near | c_pass, t + bias, 0.0))
+        new_T = torch.where(c_pass, T * vm.clip(hit.transparency, 0.0, 1.0), T)
+        o = torch.where(live[:, None], o + direction * step[:, None], o)
+        traveled = torch.where(live, traveled + step, traveled)
+        T = torch.where(live, new_T, T)
+        live = live & valid & ~c_beyond & (T > cfg.shadow_min_t) & (traveled < max_dist)
+    return vm.clip(T, 0.0, 1.0)
 
 
 def transmittance_binary(
@@ -43,13 +94,6 @@ def transmittance_binary(
     t_all = all_distances(flat, origin, direction)
     occluded = ((t_all > cfg.bias) & (t_all < max_dist[None, :])).any(dim=0)
     return torch.where(occluded, 0.0, 1.0).to(max_dist.dtype)
-
-
-def _not_ported(mode: str):
-    raise NotImplementedError(
-        f"not ported yet: shadow_mode={mode!r} (the transmittance march and "
-        "soft visibility, ROADMAP queue 1 item 3)"
-    )
 
 
 def direct_light(
@@ -67,8 +111,11 @@ def direct_light(
     emitted / d^2 * N.L * T; Blinn-Phong specular (opaque materials with
     specular > 0) shares the falloff and T. Result = albedo * sum(diffuse)
     + sum(spec) * specular."""
-    if cfg.shadow_mode != "binary":
-        _not_ported(cfg.shadow_mode)
+    if cfg.shadow_mode not in ("binary", "march"):
+        raise NotImplementedError(
+            f"not ported yet: shadow_mode={cfg.shadow_mode!r} (soft visibility, "
+            "ROADMAP queue 1 item 3)"
+        )
     bias = cfg.bias
     r = hit.point.shape[0]
     zeros3 = torch.zeros((r, 3), dtype=hit.point.dtype, device=hit.point.device)
@@ -94,7 +141,10 @@ def direct_light(
         ok0 = (
             active & flat.light_active[li] & (dist > 0.0) & (ndotl > 0.0) & (dist > bias)
         )
-        T = transmittance_binary(flat, shadow_o, ldir, dist - bias, cfg)
+        if cfg.shadow_mode == "binary":
+            T = transmittance_binary(flat, shadow_o, ldir, dist - bias, cfg)
+        else:
+            T = transmittance_hard(flat, shadow_o, ldir, dist - bias, ok0, cfg)
         ok = ok0 & (T > bias)
 
         emitted = flat.light_colors[li] * flat.light_intensities[li]  # [3]

@@ -5,13 +5,15 @@ it: the larger of the bytes it must move (each input read once, each output
 written once) over 3.35 TB/s and the fp32 operations it must do over
 67 TFLOP/s (NVIDIA's H100 SXM data sheet; both assume the 700 W limit).
 
-The operations are counted on this call's data, by replaying the chain in
-plain PyTorch: which rays are live at each bounce, which lights each hit
-point sends a shadow ray to, and where each shadow scan meets its first
-blocker. Only the ray-primitive tests are counted, each to its first early
-exit, at the fp32 operation counts of csrc/trace_common.cuh below. The
-shading, the reflection update and the adjoint's own arithmetic are left
-out, so the count is a lower bound and so is the time.
+The operations are counted on this call's data, by replaying the trace in
+plain PyTorch: which rays are live at each bounce (chain) or which nodes
+each ray pops (wavefront), which lights each hit point sends a shadow ray
+to, where each any-hit scan meets its first blocker and how many steps each
+shadow march takes. Only the ray-primitive tests are counted, each to its
+first early exit, at the fp32 operation counts of csrc/trace_common.cuh
+below. The shading, the Fresnel and child-ray arithmetic, the stack and the
+adjoint's own arithmetic are left out, so the count is a lower bound and so
+is the time.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from raytracingengine_tpu_torch.geometry.intersect import EPS
 from raytracingengine_tpu_torch.kernels.chain_grad import state_bounce_plain
+from raytracingengine_tpu_torch.kernels.wavefront_trace import trace_wavefront_plain
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
     SceneTables,
@@ -144,6 +147,61 @@ def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> Ch
             )
         state = state_bounce_plain(state, tables, cfg)
     return work
+
+
+@dataclasses.dataclass
+class WavefrontWork:
+    """Counts of one wavefront trace over a ray block."""
+
+    rays: int
+    pops: int = 0  # nodes popped, summed over rays
+    max_pops: int = 0  # the most nodes any one ray popped
+    closest_ops: float = 0.0  # closest-hit scans of the nodes shaded
+    shadow_rays: int = 0  # shadow rays marched or scanned
+    march_steps: int = 0  # march scans, summed over shadow rays (march)
+    shadow_ops: float = 0.0  # march scans, or any-hit scans to the first blocker
+
+    def __iadd__(self, other: "WavefrontWork") -> "WavefrontWork":
+        for f in dataclasses.fields(self):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            setattr(self, f.name, max(a, b) if f.name == "max_pops" else a + b)
+        return self
+
+
+class _WavefrontCounter:
+    """The observer of trace_wavefront_plain that fills a WavefrontWork."""
+
+    def __init__(self, tables: SceneTables, o: torch.Tensor):
+        self.T = _HostTables(tables)
+        self.work = WavefrontWork(rays=o.shape[0])
+        self.pops = torch.zeros(o.shape[0], dtype=torch.long, device=o.device)
+
+    def pop(self, live):
+        self.pops += live.long()
+
+    def closest(self, ox, oy, oz, dx, dy, dz, active):
+        self.work.closest_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, active)
+
+    def shadow(self, ok):
+        self.work.shadow_rays += int(ok.sum())
+
+    def march_step(self, ox, oy, oz, dx, dy, dz, live):
+        self.work.march_steps += int(live.sum())
+        self.work.shadow_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, live)
+
+    def any_hit(self, ox, oy, oz, dx, dy, dz, ok, lo, hi):
+        self.work.shadow_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, ok, lo=lo, hi=hi)
+
+
+@torch.no_grad()
+def wavefront_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> WavefrontWork:
+    """Replay the wavefront DFS (the kernels' per-ray control flow) on these
+    rays and count its pops, scans, march steps and their operations."""
+    counter = _WavefrontCounter(tables, o)
+    trace_wavefront_plain(tables, o, d, cfg, observer=counter)
+    counter.work.pops = int(counter.pops.sum())
+    counter.work.max_pops = int(counter.pops.max()) if o.shape[0] else 0
+    return counter.work
 
 
 def table_bytes(tables: SceneTables) -> int:

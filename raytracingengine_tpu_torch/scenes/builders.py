@@ -1,4 +1,5 @@
-"""Standard scenes: the reference's HEAD scene and the baseline spheres.
+"""Standard scenes: the reference's HEAD scene, the baseline spheres and
+the glass sphere.
 
 `head_box_scene` rebuilds main() (RaytracingEngine.cpp:216-290): camera at
 (0,0,-25) with focal 500 px and near/far 0/200, a box mesh at (0,0,10)
@@ -104,6 +105,34 @@ def baseline_sphere_scene(
     scene = b.build(dtype=dtype, pad_multiple=pad_multiple, device=device)
     camera = Camera.create(
         (0, 0, -10), focal=float(width), width=width, height=height,
+        near=0.0, far=100.0, spp=spp, dtype=dtype, device=device,
+    )
+    return scene, camera
+
+
+def glass_sphere_scene(
+    width: int = 64,
+    height: int = 64,
+    spp: int = 1,
+    dtype=torch.float32,
+    device: torch.device | str = "cuda",
+) -> tuple[Scene, Camera]:
+    """A transparent (refractive) sphere over a plane: exercises the
+    branching wavefront (refraction, Fresnel reflection, TIR)."""
+    b = SceneBuilder()
+    b.add_sphere(
+        (0.0, 0.0, 5.0), 1.5,
+        Material(
+            color=(1.0, 1.0, 1.0), specular=0.0, transparency=0.9,
+            refractive_index=1.5,
+        ),
+    )
+    b.add_sphere((1.5, -0.8, 9.0), 1.0, Material(color=(0.9, 0.4, 0.1)))
+    b.add_plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0), Material(color=(0.8, 0.8, 0.8)))
+    b.add_light((-3.0, 5.0, -1.0), (1, 1, 1), 60.0)
+    scene = b.build(dtype=dtype, device=device)
+    camera = Camera.create(
+        (0, 0, -8), focal=float(width), width=width, height=height,
         near=0.0, far=100.0, spp=spp, dtype=dtype, device=device,
     )
     return scene, camera

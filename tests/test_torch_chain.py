@@ -62,7 +62,8 @@ def test_chain_plain_matches_jax_render(name):
     fn, kw = SCENES[name]
     ours = port_trace(fn, 32, **kw)
     j_scene, j_cam = getattr(jax_builders, fn)(width=32, height=32, spp=1, **kw)
-    ref = np.asarray(jax_render_hdr(j_scene, j_cam, JAX_CFG, mode="chain")).reshape(-1, 3)
+    render = jax.jit(lambda s, c: jax_render_hdr(s, c, JAX_CFG, mode="chain"))
+    ref = np.asarray(render(j_scene, j_cam)).reshape(-1, 3)
     check(name, ours, ref)
 
 

@@ -67,14 +67,29 @@ def jax_scene(name):
     return scene, cam, JaxConfig(shadow_mode="binary", max_depth=depth)
 
 
+def jax_rays(name):
+    scene, cam, cfg = jax_scene(name)
+    return scene, *cam.rays_for_pixels(*cam.pixel_grid()), cfg
+
+
+@functools.lru_cache(maxsize=None)
+def jax_forward(name):
+    """-> the JAX image alone (one compile without the VJP)."""
+    scene, o, d, cfg = jax_rays(name)
+    return np.asarray(jax.jit(lambda s, oo, dd: integrate_chain_jax(s, oo, dd, cfg))(scene, o, d))
+
+
 @functools.lru_cache(maxsize=None)
 def jax_reference(name):
     """-> (rays o, d, image, scene-leaf grads, d_o, d_d) of sum(img^2)."""
-    scene, cam, cfg = jax_scene(name)
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
-    fwd = jax.jit(lambda s, oo, dd: integrate_chain_jax(s, oo, dd, cfg))
-    img, vjp = jax.vjp(fwd, scene, o, d)
-    g_scene, g_o, g_d = vjp(2.0 * img)
+    scene, o, d, cfg = jax_rays(name)
+
+    @jax.jit
+    def img_and_grads(s, oo, dd):  # one compile for the forward and the VJP
+        img, vjp = jax.vjp(lambda s, oo, dd: integrate_chain_jax(s, oo, dd, cfg), s, oo, dd)
+        return img, vjp(2.0 * img)
+
+    img, (g_scene, g_o, g_d) = img_and_grads(scene, o, d)
     grads = {k: v for k, v in jax_leaves(g_scene).items() if np.issubdtype(v.dtype, np.floating)}
     return np.array(o), np.array(d), np.asarray(img), grads, np.asarray(g_o), np.asarray(g_d)
 
@@ -86,7 +101,7 @@ def integrate_chain_jax(scene, o, d, cfg):
 def port_setup(name):
     fn, kw, size, depth, _ = SCENES[name]
     scene, _ = getattr(builders, fn)(width=size, height=size, spp=1, device="cpu", **kw)
-    o, d = jax_reference(name)[:2]
+    o, d = (np.array(x) for x in jax_rays(name)[1:3])
     cfg = RenderConfig(shadow_mode="binary", max_depth=depth, use_pallas=True)
     return scene, torch.from_numpy(o), torch.from_numpy(d), cfg
 
@@ -101,7 +116,7 @@ PATHS = {
 def test_integrate_chain_forward_matches_jax(name):
     scene, o, d, cfg = port_setup(name)
     ours = integrate_chain(isect.flatten_scene(scene), o, d, cfg).numpy()
-    report = seam_budget(ours, jax_reference(name)[2])
+    report = seam_budget(ours, jax_forward(name))
     print(f"{name}: {report}")
     assert np.isfinite(ours).all() and report.ok, report
 
@@ -160,7 +175,7 @@ def test_closest_hit_and_any_hit_match_jax(fn):
     scene, _ = getattr(builders, fn)(width=8, height=8, spp=1, device="cpu")
     flat = isect.flatten_scene(scene)
     to, td = torch.from_numpy(o), torch.from_numpy(d)
-    ref = jax_isect.closest_hit(j_flat, jnp.asarray(o), jnp.asarray(d))
+    ref = jax.jit(jax_isect.closest_hit)(j_flat, jnp.asarray(o), jnp.asarray(d))
     ours = isect.closest_hit(flat, to, td)
     valid = np.asarray(ref.valid)
     np.testing.assert_array_equal(ours.valid.numpy(), valid)
@@ -173,7 +188,8 @@ def test_closest_hit_and_any_hit_match_jax(fn):
         )
     max_dist = np.random.default_rng(6).uniform(0.5, 30.0, o.shape[0]).astype(np.float32)
     occ = isect.any_hit_before(flat, to, td, torch.from_numpy(max_dist)).numpy()
-    occ_ref = np.asarray(jax_isect.any_hit_before(j_flat, jnp.asarray(o), jnp.asarray(d), jnp.asarray(max_dist)))
+    occ_ref = np.asarray(
+        jax.jit(jax_isect.any_hit_before)(j_flat, jnp.asarray(o), jnp.asarray(d), jnp.asarray(max_dist)))
     np.testing.assert_array_equal(occ, occ_ref)
     assert 0 < occ.sum() < occ.size
 
@@ -210,7 +226,7 @@ def test_focal_grad_through_render_hdr_matches_jax():
     def jloss(focal):
         return jnp.mean(jax_render_hdr(j_scene, dataclasses.replace(j_cam, focal=focal), jcfg) ** 2)
 
-    g_ref = float(jax.grad(jloss)(j_cam.focal))
+    g_ref = float(jax.jit(jax.grad(jloss))(j_cam.focal))
     scene, cam = builders.baseline_sphere_scene(width=16, height=16, spp=1, device="cpu")
     focal = cam.focal.clone().requires_grad_(True)
     cfg = RenderConfig(shadow_mode="binary", chunk_size=100, use_pallas=True)

@@ -155,7 +155,8 @@ def test_jax_params_carry_across():
     flat, _ = jax.tree_util.tree_flatten_with_path(j_params)
     leaves = {".".join(k.name for k in path): np.asarray(x) for path, x in flat}
     jcfg = JaxConfig(shadow_mode="binary", chunk_size=256)
-    ref = float(jnp.mean(jax_render_hdr(jax_combine(j_params, j_static), j_cam, jcfg) ** 2))
+    ref = float(jax.jit(lambda p: jnp.mean(jax_render_hdr(jax_combine(p, j_static), j_cam, jcfg) ** 2))(
+        j_params))
 
     scene, cam = builders.baseline_sphere_scene(width=16, height=16, spp=1, n_lights=2, device="cpu")
     params = params_from_numpy(leaves, device="cpu")

@@ -40,6 +40,7 @@ SCENES = {
     "baseline_spheres_pad8": dict(
         fn="baseline_sphere_scene", kw=dict(width=16, height=12, n_lights=2, pad_multiple=8)
     ),
+    "glass_sphere": dict(fn="glass_sphere_scene", kw=dict(width=16, height=12, spp=1)),
 }
 
 
@@ -156,6 +157,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raytracingengine_tpu.'))"
         " or m == 'raytracingengine_tpu']\n"
         "assert not bad, bad\n"
+        "assert 'raytracingengine_tpu_torch.kernels.wavefront_trace' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)

@@ -86,7 +86,7 @@ def test_spp_render_statistically_matches_jax():
     assert not np.array_equal(a, c)
 
     j_scene, j_cam = jax_builders.baseline_sphere_scene(width=size, height=size, spp=8)
-    ref = np.asarray(jax_render_hdr(j_scene, j_cam, JAX_CFG, mode="chain"))
+    ref = np.asarray(jax.jit(lambda s, c: jax_render_hdr(s, c, JAX_CFG, mode="chain"))(j_scene, j_cam))
     diff = np.abs(a - ref).max(axis=-1)
     print(f"spp=8 vs JAX: q70 {np.quantile(diff, 0.7):.3e} mean {diff.mean():.3e}")
     assert np.isfinite(a).all()

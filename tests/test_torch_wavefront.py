@@ -1,0 +1,323 @@
+"""PyTorch port, the glass path: the transmittance march, the wavefront
+integrator and the plain versions of the wavefront kernels against the JAX
+package on the CPU.
+
+References are the JAX package's XLA functions (transmittance_hard,
+integrate_wavefront, render_hdr), never its interpret-mode Pallas kernels,
+and each is computed once per module. Budgets (raytracingengine_tpu_torch/
+parity.py): HDR images under the seam budget (elementwise atol 1e-4, at
+most max(4, 1e-3 * pixels) pixels beyond it, for rays that graze an edge
+or the TIR threshold and take the other branch); transmittance atol 1e-6;
+gradients rtol 1e-5 (one product) or the leaf budget of grad_leaf_mismatches
+(fp32 sums over rays in other orders).
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracingengine_tpu.geometry.intersect import flatten_scene as jax_flatten
+from raytracingengine_tpu.geometry.materials import Material as JaxMaterial
+from raytracingengine_tpu.render.config import RenderConfig as JaxConfig
+from raytracingengine_tpu.render.integrator import integrate_wavefront as jax_integrate_wavefront
+from raytracingengine_tpu.render.pipeline import render_hdr as jax_render_hdr
+from raytracingengine_tpu.render.shading import transmittance_hard as jax_transmittance_hard
+from raytracingengine_tpu.scene import SceneBuilder as JaxSceneBuilder
+from raytracingengine_tpu.scenes import builders as jax_builders
+import raytracingengine_tpu_torch.kernels.wavefront_trace as wt
+import raytracingengine_tpu_torch.render.pipeline as pipeline
+from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+from raytracingengine_tpu_torch.geometry.materials import Material
+from raytracingengine_tpu_torch.inverse import combine, partition
+from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
+from raytracingengine_tpu_torch.kernels.spp_trace import mean_over_samples
+from raytracingengine_tpu_torch.parity import grad_leaf_mismatches, seam_budget
+from raytracingengine_tpu_torch.render.config import RenderConfig
+from raytracingengine_tpu_torch.render.integrator import integrate_chain, integrate_wavefront
+from raytracingengine_tpu_torch.render.shading import transmittance_hard
+from raytracingengine_tpu_torch.scene import SceneBuilder
+from raytracingengine_tpu_torch.scenes import builders
+
+torch.set_num_threads(2)
+
+SHADOWS = ["binary", "march"]
+
+
+def jax_leaves(tree) -> dict[str, np.ndarray]:
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {".".join(k.name for k in path): np.asarray(x) for path, x in flat}
+
+
+# ---------------------------------------------------------------------------
+# The transmittance march on two transparent panes and an opaque sphere
+# (tests/test_shadows.py:23-32), built in both packages
+# ---------------------------------------------------------------------------
+
+
+def pane_scene(pkg_builder, pkg_material, **build_kw):
+    b = pkg_builder()
+    glass = pkg_material(color=(1, 1, 1), transparency=0.5, refractive_index=1.0)
+    half = pkg_material(color=(1, 1, 1), transparency=0.25, refractive_index=1.0)
+    b.add_plane((0, 0, 3), (0, 0, -1), glass)
+    b.add_plane((0, 0, 6), (0, 0, -1), half)
+    b.add_sphere((0, 0, 20), 1.0, pkg_material(color=(1, 0, 0)))  # opaque, far
+    b.add_light((0, 0, 30), (1, 1, 1), 10.0)
+    return b.build(**build_kw)
+
+
+#: Along +z from the origin: past both panes, past the first only, into the
+#: opaque sphere, and a lane that is not marched.
+PANE_MAX_DIST = np.array([10.0, 4.0, 50.0, 10.0], np.float32)
+PANE_ACTIVE = np.array([True, True, True, False])
+PLANE_TAU = "planes.materials.transparency"
+
+
+def port_pane_march(cfg, params=None):
+    static = pane_scene(SceneBuilder, Material, device="cpu")
+    scene = static if params is None else combine(params, partition(static)[1])
+    n = PANE_MAX_DIST.size
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(n, 3)
+    return transmittance_hard(
+        flatten_scene(scene), torch.zeros((n, 3)), d, torch.from_numpy(PANE_MAX_DIST),
+        torch.from_numpy(PANE_ACTIVE), cfg,
+    )
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def jax_pane_march(tau, cfg):
+    """The JAX march on the pane lanes, with the planes' transparency `tau`."""
+    scene = pane_scene(JaxSceneBuilder, JaxMaterial)
+    n = PANE_MAX_DIST.size
+    o, d = jnp.zeros((n, 3)), jnp.tile(jnp.array([[0.0, 0.0, 1.0]]), (n, 1))
+    mats = dataclasses.replace(scene.planes.materials, transparency=tau)
+    s = dataclasses.replace(scene, planes=dataclasses.replace(scene.planes, materials=mats))
+    return jax_transmittance_hard(
+        jax_flatten(s), o, d, jnp.asarray(PANE_MAX_DIST), jnp.asarray(PANE_ACTIVE), cfg
+    )
+
+
+PANE_TAU = np.array([0.5, 0.25], np.float32)
+
+
+def test_transmittance_hard_matches_jax():
+    """Both panes 0.5 * 0.25, the first only 0.5, into the sphere 0; an
+    inactive lane stays 1."""
+    ours = port_pane_march(RenderConfig()).numpy()
+    ref = np.asarray(jax_pane_march(jnp.asarray(PANE_TAU), JaxConfig()))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ours, [0.125, 0.5, 0.0, 1.0], rtol=0, atol=1e-6)
+
+
+def glass_scene(size, spp=1, pkg=builders, **kw):
+    return pkg.glass_sphere_scene(width=size, height=size, spp=spp, **kw)
+
+
+@pytest.mark.parametrize("fn", ["transmittance_hard", "integrate_wavefront"])
+def test_fixed_trip_form_equals_while_form(fn):
+    """differentiable=True runs every step (march) or every budget
+    iteration (DFS); an idle lane adds nothing, so the values are equal."""
+    if fn == "transmittance_hard":
+        a = port_pane_march(RenderConfig()).numpy()
+        b = port_pane_march(RenderConfig(differentiable=True)).numpy()
+    else:
+        scene, cam = glass_scene(8, device="cpu")
+        o, d = cam.rays_for_pixels(*cam.pixel_grid())
+        cfg = RenderConfig(shadow_mode="binary", wavefront_budget=64)
+        a = integrate_wavefront(flatten_scene(scene), o, d, cfg).numpy()
+        b = integrate_wavefront(flatten_scene(scene), o, d, dataclasses.replace(cfg, differentiable=True)).numpy()
+    np.testing.assert_array_equal(a, b)
+
+
+def test_transmittance_grad_matches_jax():
+    """d sum(T) / d plane transparency through the fixed-trip march: the
+    other pane's transparency on the lane through both (rtol 1e-5)."""
+    params, _ = partition(pane_scene(SceneBuilder, Material, device="cpu"))
+    port_pane_march(RenderConfig(differentiable=True), params).sum().backward()
+    ref = jax.jit(jax.grad(lambda t: jnp.sum(jax_pane_march(t, JaxConfig(differentiable=True)))))(
+        jnp.asarray(PANE_TAU))
+    ours = params[PLANE_TAU].grad.numpy()
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(ours, [0.25 + 1.0, 0.5], rtol=1e-5)  # lanes 0 and 1; lane 0 only
+
+
+# ---------------------------------------------------------------------------
+# The wavefront trace on the glass sphere scene
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def jax_glass(shadow_mode, size=16):
+    """-> (rays o, d, JAX integrate_wavefront image) of glass_sphere_scene."""
+    scene, cam = glass_scene(size, pkg=jax_builders)
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    cfg = JaxConfig(shadow_mode=shadow_mode)
+    img = jax.jit(lambda s, o, d: jax_integrate_wavefront(jax_flatten(s), o, d, cfg))(scene, o, d)
+    return np.array(o), np.array(d), np.asarray(img)
+
+
+def port_glass(shadow_mode, size=16):
+    scene, _ = glass_scene(size, device="cpu")
+    o, d, ref = jax_glass(shadow_mode, size)
+    cfg = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
+    return scene, torch.from_numpy(o), torch.from_numpy(d), cfg, ref
+
+
+@pytest.mark.parametrize("shadow_mode", SHADOWS)
+def test_integrate_wavefront_matches_jax(shadow_mode):
+    scene, o, d, cfg, ref = port_glass(shadow_mode)
+    ours = integrate_wavefront(flatten_scene(scene), o, d, cfg).numpy()
+    report = seam_budget(ours, ref)
+    print(f"{shadow_mode}: {report}")
+    assert np.isfinite(ours).all() and report.ok, report
+
+
+@pytest.mark.parametrize("shadow_mode", SHADOWS)
+def test_trace_wavefront_plain_matches_jax(shadow_mode):
+    scene, o, d, cfg, ref = port_glass(shadow_mode)
+    tables = pack_scene_tables(flatten_scene(scene))
+    ours = wt.trace_wavefront_plain(tables, o, d, cfg).numpy()
+    report = seam_budget(ours, ref)
+    print(f"{shadow_mode}: {report}")
+    assert np.isfinite(ours).all() and report.ok, report
+
+
+def test_wavefront_equals_chain_on_opaque_scene():
+    """On the head box (no transparency) the DFS is the reflection chain."""
+    scene, cam = builders.head_box_scene(width=12, height=12, spp=1, device="cpu")
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    flat = flatten_scene(scene)
+    cfg = RenderConfig()
+    np.testing.assert_allclose(
+        integrate_wavefront(flat, o, d, cfg).numpy(), integrate_chain(flat, o, d, cfg).numpy(),
+        rtol=0, atol=1e-6,
+    )
+
+
+def test_wavefront_spp_plain_with_given_jitter_matches_jax():
+    """spp=4 at 12x12 with one seeded jitter array [spp, R, 2]: the mean of
+    the JAX integrate_wavefront calls on the jittered camera rays."""
+    spp, size = 4, 12
+    scene, cam = glass_scene(size, spp, device="cpu")
+    jitter = np.random.default_rng(12).random((spp, cam.num_pixels, 2), dtype=np.float32)
+    jitter[0] = 0.0  # sample 0 is the unjittered center ray
+    px, py = cam.pixel_grid()
+    cfg = RenderConfig(use_pallas=True)
+    ours = wt.wavefront_spp_trace_plain(
+        pack_scene_tables(flatten_scene(scene)), cam, px, py, cfg, jitter=torch.from_numpy(jitter)
+    ).numpy()
+
+    j_scene, j_cam = glass_scene(size, spp, pkg=jax_builders)
+    jpx, jpy = j_cam.pixel_grid()
+    rays = [j_cam.rays_for_pixels(jpx, jpy, jnp.asarray(j)) for j in jitter]
+    o, d = (jnp.concatenate(x) for x in zip(*rays))  # one call for all samples
+    img = jax.jit(lambda s, o, d: jax_integrate_wavefront(jax_flatten(s), o, d, JaxConfig()))(j_scene, o, d)
+    ref = np.asarray(img).reshape(spp, -1, 3).mean(axis=0)
+    report = seam_budget(ours, ref)
+    print(f"spp={spp}: {report}")
+    assert np.isfinite(ours).all() and report.ok, report
+
+
+@pytest.mark.parametrize("spp", [1, 3])
+def test_glass_render_routes_through_wavefront_wrappers(monkeypatch, spp):
+    """use_pallas=True on a CPU glass scene goes through wavefront_trace
+    (spp=1) or wavefront_spp_trace (spp > 1) to their plain versions, no
+    launch counted, and equals the integrator: render_hdr with
+    use_pallas=False at spp=1, the same AA loop over integrate_wavefront at
+    spp > 1."""
+    calls = {"trace": 0, "spp": 0}
+    for name, key in (("wavefront_trace", "trace"), ("wavefront_spp_trace", "spp")):
+        orig = getattr(pipeline, name)
+
+        def spy(*a, _orig=orig, _key=key, **k):
+            calls[_key] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(pipeline, name, spy)
+    launches = (wt.wavefront_trace.launches, wt.wavefront_spp_trace.launches)
+    scene, cam = glass_scene(8, spp, device="cpu")
+    cfg = RenderConfig(use_pallas=True, chunk_size=40)
+    img = pipeline.render_hdr(scene, cam, cfg, seed=5)
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
+    assert (wt.wavefront_trace.launches, wt.wavefront_spp_trace.launches) == launches
+    n_chunks = 2  # 64 pixels in chunks of 40
+    assert calls == ({"trace": n_chunks, "spp": 0} if spp == 1 else {"trace": 0, "spp": n_chunks})
+    cfg_xla = dataclasses.replace(cfg, use_pallas=False)
+    if spp == 1:
+        ref = pipeline.render_hdr(scene, cam, cfg_xla)
+    else:
+        flat = flatten_scene(scene)
+        ref = mean_over_samples(
+            lambda o, d: integrate_wavefront(flat, o, d, cfg_xla), cam, *cam.pixel_grid(), seed=5,
+        ).reshape(8, 8, 3)
+    report = seam_budget(img.numpy(), ref.numpy())
+    assert report.ok, report
+
+
+def test_head_box_default_config_matches_jax():
+    """RenderConfig() (march shadows, no kernels) on the opaque head box:
+    the chain integrator with the march, against the JAX render."""
+    scene, cam = builders.head_box_scene(width=12, height=12, spp=1, device="cpu")
+    ours = pipeline.render_hdr(scene, cam, RenderConfig()).numpy()
+    j_scene, j_cam = jax_builders.head_box_scene(width=12, height=12, spp=1)
+    ref = np.asarray(jax.jit(lambda s, c: jax_render_hdr(s, c, JaxConfig()))(j_scene, j_cam))
+    report = seam_budget(ours, ref)
+    print(report)
+    assert np.isfinite(ours).all() and report.ok, report
+
+
+def test_glass_grads_through_kernel_raise():
+    """The wavefront kernels are forward-only until the glass adjoint: a
+    scene leaf that requires grad raises on the CPU too (the plain version
+    reads the tables as floats and would return zero gradients)."""
+    scene, cam = glass_scene(8, device="cpu")
+    params, static = partition(scene)
+    cfg = RenderConfig(use_pallas=True)
+    with pytest.raises(NotImplementedError, match="glass adjoint"):
+        pipeline.render_hdr(combine(params, static), cam, cfg)
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    tables = pack_scene_tables(flatten_scene(combine(params, static)))
+    with pytest.raises(NotImplementedError, match="glass adjoint"):
+        wt.wavefront_trace(tables, o.contiguous(), d.contiguous(), cfg)
+    with torch.no_grad():  # forward-only renders still run
+        assert torch.isfinite(pipeline.render_hdr(combine(params, static), cam, cfg)).all()
+    # use_pallas=False differentiates integrate_wavefront
+    img = pipeline.render_hdr(combine(params, static), cam, dataclasses.replace(cfg, use_pallas=False))
+    img.sum().backward()
+    assert params["spheres.centers"].grad is not None
+
+
+def test_integrate_wavefront_grads_match_jax():
+    """Autograd of integrate_wavefront (fixed-trip, budget 64, binary
+    shadows, 8x8) against jax.grad for every float scene leaf, sum(img^2):
+    the reference the glass adjoint will be held to."""
+    cfg_kw = dict(shadow_mode="binary", differentiable=True, wavefront_budget=64)
+    j_scene, j_cam = glass_scene(8, pkg=jax_builders)
+    o, d = j_cam.rays_for_pixels(*j_cam.pixel_grid())
+    @jax.jit
+    def img_and_grad(s):
+        img, vjp = jax.vjp(lambda s: jax_integrate_wavefront(jax_flatten(s), o, d, JaxConfig(**cfg_kw)), s)
+        return img, vjp(2.0 * img)[0]
+
+    img_ref, g_scene = img_and_grad(j_scene)
+    ref = {k: v for k, v in jax_leaves(g_scene).items() if np.issubdtype(v.dtype, np.floating)}
+
+    scene, _ = glass_scene(8, device="cpu")
+    params, static = partition(scene)
+    img = integrate_wavefront(
+        flatten_scene(combine(params, static)), torch.from_numpy(np.array(o)),
+        torch.from_numpy(np.array(d)), RenderConfig(**cfg_kw),
+    )
+    loss = (img * img).sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float((np.asarray(img_ref, np.float64) ** 2).sum()), rtol=1e-5)
+    ours = {k: np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
+            for k, p in params.items()}
+    errors = grad_leaf_mismatches(ours, ref)
+    assert not errors, errors
+    glass = ours["spheres.materials.transparency"][0], ours["spheres.materials.refractive_index"][0]
+    assert all(abs(g) > 0 for g in glass)  # the glass sphere's refraction is differentiated

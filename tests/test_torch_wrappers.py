@@ -3,9 +3,9 @@
 (h) A CPU tensor reaches the plain version and leaves the launch counter
 unchanged; unsupported configurations raise NotImplementedError; bad
 inputs raise. The tests marked `gpu` need a CUDA card: they launch the
-kernels against their plain versions (the adjoint too) and check that a
-forward kernel's CUDA input with requires_grad raises. They skip on a host
-without one.
+kernels against their plain versions (the adjoint and the wavefront
+kernels on the glass sphere too) and check that a forward kernel's CUDA
+input with requires_grad raises. They skip on a host without one.
 """
 
 import dataclasses
@@ -18,6 +18,7 @@ import torch
 import raytracingengine_tpu_torch.kernels.chain_grad as cg
 import raytracingengine_tpu_torch.kernels.chain_trace as ct
 import raytracingengine_tpu_torch.kernels.spp_trace as st
+import raytracingengine_tpu_torch.kernels.wavefront_trace as wt
 import raytracingengine_tpu_torch.render.pipeline as pipeline
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
 from raytracingengine_tpu_torch.parity import (
@@ -78,17 +79,19 @@ def test_render_routes_cpu_to_plain_versions(monkeypatch, spp):
     assert calls == ({"chain": n_chunks, "spp": 0} if spp == 1 else {"chain": 0, "spp": n_chunks})
 
 
-#: name -> (config overrides, spp). differentiable=True and use_pallas=False
-#: run at spp=1 (the chain adjoint, integrate_chain); at spp > 1 they need
-#: the per-sample differentiable loop, which is not ported.
+#: name -> (config overrides, spp). At spp=1 the wavefront mode, march
+#: shadows, differentiable=True, use_pallas=False and the defaults all run
+#: (kernels or integrators); at spp > 1 every path without an AA kernel
+#: (chain mode with march shadows, use_pallas=False, the defaults) and every
+#: differentiable one needs the per-sample loop, which is not ported.
 UNSUPPORTED = {
-    "wavefront": (dict(mode="wavefront"), 1),
-    "march": (dict(shadow_mode="march"), 1),
+    "wavefront": (dict(mode="wavefront", use_pallas=False), 3),
+    "march": (dict(shadow_mode="march"), 3),
     "soft": (dict(shadow_mode="soft"), 1),
     "soft_primary": (dict(soft_primary=True), 1),
     "differentiable": (dict(differentiable=True), 3),
     "no_kernels": (dict(use_pallas=False), 3),
-    "defaults": (None, 1),
+    "defaults": (None, 3),
 }
 
 
@@ -212,6 +215,50 @@ def test_cuda_chain_grad_matches_plain(cuda_device, scene_name):
         assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
     if scene_name == "spheres":
         assert float(ref_cots[0].abs().max()) > 0.0  # the sphere rows carry cotangents
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shadow_mode", ["binary", "march"])
+def test_cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode):
+    """The wavefront kernel against trace_wavefront_plain on the glass
+    sphere at 64x48 under the seam budget; render_hdr routes to it and
+    gives the same frame; no push was dropped."""
+    scene, cam = builders.glass_sphere_scene(64, 48, spp=1, device=cuda_device)
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    o = o.contiguous()
+    cfg = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
+    before = wt.wavefront_trace.launches
+    ours = wt.wavefront_trace(tables, o, d, cfg)
+    assert wt.wavefront_trace.launches == before + 1
+    ref = wt.trace_wavefront_plain(tables, o, d, cfg)
+    frame = pipeline.render_hdr(scene, cam, cfg)
+    torch.cuda.synchronize()
+    assert wt.wavefront_trace.launches == before + 2
+    report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+    print(f"{shadow_mode}: {report}")
+    assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+    torch.testing.assert_close(frame.reshape(-1, 3), ours, rtol=0, atol=1e-6)
+    assert wt.dropped_pushes() == 0
+
+
+@pytest.mark.gpu
+def test_cuda_wavefront_spp_trace_matches_plain(cuda_device):
+    """The wavefront AA kernel against its plain version, spp=4 at 64x48,
+    one seed (the same Philox jitter bits)."""
+    scene, cam = builders.glass_sphere_scene(64, 48, spp=4, device=cuda_device)
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    px, py = cam.pixel_grid()
+    cfg = RenderConfig(use_pallas=True)
+    before = wt.wavefront_spp_trace.launches
+    ours = wt.wavefront_spp_trace(tables, cam, px, py, cfg, seed=9)
+    assert wt.wavefront_spp_trace.launches == before + 1
+    ref = wt.wavefront_spp_trace_plain(tables, cam, px, py, cfg, seed=9)
+    torch.cuda.synchronize()
+    report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+    print(f"spp=4: {report}")
+    assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+    assert wt.dropped_pushes() == 0
 
 
 @functools.lru_cache(maxsize=None)
