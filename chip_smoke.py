@@ -15,7 +15,10 @@ training step at full resolution, and times kernels against plain versions:
   7. main path  render_hdr at 1080p spp=1, 1080p spp=8 and 1000^2 spp=32, with
                 the launch counters reset before and read after; PNGs to out/
   8. timing     CUDA events after warm-up, kernel and plain version in turns;
-                each kernel's roofline bound from this run's work counts
+                the training steps with the host running ahead and synchronised
+                after every step; each step's device time by kernel from the
+                profiler; each kernel's roofline bound from this run's work
+                counts
   9. grad       chain_grad vs chain_grad_plain, head box 1920x1080 with the main
                 path's camera, g = d mean(img^2) / d img; run-to-run spread;
                 then the same on baseline spheres (2 lights), whose sphere
@@ -32,6 +35,15 @@ training step at full resolution, and times kernels against plain versions:
                 RenderConfig(use_pallas=True, chunk_size=whole frame), as
                 bench.py:160-193 calls it, the launch counters reset before and
                 read after; the spp=1 frame equals phase 11's kernel output
+ 13. glass grad wavefront_grad vs wavefront_grad_plain on glass_sphere_scene
+                1920x1080 with the main path's camera, g = d mean(img^2) / d img,
+                march and binary shadows: ray cotangents, table rows, run-to-run
+                spread, flips beside phase 11's, dropped pushes
+ 14. glass train the glass training step of bench.py:195-231 through the entry
+                points: glass sphere at 256x256 and 1920x1080, partition ->
+                make_train_step with SGD(lr=1e-6) on mean(img^2), the camera
+                focal trained too, 8 steps per size, the launch counters reset
+                before and read after each size
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -45,7 +57,8 @@ share of a sum over ~10^5 rays).
 
 The glass kernels are held to their plain versions under the same seam
 budget; a flip there is a shadow or refraction ray that grazes a sphere and
-takes the other branch.
+takes the other branch. The glass adjoint is held to its plain version as
+chain_grad is (ray cotangents and table rows).
 
 Run with no arguments on a machine with one CUDA card:  python3 chip_smoke.py
 Any failed phase raises and the script exits non-zero. The last line is
@@ -85,11 +98,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
     from raytracingengine_tpu_torch.imageio import read_hdr64, read_ppm, write_png
-    from raytracingengine_tpu_torch.inverse import make_train_step, partition
+    from raytracingengine_tpu_torch.inverse import combine, make_train_step, partition
     from raytracingengine_tpu_torch.kernels import _build
     from raytracingengine_tpu_torch.kernels import chain_grad as cg
     from raytracingengine_tpu_torch.kernels import chain_trace as ct
     from raytracingengine_tpu_torch.kernels import spp_trace as st
+    from raytracingengine_tpu_torch.kernels import wavefront_grad as wg
     from raytracingengine_tpu_torch.kernels import wavefront_trace as wt
     from raytracingengine_tpu_torch.parity import (
         golden_ldr_mismatches,
@@ -103,10 +117,12 @@ def main() -> int:
     from raytracingengine_tpu_torch.roofline import (
         ChainWork,
         WavefrontWork,
+        adjoint_bytes,
         bound_ms,
         chain_work,
-        table_bytes,
+        trace_bytes,
         wavefront_work,
+        work_ops,
     )
     from raytracingengine_tpu_torch.scenes import (
         baseline_sphere_scene,
@@ -238,44 +254,44 @@ def main() -> int:
     del frames, hdr
 
     # 9. the adjoint kernel vs its plain version, at the main path's camera
-    def check_grad(label: str, tables, o, d, g):
-        """chain_grad vs chain_grad_plain -> (ray-cotangent seam reports,
-        max|diff| over every output); prints each table row against its bound
-        and the run-to-run spread of two kernel calls."""
-        ours = cg.chain_grad(tables, o, d, g, cfg)
+    def check_grad(label: str, kernel, plain, tables, o, d, g, cfg):
+        """An adjoint kernel vs its plain version -> (ray-cotangent seam
+        reports, max|diff| over every output); prints each table row against
+        its bound and the run-to-run spread of two kernel calls."""
+        name = kernel.__name__
+        ours = kernel(tables, o, d, g, cfg)
         sync()
         t0 = time.perf_counter()
-        ref = cg.chain_grad_plain(tables, o, d, g, cfg)
+        ref = plain(tables, o, d, g, cfg)
         sync()
-        print(f"  {label}: chain_grad_plain first call {time.perf_counter() - t0:.2f} s", flush=True)
-        rerun = cg.chain_grad(tables, o, d, g, cfg)
+        print(f"  {label}: {plain.__name__} first call {time.perf_counter() - t0:.2f} s", flush=True)
+        rerun = kernel(tables, o, d, g, cfg)
         sync()
         reports = {}
-        for name, a, b in (("d_o", ours[1], ref[1]), ("d_d", ours[2], ref[2])):
+        for cot, a, b in (("d_o", ours[1], ref[1]), ("d_d", ours[2], ref[2])):
             report = ray_cot_seam_budget(a.cpu().numpy(), b.cpu().numpy())
             ok = report.ok and bool(torch.isfinite(a).all())
-            print(f"  {'PASS' if ok else 'FAIL'} {label} chain_grad {name} vs plain: {report}",
-                  flush=True)
+            print(f"  {'PASS' if ok else 'FAIL'} {label} {name} {cot} vs plain: {report}", flush=True)
             if not ok:
-                raise AssertionError(f"{label} chain_grad {name}: {report}")
-            reports[name] = report
+                raise AssertionError(f"{label} {name} {cot}: {report}")
+            reports[cot] = report
         bad = []
-        for name, a, b in zip(("sph", "pl", "tri", "mat", "light"), ours[0], ref[0]):
-            for row in table_cot_rows(name, a.cpu().numpy(), b.cpu().numpy()):
+        for table, a, b in zip(("sph", "pl", "tri", "mat", "light"), ours[0], ref[0]):
+            for row in table_cot_rows(table, a.cpu().numpy(), b.cpu().numpy()):
                 print(f"  {'PASS' if row.ok else 'FAIL'} {label} table {row}", flush=True)
                 bad += [] if row.ok else [str(row)]
         if bad:
-            raise AssertionError(f"{label} chain_grad table rows out of budget: {bad}")
+            raise AssertionError(f"{label} {name} table rows out of budget: {bad}")
         outs = lambda r: (*r[0], r[1], r[2])  # noqa: E731
         err = max(float((a - b).abs().max()) for a, b in zip(outs(ours), outs(ref)))
         spread = max(float((a - b).abs().max()) for a, b in zip(outs(ours), outs(rerun)))
         print(f"  {label}: max|diff| vs plain over all outputs {err:.3e}; run-to-run max|diff| "
-              f"of two chain_grad calls (shared-memory atomics) {spread:.3e}", flush=True)
+              f"of two {name} calls (shared-memory atomics) {spread:.3e}", flush=True)
         return reports, err
 
     print("[9 grad] head box 1920x1080 spp=1, g = d mean(img^2) / d img", flush=True)
     g = (2.0 * chain_out / chain_out.numel()).contiguous()
-    cot_reports, grad_err = check_grad("head box", tables, o, d, g)
+    cot_reports, grad_err = check_grad("head box", cg.chain_grad, cg.chain_grad_plain, tables, o, d, g, cfg)
     print("[9 grad] baseline spheres (2 lights) 1920x1080 spp=1, g = d mean(img^2) / d img",
           flush=True)
     b_scene, b_cam = baseline_sphere_scene(W1080, H1080, spp=1, n_lights=2, device=dev)
@@ -283,8 +299,8 @@ def main() -> int:
     b_o, b_d = b_cam.rays_for_pixels(*b_cam.pixel_grid())
     b_o = b_o.contiguous()
     b_img = ct.chain_trace(b_tables, b_o, b_d, cfg)
-    b_reports, b_err = check_grad("spheres", b_tables, b_o, b_d,
-                                  (2.0 * b_img / b_img.numel()).contiguous())
+    b_reports, b_err = check_grad("spheres", cg.chain_grad, cg.chain_grad_plain, b_tables, b_o, b_d,
+                                  (2.0 * b_img / b_img.numel()).contiguous(), cfg)
     grad_err = max(grad_err, b_err)
     del b_scene, b_cam, b_tables, b_o, b_d, b_img
 
@@ -398,6 +414,80 @@ def main() -> int:
             raise AssertionError(f"glass path render spp={spp} failed its checks")
     del glass_frames, hdr
 
+    # 13. the glass adjoint kernel vs its plain version, at the main path's camera
+    print("[13 glass grad] glass_sphere_scene 1920x1080 spp=1, main path camera, "
+          "g = d mean(img^2) / d img", flush=True)
+    wg_reports, wg_g, wg_err = {}, {}, 0.0
+    for mode in ("march", "binary"):
+        gcfg = dataclasses.replace(glass_cfg, shadow_mode=mode)
+        wg_g[mode] = (2.0 * glass_out[mode] / glass_out[mode].numel()).contiguous()
+        wg_reports[mode], err = check_grad(f"glass {mode}", wg.wavefront_grad, wg.wavefront_grad_plain,
+                                           g_tables, g_o, g_d, wg_g[mode], gcfg)
+        wg_err = max(wg_err, err)
+    dropped = wt.dropped_pushes()
+    print("  seam-flip pixels of the adjoint (d_o, d_d): " + ", ".join(
+        f"{m} {r['d_o'].flips}, {r['d_d'].flips}" for m, r in wg_reports.items())
+        + "; of the forward (phase 11): " + ", ".join(f"{m} {r.flips}" for m, r in glass_reports.items())
+        + f"; dropped pushes {dropped} (0)", flush=True)
+    if dropped:
+        raise AssertionError(f"the glass kernels dropped {dropped} pushes on a full stack")
+
+    # 14. the glass training step, as a user calls it (bench.py:195-231)
+    print("[14 glass train] glass sphere, SGD(lr=1e-6) on mean(img^2), camera focal trained too, "
+          "8 steps per size", flush=True)
+    glass_steps, glass_train_launches = {}, {}
+    for w_, h_ in ((256, 256), (W1080, H1080)):
+        gs, gc = glass_sphere_scene(w_, h_, spp=1, device=dev)
+        gp, gst = partition(gs)
+        gfocal = gc.focal.clone().requires_grad_(True)
+        gc = dataclasses.replace(gc, focal=gfocal)
+        gopt = torch.optim.SGD([*gp.values(), gfocal], lr=1e-6)
+        gstep = make_train_step(gc, RenderConfig(use_pallas=True, chunk_size=w_ * h_), gopt,
+                                loss_fn=mean_sq)
+        sync()
+        wt.wavefront_trace.launches = 0
+        wg.wavefront_grad.launches = 0
+        g_losses, g_grads = [], {}
+        for _ in range(8):
+            loss, g_grads = gstep(gp, gst, None)
+            g_losses.append(loss)
+        sync()
+        launches_g = {"wavefront_trace": wt.wavefront_trace.launches,
+                      "wavefront_grad": wg.wavefront_grad.launches}
+        g_grads = {**g_grads, "camera.focal": gfocal.grad}
+        g_losses = [float(x) for x in g_losses]
+        finite = all(np.isfinite(g_losses)) and all(
+            v is None or bool(torch.isfinite(v).all()) for v in g_grads.values())
+        nz = lambda k: g_grads.get(k) is not None and bool((g_grads[k] != 0).any())  # noqa: E731
+        nonzero = {
+            "geometry": any(nz(k) for k in ("spheres.centers", "spheres.radii", "planes.points",
+                                            "planes.normals")),
+            "materials": any(nz(k) for k in g_grads if ".materials." in k),
+            "glass transparency": bool(g_grads["spheres.materials.transparency"][0] != 0),
+            "glass ior": bool(g_grads["spheres.materials.refractive_index"][0] != 0),
+            "lights": any(nz(k) for k in g_grads if k.startswith("lights.")),
+            "camera focal": nz("camera.focal"),
+        }
+        # After one step the opaque surfaces' transparency leaves 0 by lr * g,
+        # and Scene.h makes such a surface a Fresnel reflector with a
+        # refraction child: the trees grow.
+        with torch.no_grad():
+            t_work = wavefront_work(ct.pack_scene_tables(flatten_scene(combine(gp, gst))),
+                                    *(x.contiguous() for x in gc.rays_for_pixels(*gc.pixel_grid())),
+                                    RenderConfig(use_pallas=True))
+        top = max((k for k in g_grads if g_grads[k] is not None and g_grads[k].numel()),
+                  key=lambda k: float(g_grads[k].abs().max()))
+        print(f"  {w_}x{h_}: launches {launches_g} (8 each); losses {g_losses[0]:.6f} -> "
+              f"{g_losses[-1]:.6f}; finite={finite}; non-zero grads {nonzero}; largest |grad| "
+              f"{top} {float(g_grads[top].abs().max()):.3e}; after 8 steps "
+              f"{t_work.pops / t_work.rays:.3f} nodes per ray (at most {t_work.max_pops})", flush=True)
+        if launches_g != {"wavefront_trace": 8, "wavefront_grad": 8}:
+            raise AssertionError(f"the glass training step did not run through both kernels: {launches_g}")
+        if not finite or not all(nonzero.values()):
+            raise AssertionError(f"glass training step {w_}x{h_}: finite={finite}, non-zero {nonzero}")
+        glass_steps[(w_, h_)] = (gstep, gp, gst)
+        glass_train_launches[(w_, h_)] = launches_g
+
     # 8. timing: CUDA events around `iters` calls after one warm-up call
     def time_ms(fn, iters: int) -> float:
         fn()
@@ -443,15 +533,18 @@ def main() -> int:
     )
     report("chain_grad kernel, 1080p", grad_ms, rays1)
     report("chain_grad_plain, 1080p", grad_plain_ms, rays1)
-    step_ms = time_ms(lambda: train_step(params, static, None), 10)
-    report("training step (forward, backward, SGD), 1080p, host running ahead (CUDA events)",
-           step_ms, rays1)
-    t0 = time.perf_counter()
-    for _ in range(10):
-        train_step(params, static, None)
-        sync()
-    step_sync_ms = (time.perf_counter() - t0) * 1e3 / 10
-    report("training step, 1080p, synchronised after every step (host clock)", step_sync_ms, rays1)
+
+    def time_step(label: str, step, rays: int) -> None:
+        report(f"{label}, host running ahead (CUDA events)", time_ms(step, 10), rays)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+            sync()
+        report(f"{label}, synchronised after every step (host clock)",
+               (time.perf_counter() - t0) * 1e3 / 10, rays)
+
+    time_step("training step (forward, backward, SGD), 1080p", lambda: train_step(params, static, None),
+              rays1)
     wf_ms, wf_plain_ms = in_turns(
         lambda: wt.wavefront_trace(g_tables, g_o, g_d, glass_cfg),
         lambda: wt.trace_wavefront_plain(g_tables, g_o, g_d, glass_cfg), 20, 3,
@@ -467,6 +560,17 @@ def main() -> int:
     )
     report("wavefront_spp_trace kernel, glass 1080p spp=8", wf_spp_ms, rays1 * 8)
     report("wavefront_spp_trace_plain, glass 1080p spp=8", wf_spp_plain_ms, rays1 * 8)
+    wgr_ms, wgr_plain_ms = in_turns(
+        lambda: wg.wavefront_grad(g_tables, g_o, g_d, wg_g["march"], glass_cfg),
+        lambda: wg.wavefront_grad_plain(g_tables, g_o, g_d, wg_g["march"], glass_cfg), 10, 1,
+    )
+    report("wavefront_grad kernel, glass 1080p, march", wgr_ms, rays1)
+    report("wavefront_grad_plain, glass 1080p, march", wgr_plain_ms, rays1)
+    report("wavefront_grad kernel, glass 1080p, binary",
+           time_ms(lambda: wg.wavefront_grad(g_tables, g_o, g_d, wg_g["binary"], binary_cfg), 10), rays1)
+    for (w_, h_), (gstep, gp, gst) in glass_steps.items():
+        time_step(f"glass training step (forward, backward, SGD), {w_}x{h_}",
+                  lambda: gstep(gp, gst, None), w_ * h_)
     for w_, h_, spp in glass_cells:
         m_scene, m_cam = glass_sphere_scene(w_, h_, spp=spp, device=dev)
         gc = RenderConfig(use_pallas=True, chunk_size=w_ * h_)
@@ -481,38 +585,43 @@ def main() -> int:
         ms = time_ms(lambda: render_hdr(m_scene, m_cam, cfg_for(w, h), seed=2024), 5)
         report(f"render_hdr end to end, head box {w}x{h} spp={spp}", ms, w * h * spp)
 
-    # The training step's device time by kernel, from the profiler.
+    # The training steps' device time by kernel, from the profiler.
     import re
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
 
-    train_step(params, static, None)
-    sync()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                train_step(params, static, None)
-            sync()
-            wall = (time.perf_counter() - t0) * 1e3 / 3
-        dev_us = {e.key: getattr(e, "device_time_total", 0.0) / 3 for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA") and getattr(e, "device_time_total", 0.0) > 0}
-    if dev_us:
+    def profile_step(label: str, step) -> None:
+        step()
+        sync()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step()
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3 / 3
+            dev_us = {e.key: getattr(e, "device_time_total", 0.0) / 3 for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA") and getattr(e, "device_time_total", 0.0) > 0}
+        if not dev_us:
+            print(f"  {label} under the profiler: no device time recorded (not measured)")
+            return
         total_ms = sum(dev_us.values()) / 1e3
         ours = {}
         for k, v in dev_us.items():
-            m = re.search(r"chain_\w+_kernel", k)
+            m = re.search(r"(chain|wavefront|partials)_\w*kernel", k)
             if m:
                 ours[m.group(0)] = ours.get(m.group(0), 0.0) + v / 1e3
         other = total_ms - sum(ours.values())
-        print(f"  training step under the profiler (it adds host time): wall {wall:.3f} ms, "
+        print(f"  {label} under the profiler (it adds host time): wall {wall:.3f} ms, "
               f"device kernels {total_ms:.3f} ms: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
               + f", {len(dev_us) - len(ours)} other kernel kinds {other:.3f} ms [{card}]", flush=True)
-    else:
-        print("  training step under the profiler: no device time recorded (not measured)")
+
+    profile_step("training step 1080p", lambda: train_step(params, static, None))
+    gstep, gp, gst = glass_steps[(W1080, H1080)]
+    profile_step("glass training step 1080p", lambda: gstep(gp, gst, None))
 
     # Roofline bounds from this run's work (roofline.py: intersection tests
     # only). The adjoint's function needs the forward's scans: one closest
@@ -528,16 +637,15 @@ def main() -> int:
     for sample in range(gcam8.spp):
         o8, d8 = gcam8.rays_for_pixels(px, py, st.pixel_jitter(1234, pids, sample))
         g_work8 += wavefront_work(g_tables, o8.contiguous(), d8.contiguous(), glass_cfg)
-    tb = table_bytes(tables)
-    gtb = table_bytes(g_tables)
     g_work1 = g_work["march"]
     bounds = {
-        "chain_trace": bound_ms(work1.closest_ops + work1.shadow_ops, rays1 * (24 + 12) + tb),
-        "spp_trace": bound_ms(work8.closest_ops + work8.shadow_ops, rays1 * (8 + 12) + tb),
-        "chain_grad": bound_ms(work1.closest_ops + work1.shadow_ops, rays1 * (36 + 24) + 2 * tb),
-        "wavefront_trace": bound_ms(g_work1.closest_ops + g_work1.shadow_ops, rays1 * (24 + 12) + gtb),
-        "wavefront_spp_trace": bound_ms(g_work8.closest_ops + g_work8.shadow_ops,
-                                        rays1 * (8 + 12) + gtb),
+        "chain_trace": bound_ms(work_ops(work1), trace_bytes(rays1, tables)),
+        "spp_trace": bound_ms(work_ops(work8), trace_bytes(rays1, tables, in_per_ray=8)),
+        "chain_grad": bound_ms(work_ops(work1), adjoint_bytes(rays1, tables)),
+        "wavefront_trace": bound_ms(work_ops(g_work1), trace_bytes(rays1, g_tables)),
+        "wavefront_spp_trace": bound_ms(work_ops(g_work8), trace_bytes(rays1, g_tables, in_per_ray=8)),
+        "wavefront_grad": bound_ms(work_ops(g_work1), adjoint_bytes(rays1, g_tables)),
+        "wavefront_grad, binary": bound_ms(work_ops(g_work["binary"]), adjoint_bytes(rays1, g_tables)),
     }
     print(f"  work at 1080p spp=1: {work1.bounces / rays1:.3f} bounces/ray, "
           f"{work1.shadow_rays / rays1:.3f} shadow rays/ray, closest-hit {work1.closest_ops / rays1:.0f} "
@@ -584,15 +692,23 @@ def main() -> int:
          "launches": glass_launches["wavefront_spp_trace"], "max_abs_err": g_spp_report.max_abs,
          "ms": wf_spp_ms, "plain_ms": wf_spp_plain_ms, "bound_ms": bounds["wavefront_spp_trace"][0],
          "bound_by": bounds["wavefront_spp_trace"][1], "library_ms": None},
+        {"name": "wavefront_grad", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/wavefront_grad.cu",
+         "replaces": "raytracingengine_tpu/kernels/wavefront_grad.py:762",
+         "launches": glass_train_launches[(W1080, H1080)]["wavefront_grad"], "max_abs_err": wg_err,
+         "ms": wgr_ms, "plain_ms": wgr_plain_ms, "bound_ms": bounds["wavefront_grad"][0],
+         "bound_by": bounds["wavefront_grad"][1], "library_ms": None},
     ]
     print(f"seam-flip pixels: chain_trace {chain_report.flips}/{chain_report.pixels}, "
           f"spp_trace {spp_report.flips}/{spp_report.pixels}, chain_grad "
           f"{cot_reports['d_d'].flips}/{cot_reports['d_d'].pixels} (spheres "
           f"{b_reports['d_d'].flips}/{b_reports['d_d'].pixels}), wavefront_trace "
           + ", ".join(f"{m} {r.flips}/{r.pixels}" for m, r in glass_reports.items())
-          + f", wavefront_spp_trace {g_spp_report.flips}/{g_spp_report.pixels}; training-path "
-          f"launches {train_launches}; glass-path launches {glass_launches}; no PyTorch call "
-          "traces rays, so library_ms is null")
+          + f", wavefront_spp_trace {g_spp_report.flips}/{g_spp_report.pixels}, wavefront_grad "
+          + ", ".join(f"{m} {r['d_d'].flips}/{r['d_d'].pixels}" for m, r in wg_reports.items())
+          + f"; training-path launches {train_launches}; glass-path launches {glass_launches}; "
+          f"glass training launches {glass_train_launches[(W1080, H1080)]} at 1080p; no PyTorch "
+          "call traces rays, so library_ms is null")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

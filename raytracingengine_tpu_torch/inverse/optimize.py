@@ -2,12 +2,17 @@
 
 A train step renders the current scene, takes a loss against a target
 image, backpropagates through the whole pipeline (camera rays ->
-intersection -> shading -> chain integrator -> optional tonemap; with
-`use_pallas=True` the chain trace kernel forward and the adjoint kernel
-backward) and lets the optimizer update the params in place.
+intersection -> shading -> integrator -> optional tonemap; with
+`use_pallas=True` a trace kernel forward and its adjoint kernel backward)
+and lets the optimizer update the params in place.
 
-Use a differentiable configuration: the chain integrator on an opaque
-scene with shadow_mode="binary" at spp=1.
+Use a differentiable configuration at spp=1: an opaque scene with
+shadow_mode="binary" (the chain kernels, or the chain integrator), or a
+glass scene with `use_pallas=True` and binary or march shadows (the
+wavefront trace kernel and the glass adjoint, at most 512 primitives).
+With `use_pallas=False` glass scenes differentiate the fixed-trip
+integrate_wavefront (`differentiable=True`), which runs every
+`cfg.budget()` iteration.
 """
 
 from __future__ import annotations

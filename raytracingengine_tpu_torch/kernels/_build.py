@@ -30,9 +30,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "chain_trace.cu", "spp_trace.cu", "chain_grad.cu", "wavefront_trace.cu",
-    "wavefront_spp_trace.cu",
+    "wavefront_spp_trace.cu", "wavefront_grad.cu",
 )
-HEADERS = ("trace_common.cuh",)
+HEADERS = ("trace_common.cuh", "adjoint_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracingengine_tpu_torch"
@@ -125,6 +125,14 @@ def load_library() -> ctypes.CDLL:
         + _WAVEFRONT_ARGTYPES
     )
     lib.rte_wavefront_spp_trace.restype = _I
+    lib.rte_wavefront_grad_count.argtypes = (
+        _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
+    )
+    lib.rte_wavefront_grad_count.restype = _I
+    lib.rte_wavefront_grad.argtypes = (
+        _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
+    )
+    lib.rte_wavefront_grad.restype = _I
     lib.rte_chain_grad_reduce.argtypes = [_P, _I, _I, _P, _P]
     lib.rte_chain_grad_reduce.restype = _I
     lib.rte_error_string.argtypes = [_I]

@@ -311,6 +311,35 @@ def _check_scope(tables: SceneTables) -> None:
         )
 
 
+def check_gbar(gbar: torch.Tensor, o: torch.Tensor) -> None:
+    if gbar.shape != o.shape or gbar.dtype != torch.float32 or gbar.device != o.device:
+        raise ValueError(f"gbar: expected float32 {tuple(o.shape)} on {o.device}, "
+                         f"got {gbar.dtype} {tuple(gbar.shape)} on {gbar.device}")
+
+
+def table_entries(tables: SceneTables, name: str) -> int:
+    """Floats of the table cotangents, one per table entry. The adjoint
+    kernels keep them all in one block's shared memory; raise if they do
+    not fit."""
+    total = sum(t.numel() for t in tables.tensors())
+    if 4 * total > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"{name}: {4 * total} bytes of table cotangents exceed one "
+            f"block's {MAX_SMEM_BYTES} bytes of shared memory"
+        )
+    return total
+
+
+def split_table_cots(flat: torch.Tensor, tables: SceneTables) -> tuple[torch.Tensor, ...]:
+    """The kernels' flat cotangent buffer (tables in order, row-major) ->
+    one view per table, in its shape."""
+    cots, start = [], 0
+    for t in tables.tensors():
+        cots.append(flat[start:start + t.numel()].view(t.shape))
+        start += t.numel()
+    return tuple(cots)
+
+
 def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
                gbar: torch.Tensor, cfg):
     """Adjoint of `chain_trace` -> (table cotangents in the tables' shapes,
@@ -320,9 +349,7 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     (csrc/chain_grad.cu) and its fixed-order reduction of the per-block
     table cotangents, on the current stream."""
     _check_rays(o, d)
-    if gbar.shape != o.shape or gbar.dtype != torch.float32 or gbar.device != o.device:
-        raise ValueError(f"gbar: expected float32 {tuple(o.shape)} on {o.device}, "
-                         f"got {gbar.dtype} {tuple(gbar.shape)} on {gbar.device}")
+    check_gbar(gbar, o)
     check_tables(tables, o.device)
     _check_scope(tables)
     if o.device.type == "cpu":
@@ -331,12 +358,7 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
         raise ValueError(f"chain_grad: unsupported device {o.device}")
     if not all(t.is_contiguous() for t in (o, d, gbar)):
         raise ValueError("chain_grad: o, d and gbar must be contiguous")
-    total = sum(t.numel() for t in tables.tensors())  # one float per table entry
-    if 4 * total > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"chain_grad: {4 * total} bytes of table cotangents exceed one "
-            f"block's {MAX_SMEM_BYTES} bytes of shared memory"
-        )
+    total = table_entries(tables, "chain_grad")
     r = o.shape[0]
     if r == 0:
         return tuple(torch.zeros_like(t) for t in tables.tensors()), o.clone(), d.clone()
@@ -360,11 +382,7 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
                                         flat.data_ptr(), stream)
         _build.check(lib, err, "chain_grad reduce")
     chain_grad.launches += 1
-    cots, start = [], 0
-    for t in tables.tensors():
-        cots.append(flat[start:start + t.numel()].view(t.shape))
-        start += t.numel()
-    return tuple(cots), go, gd
+    return split_table_cots(flat, tables), go, gd
 
 
 #: Kernel launches since the last reset (the CPU path does not count).

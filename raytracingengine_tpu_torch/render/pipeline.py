@@ -14,8 +14,10 @@ package's `_render_chunk`:
     backward;
   * chain, spp > 1: pixel coordinates -> kernels.spp_trace, the whole AA
     loop per pixel;
-  * wavefront, spp == 1: camera rays -> kernels.wavefront_trace.
-    wavefront_trace (forward-only);
+  * wavefront, spp == 1: camera rays -> kernels.wavefront_grad.
+    wavefront_trace_fused: the wavefront trace kernel forward and, when a
+    scene or camera tensor requires grad, the glass adjoint kernel
+    backward;
   * wavefront, spp > 1: pixel coordinates -> wavefront_spp_trace.
 
 Otherwise (`use_pallas=False`, or chain mode with march shadows) camera
@@ -23,7 +25,7 @@ rays go to render.integrator.integrate_chain or integrate_wavefront, the
 all-pairs integrators that autograd differentiates: no kernel covers that
 case in either package. The AA loops key their jitter by (seed, pixel id,
 sample), so a render does not depend on how the frame is chunked; they are
-forward-only.
+forward-only, so spp > 1 with gradients raises.
 
 The chunks are joined with torch.cat, so gradients flow through the frame.
 The device of the scene decides: CUDA tensors launch the CUDA kernels, CPU
@@ -41,7 +43,8 @@ from raytracingengine_tpu_torch.geometry.intersect import FlatScene, flatten_sce
 from raytracingengine_tpu_torch.kernels.chain_grad import chain_trace_fused
 from raytracingengine_tpu_torch.kernels.chain_trace import SceneTables, pack_scene_tables, pallas_applicable
 from raytracingengine_tpu_torch.kernels.spp_trace import spp_trace
-from raytracingengine_tpu_torch.kernels.wavefront_trace import wavefront_spp_trace, wavefront_trace
+from raytracingengine_tpu_torch.kernels.wavefront_grad import wavefront_trace_fused
+from raytracingengine_tpu_torch.kernels.wavefront_trace import wavefront_spp_trace
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.integrator import integrate_chain, integrate_wavefront
 from raytracingengine_tpu_torch.scene import Scene, tensor_leaves
@@ -78,10 +81,6 @@ def check_supported(mode: str, cfg: RenderConfig, spp: int = 1, grad: bool = Fal
     elif spp > 1 and (grad or cfg.differentiable or not kernels):
         todo = ("spp > 1 with gradients, differentiable=True or no kernel for the mode "
                 "and shadows: the per-sample differentiable loop (ROADMAP queue 1 item 13)")
-    elif grad and kernels and mode == "wavefront":
-        todo = ("gradients through the wavefront kernel: the glass adjoint "
-                "wavefront_grad_pallas (ROADMAP queue 2 item 6); use_pallas=False "
-                "differentiates integrate_wavefront")
     if todo is not None:
         raise NotImplementedError(f"not ported yet: {todo}")
 
@@ -92,7 +91,7 @@ def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg) ->
         integrate = integrate_wavefront if mode == "wavefront" else integrate_chain
         return integrate(flat, o, d, cfg)
     if mode == "wavefront":
-        return wavefront_trace(tables, o.contiguous(), d.contiguous(), cfg)
+        return wavefront_trace_fused(tables, o, d, cfg)
     return chain_trace_fused(tables, o, d, cfg)
 
 

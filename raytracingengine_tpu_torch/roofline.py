@@ -208,6 +208,26 @@ def table_bytes(tables: SceneTables) -> int:
     return 4 * sum(t.numel() for t in tables.tensors())
 
 
+def trace_bytes(rays: int, tables: SceneTables, in_per_ray: int = 24) -> int:
+    """Bytes a trace kernel must move: per ray its input (o and d, 24
+    bytes; pixel coordinates, 8) and its HDR output (12), and the tables
+    once."""
+    return rays * (in_per_ray + 12) + table_bytes(tables)
+
+
+def adjoint_bytes(rays: int, tables: SceneTables) -> int:
+    """Bytes an adjoint kernel must move: per ray o, d and g in (36 bytes)
+    and d_o, d_d out (24), the tables read and their cotangents written."""
+    return rays * (36 + 24) + 2 * table_bytes(tables)
+
+
+def work_ops(work: ChainWork | WavefrontWork) -> float:
+    """The fp32 operations a call needs: its closest-hit scans and its
+    shadow scans (any-hit or march). An adjoint needs the same scans as its
+    forward; its own replays are choices of design and are not counted."""
+    return work.closest_ops + work.shadow_ops
+
+
 def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
     """-> (least time in ms on an H100 SXM at 700 W, "operations" or "bytes")."""
     t_ops, t_bytes = ops / H100_FP32_OPS_PER_S, n_bytes / H100_BYTES_PER_S

@@ -224,13 +224,13 @@ def test_wavefront_spp_plain_with_given_jitter_matches_jax():
 
 @pytest.mark.parametrize("spp", [1, 3])
 def test_glass_render_routes_through_wavefront_wrappers(monkeypatch, spp):
-    """use_pallas=True on a CPU glass scene goes through wavefront_trace
-    (spp=1) or wavefront_spp_trace (spp > 1) to their plain versions, no
-    launch counted, and equals the integrator: render_hdr with
-    use_pallas=False at spp=1, the same AA loop over integrate_wavefront at
-    spp > 1."""
+    """use_pallas=True on a CPU glass scene goes through
+    wavefront_trace_fused (spp=1; wavefront_trace without gradients) or
+    wavefront_spp_trace (spp > 1) to their plain versions, no launch
+    counted, and equals the integrator: render_hdr with use_pallas=False at
+    spp=1, the same AA loop over integrate_wavefront at spp > 1."""
     calls = {"trace": 0, "spp": 0}
-    for name, key in (("wavefront_trace", "trace"), ("wavefront_spp_trace", "spp")):
+    for name, key in (("wavefront_trace_fused", "trace"), ("wavefront_spp_trace", "spp")):
         orig = getattr(pipeline, name)
 
         def spy(*a, _orig=orig, _key=key, **k):
@@ -270,25 +270,35 @@ def test_head_box_default_config_matches_jax():
     assert np.isfinite(ours).all() and report.ok, report
 
 
-def test_glass_grads_through_kernel_raise():
-    """The wavefront kernels are forward-only until the glass adjoint: a
-    scene leaf that requires grad raises on the CPU too (the plain version
-    reads the tables as floats and would return zero gradients)."""
+def test_glass_grads_flow_through_kernel_route():
+    """With use_pallas=True a glass scene's gradients run through the
+    wavefront kernel route (WavefrontTraceFused, whose backward on a CPU
+    tensor is wavefront_grad_plain) and equal autograd of the fixed-trip
+    integrate_wavefront (use_pallas=False, differentiable=True) under the
+    leaf budget; the forward-only wrappers still refuse grad."""
+    cfg = RenderConfig(shadow_mode="binary", use_pallas=True, max_depth=3, wavefront_budget=16)
     scene, cam = glass_scene(8, device="cpu")
+    grads = {}
+    for route, c in (("kernel", cfg), ("integrator", dataclasses.replace(cfg, use_pallas=False, differentiable=True))):
+        params, static = partition(scene)
+        img = pipeline.render_hdr(combine(params, static), cam, c)
+        img.sum().backward()
+        grads[route] = {k: np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
+                        for k, p in params.items()}
+    errors = grad_leaf_mismatches(grads["kernel"], grads["integrator"])
+    assert not errors, errors
+    assert abs(grads["kernel"]["spheres.materials.transparency"][0]) > 0
     params, static = partition(scene)
-    cfg = RenderConfig(use_pallas=True)
-    with pytest.raises(NotImplementedError, match="glass adjoint"):
-        pipeline.render_hdr(combine(params, static), cam, cfg)
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
     tables = pack_scene_tables(flatten_scene(combine(params, static)))
-    with pytest.raises(NotImplementedError, match="glass adjoint"):
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    with pytest.raises(NotImplementedError, match="forward-only"):
         wt.wavefront_trace(tables, o.contiguous(), d.contiguous(), cfg)
+    _, cam3 = glass_scene(8, 3, device="cpu")
+    px, py = cam3.pixel_grid()
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        wt.wavefront_spp_trace(tables, cam3, px, py, cfg)
     with torch.no_grad():  # forward-only renders still run
         assert torch.isfinite(pipeline.render_hdr(combine(params, static), cam, cfg)).all()
-    # use_pallas=False differentiates integrate_wavefront
-    img = pipeline.render_hdr(combine(params, static), cam, dataclasses.replace(cfg, use_pallas=False))
-    img.sum().backward()
-    assert params["spheres.centers"].grad is not None
 
 
 def test_integrate_wavefront_grads_match_jax():

@@ -3,7 +3,7 @@
 (h) A CPU tensor reaches the plain version and leaves the launch counter
 unchanged; unsupported configurations raise NotImplementedError; bad
 inputs raise. The tests marked `gpu` need a CUDA card: they launch the
-kernels against their plain versions (the adjoint and the wavefront
+kernels against their plain versions (the adjoints and the wavefront
 kernels on the glass sphere too) and check that a forward kernel's CUDA
 input with requires_grad raises. They skip on a host without one.
 """
@@ -18,6 +18,7 @@ import torch
 import raytracingengine_tpu_torch.kernels.chain_grad as cg
 import raytracingengine_tpu_torch.kernels.chain_trace as ct
 import raytracingengine_tpu_torch.kernels.spp_trace as st
+import raytracingengine_tpu_torch.kernels.wavefront_grad as wg
 import raytracingengine_tpu_torch.kernels.wavefront_trace as wt
 import raytracingengine_tpu_torch.render.pipeline as pipeline
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
@@ -258,6 +259,40 @@ def test_cuda_wavefront_spp_trace_matches_plain(cuda_device):
     report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
     print(f"spp=4: {report}")
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+    assert wt.dropped_pushes() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shadow_mode", ["binary", "march"])
+def test_cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode):
+    """The glass adjoint kernel against wavefront_grad_plain on the glass
+    sphere at 64x64, g = d mean(img^2) / d img: ray cotangents under the
+    seam budget at atol 1e-3 of the largest plain entry, table cotangents
+    row by row (parity.table_cot_rows); the glass sphere's transparency and
+    refractive index rows carry cotangents; no push was dropped."""
+    scene, cam = builders.glass_sphere_scene(64, 64, spp=1, device=cuda_device)
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    o = o.contiguous()
+    cfg = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
+    img = wt.wavefront_trace(tables, o, d, cfg)
+    g = (2.0 * img / img.numel()).contiguous()
+    before = wg.wavefront_grad.launches
+    cots, go, gd = wg.wavefront_grad(tables, o, d, g, cfg)
+    assert wg.wavefront_grad.launches == before + 1
+    ref_cots, ref_go, ref_gd = wg.wavefront_grad_plain(tables, o, d, g, cfg)
+    torch.cuda.synchronize()
+    for name, ours, ref in (("d_o", go, ref_go), ("d_d", gd, ref_gd)):
+        report = ray_cot_seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+        print(f"{shadow_mode} {name}: {report}")
+        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, report)
+    for name, ours, ref in zip(TABLE_ROWS, cots, ref_cots):
+        assert ours.shape == ref.shape
+        rows = table_cot_rows(name, ours.cpu().numpy(), ref.cpu().numpy())
+        print("\n".join(map(str, rows)))
+        assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
+    mat = ref_cots[3].cpu().numpy()
+    assert abs(mat[5, 0]) > 0.0 and abs(mat[6, 0]) > 0.0  # transparency, ior
     assert wt.dropped_pushes() == 0
 
 
