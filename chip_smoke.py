@@ -44,6 +44,24 @@ training step at full resolution, and times kernels against plain versions:
                 make_train_step with SGD(lr=1e-6) on mean(img^2), the camera
                 focal trained too, 8 steps per size, the launch counters reset
                 before and read after each size
+ 15. dense      the culled chain_trace vs trace_chain_plain on the culled tables
+                (which scans without culling) on dense_mesh_scene at 512x512,
+                6,016 and 50,800 triangles; the culled spp_trace vs its plain
+                version at 512x512 spp=8; render_hdr's frames against the C++
+                engine's refbuild/dense_mesh_512.hdr64 and the full
+                refbuild/dense_mesh_streamed_256.hdr64; the scrambled mesh's
+                kernel time beside the unscrambled one
+ 16. dense grad chain_grad_dense vs chain_grad_dense_plain, g = d mean(img^2) /
+                d img: dense_mesh_scene 512x512, mixed_dense_scene 512x512 and
+                the 50,800-triangle mesh at 256x256 (the plain version's cost);
+                ray cotangents, table rows, run-to-run spread (global atomics),
+                flips beside phase 15's
+ 17. dense train the dense training steps of bench.py:272-296 and :359-383
+                through the entry points: 512x512, 6,016 and 50,800 triangles,
+                SGD(lr=1e-6) on mean(img^2), the camera focal trained too, 8
+                steps per size, the launch counters reset before and read
+                after each size: 8 launches each of chain_trace and
+                chain_grad_dense, none of chain_grad
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -58,7 +76,11 @@ share of a sum over ~10^5 rays).
 The glass kernels are held to their plain versions under the same seam
 budget; a flip there is a shadow or refraction ray that grazes a sphere and
 takes the other branch. The glass adjoint is held to its plain version as
-chain_grad is (ray cotangents and table rows).
+chain_grad is (ray cotangents and table rows). The dense kernels take the
+same budgets; their plain versions scan every triangle, so they check the
+kernels' culling too. The frames against the C++ engine: p99.9 of the HDR
+difference below 5e-5 and at most 2e-5 of the LDR subpixels more than one
+byte off (tests/test_reference_parity.py).
 
 Run with no arguments on a machine with one CUDA card:  python3 chip_smoke.py
 Any failed phase raises and the script exits non-zero. The last line is
@@ -113,7 +135,7 @@ def main() -> int:
         table_cot_rows,
     )
     from raytracingengine_tpu_torch.render.config import RenderConfig
-    from raytracingengine_tpu_torch.render.pipeline import render_hdr
+    from raytracingengine_tpu_torch.render.pipeline import mean_direction, render_hdr
     from raytracingengine_tpu_torch.roofline import (
         ChainWork,
         WavefrontWork,
@@ -126,8 +148,10 @@ def main() -> int:
     )
     from raytracingengine_tpu_torch.scenes import (
         baseline_sphere_scene,
+        dense_mesh_scene,
         glass_sphere_scene,
         head_box_scene,
+        mixed_dense_scene,
     )
     from raytracingengine_tpu_torch.tonemap import to_uint8, tonemap
 
@@ -254,16 +278,25 @@ def main() -> int:
     del frames, hdr
 
     # 9. the adjoint kernel vs its plain version, at the main path's camera
-    def check_grad(label: str, kernel, plain, tables, o, d, g, cfg):
+    plain_call_ms = {}  # label -> CUDA-event ms of check_grad's plain call
+
+    def check_grad(label: str, kernel, plain, tables, o, d, g, cfg, spread_rtol=None):
         """An adjoint kernel vs its plain version -> (ray-cotangent seam
         reports, max|diff| over every output); prints each table row against
-        its bound and the run-to-run spread of two kernel calls."""
+        its bound and the run-to-run spread of two kernel calls, and with
+        `spread_rtol` holds each output's spread to that share of its
+        largest entry (the tolerance of csrc/chain_grad_dense.cu's global
+        atomics)."""
         name = kernel.__name__
         ours = kernel(tables, o, d, g, cfg)
         sync()
         t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         ref = plain(tables, o, d, g, cfg)
-        sync()
+        end.record()
+        end.synchronize()
+        plain_call_ms[label] = start.elapsed_time(end)
         print(f"  {label}: {plain.__name__} first call {time.perf_counter() - t0:.2f} s", flush=True)
         rerun = kernel(tables, o, d, g, cfg)
         sync()
@@ -277,7 +310,11 @@ def main() -> int:
             reports[cot] = report
         bad = []
         for table, a, b in zip(("sph", "pl", "tri", "mat", "light"), ours[0], ref[0]):
-            for row in table_cot_rows(table, a.cpu().numpy(), b.cpu().numpy()):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            if table == "tri" and a.shape[0] == 13:  # culled: row 12, the original index, has none
+                bad += ["tri row 12 carries a cotangent"] if a[12].any() or b[12].any() else []
+                a, b = a[:12], b[:12]
+            for row in table_cot_rows(table, a, b):
                 print(f"  {'PASS' if row.ok else 'FAIL'} {label} table {row}", flush=True)
                 bad += [] if row.ok else [str(row)]
         if bad:
@@ -285,8 +322,14 @@ def main() -> int:
         outs = lambda r: (*r[0], r[1], r[2])  # noqa: E731
         err = max(float((a - b).abs().max()) for a, b in zip(outs(ours), outs(ref)))
         spread = max(float((a - b).abs().max()) for a, b in zip(outs(ours), outs(rerun)))
+        rel = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                  for a, b in zip(outs(ours), outs(rerun)))
+        atomics = "global and shared-memory" if spread_rtol is not None else "shared-memory"
         print(f"  {label}: max|diff| vs plain over all outputs {err:.3e}; run-to-run max|diff| "
-              f"of two {name} calls (shared-memory atomics) {spread:.3e}", flush=True)
+              f"of two {name} calls ({atomics} atomics) {spread:.3e}, {rel:.3e} of the output's "
+              "largest entry" + (f" (<= {spread_rtol:g})" if spread_rtol is not None else ""), flush=True)
+        if spread_rtol is not None and not rel <= spread_rtol:
+            raise AssertionError(f"{label} {name}: run-to-run spread {rel:.3e} > {spread_rtol:g}")
         return reports, err
 
     print("[9 grad] head box 1920x1080 spp=1, g = d mean(img^2) / d img", flush=True)
@@ -488,8 +531,8 @@ def main() -> int:
         glass_steps[(w_, h_)] = (gstep, gp, gst)
         glass_train_launches[(w_, h_)] = launches_g
 
-    # 8. timing: CUDA events around `iters` calls after one warm-up call
     def time_ms(fn, iters: int) -> float:
+        """CUDA events around `iters` calls after one warm-up call."""
         fn()
         sync()
         start = torch.cuda.Event(enable_timing=True)
@@ -500,6 +543,145 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def once_ms(fn):
+        """-> (fn's result, CUDA-event ms of this one call). The dense plain
+        versions take seconds, so their time is that of their checking call."""
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    # 15. the dense forward: the culled kernels vs their plain versions
+    print("[15 dense] dense_mesh_scene 512x512, culled tables ordered along the mean ray", flush=True)
+    W512 = 512
+    dense = {}  # label -> (tables, o, d, kernel frame)
+    dense_reports, dense_plain_ms = {}, {}
+    for label, kw in (("6016", {}), ("50800", dict(ni=128, nj=200))):
+        t0 = time.perf_counter()
+        d_scene, d_cam = dense_mesh_scene(W512, W512, spp=1, device=dev, **kw)
+        d_flat = flatten_scene(d_scene)
+        build_s = time.perf_counter() - t0
+        d_o, d_d = d_cam.rays_for_pixels(*d_cam.pixel_grid())
+        d_o = d_o.contiguous()
+        d_tables, pack_ms = once_ms(lambda: ct.pack_forward_tables_perm(d_flat, mean_direction(d_d)))
+        out = ct.chain_trace(d_tables, d_o, d_d, cfg)
+        ref, dense_plain_ms[label] = once_ms(lambda: ct.trace_chain_plain(d_tables, d_o, d_d, cfg))
+        print(f"  {d_flat.n_triangles} triangles: scene built in {build_s:.2f} s, tables packed in "
+              f"{pack_ms:.1f} ms ({d_tables.n_blocks} blocks); trace_chain_plain "
+              f"{dense_plain_ms[label] / 1e3:.2f} s", flush=True)
+        dense_reports[label] = budget(f"culled chain_trace vs trace_chain_plain, {label} triangles",
+                                      out, ref)
+        dense[label] = (d_tables, d_o, d_d, out)
+        del ref, d_scene, d_flat
+    tables6, d_o6, d_d6, frame6 = dense["6016"]
+    d_scene8, d_cam8 = dense_mesh_scene(W512, W512, spp=8, device=dev)
+    spp_tables6 = ct.pack_forward_tables_perm(flatten_scene(d_scene8))  # no order at spp > 1
+    dpx, dpy = d_cam8.pixel_grid()
+    d_spp_out = st.spp_trace(spp_tables6, d_cam8, dpx, dpy, cfg, seed=1234)
+    d_spp_ref, d_spp_plain_ms = once_ms(
+        lambda: st.spp_trace_plain(spp_tables6, d_cam8, dpx, dpy, cfg, seed=1234))
+    d_spp_report = budget("culled spp_trace vs spp_trace_plain, 6016 triangles 512x512 spp=8 seed=1234",
+                          d_spp_out, d_spp_ref)
+    del d_spp_ref
+    for name, kw, size in (("dense_mesh_512", {}, 512),
+                           ("dense_mesh_streamed_256", dict(ni=128, nj=200), 256)):
+        r_scene, r_cam = dense_mesh_scene(size, size, spp=1, device=dev, **kw)
+        img = render_hdr(r_scene, r_cam, cfg_for(size, size))
+        sync()
+        ref = read_hdr64(str(ROOT / "refbuild" / f"{name}.hdr64"))
+        p999, bad_frac = reference_frame_stats(img.cpu().numpy(), ref)
+        ok = p999 < 5e-5 and bad_frac <= 2e-5 and bool(torch.isfinite(img).all())
+        path = out_dir / f"{name}.png"
+        write_png(str(path), to_uint8(tonemap(img, "aces")).cpu().numpy())
+        print(f"  {'PASS' if ok else 'FAIL'} {name} vs C++ engine: p99.9 HDR diff {p999:.3e} (< 5e-5), "
+              f"LDR subpixels >1 byte off {bad_frac:.3e} (<= 2e-5) -> {path.relative_to(ROOT)}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} outside the reference-parity budget")
+    scr_scene, _ = dense_mesh_scene(W512, W512, spp=1, scramble=7, device=dev)
+    scr_tables = ct.pack_forward_tables_perm(flatten_scene(scr_scene), mean_direction(d_d6))
+    scr_report = seam_budget(ct.chain_trace(scr_tables, d_o6, d_d6, cfg).cpu().numpy(), frame6.cpu().numpy())
+    scr_ms = time_ms(lambda: ct.chain_trace(scr_tables, d_o6, d_d6, cfg), 10)
+    unscr_ms = time_ms(lambda: ct.chain_trace(tables6, d_o6, d_d6, cfg), 10)
+    print(f"  scrambled triangle order (scramble=7): chain_trace {scr_ms:.3f} ms vs {unscr_ms:.3f} ms "
+          f"in authoring order [{card}]; the frames differ at {scr_report.flips} pixels (seam ties "
+          "follow the authoring order; a number, not a gate)", flush=True)
+    del scr_scene, scr_tables
+
+    # 16. the dense adjoint vs its plain version
+    print("[16 dense grad] g = d mean(img^2) / d img", flush=True)
+    m_scene, m_cam = mixed_dense_scene(W512, W512, device=dev)
+    m_o, m_d = m_cam.rays_for_pixels(*m_cam.pixel_grid())
+    m_tables = ct.pack_forward_tables_perm(flatten_scene(m_scene), mean_direction(m_d))
+    s_scene, s_cam = dense_mesh_scene(256, 256, spp=1, ni=128, nj=200, device=dev)
+    s_o, s_d = s_cam.rays_for_pixels(*s_cam.pixel_grid())
+    s_tables = ct.pack_forward_tables_perm(flatten_scene(s_scene), mean_direction(s_d))
+    dense_grad = {}  # label -> (tables, o, d, g, ray-cotangent reports, max|diff|, plain ms)
+    for label, (tb, to, td) in (
+        ("6016 512x512", (tables6, d_o6, d_d6)),
+        (f"mixed {m_tables.n_primitives} primitives 512x512", (m_tables, m_o.contiguous(), m_d)),
+        ("50800 256x256", (s_tables, s_o.contiguous(), s_d)),
+    ):
+        img = ct.chain_trace(tb, to, td, cfg)
+        gg = (2.0 * img / img.numel()).contiguous()
+        t0 = time.perf_counter()
+        reports, err = check_grad(label, cg.chain_grad_dense, cg.chain_grad_dense_plain, tb, to, td, gg, cfg,
+                                  spread_rtol=1e-4)
+        dense_grad[label] = (tb, to, td, gg, reports, err)
+        print(f"  {label}: check {time.perf_counter() - t0:.1f} s", flush=True)
+    print("  seam-flip pixels of the dense adjoint (d_o, d_d): " + ", ".join(
+        f"{k} {v[4]['d_o'].flips}, {v[4]['d_d'].flips}" for k, v in dense_grad.items())
+        + "; of the culled forward (phase 15): " + ", ".join(
+            f"{k} {r.flips}" for k, r in dense_reports.items()), flush=True)
+    del m_scene, s_scene
+
+    # 17. the dense training steps, as a user calls them (bench.py:272-296, :359-383)
+    print("[17 dense train] 512x512, SGD(lr=1e-6) on mean(img^2), camera focal trained too, "
+          "8 steps per size", flush=True)
+    dense_steps, dense_train_launches = {}, {}
+    for label, kw in (("6016", {}), ("50800", dict(ni=128, nj=200))):
+        ds, dc = dense_mesh_scene(W512, W512, spp=1, device=dev, **kw)
+        dp, dst = partition(ds)
+        dfocal = dc.focal.clone().requires_grad_(True)
+        dc = dataclasses.replace(dc, focal=dfocal)
+        dopt = torch.optim.SGD([*dp.values(), dfocal], lr=1e-6)
+        dstep = make_train_step(dc, cfg_for(W512, W512), dopt, loss_fn=mean_sq)
+        sync()
+        ct.chain_trace.launches = 0
+        cg.chain_grad.launches = 0
+        cg.chain_grad_dense.launches = 0
+        d_losses, d_grads = [], {}
+        for _ in range(8):
+            loss, d_grads = dstep(dp, dst, None)
+            d_losses.append(loss)
+        sync()
+        launches_d = {"chain_trace": ct.chain_trace.launches,
+                      "chain_grad_dense": cg.chain_grad_dense.launches, "chain_grad": cg.chain_grad.launches}
+        d_grads = {**d_grads, "camera.focal": dfocal.grad}
+        d_losses = [float(x) for x in d_losses]
+        finite = all(np.isfinite(d_losses)) and all(
+            v is None or bool(torch.isfinite(v).all()) for v in d_grads.values())
+        nz = lambda k: d_grads.get(k) is not None and bool((d_grads[k] != 0).any())  # noqa: E731
+        nonzero = {
+            "mesh vertices": any(nz(k) for k in ("triangles.v0", "triangles.v1", "triangles.v2")),
+            "materials": any(nz(k) for k in d_grads if ".materials." in k),
+            "lights": any(nz(k) for k in d_grads if k.startswith("lights.")),
+            "camera focal": nz("camera.focal"),
+        }
+        print(f"  {label} triangles: launches {launches_d} (8, 8, 0); losses {d_losses[0]:.6f} -> "
+              f"{d_losses[-1]:.6f}; finite={finite}; non-zero grads {nonzero}", flush=True)
+        if launches_d != {"chain_trace": 8, "chain_grad_dense": 8, "chain_grad": 0}:
+            raise AssertionError(f"the dense training step did not run through the dense kernels: {launches_d}")
+        if not finite or not all(nonzero.values()):
+            raise AssertionError(f"dense training step {label}: finite={finite}, non-zero {nonzero}")
+        dense_steps[label] = (dstep, dp, dst)
+        dense_train_launches[label] = launches_d
+
+    # 8. timing: CUDA events around `iters` calls after one warm-up call
 
     def in_turns(kernel, plain, k_iters: int, p_iters: int):
         """plain, kernel, kernel, plain -> (kernel ms, plain ms), each the
@@ -584,6 +766,34 @@ def main() -> int:
         m_scene, m_cam = head_box_scene(width=w, height=h, spp=spp, device=dev)
         ms = time_ms(lambda: render_hdr(m_scene, m_cam, cfg_for(w, h), seed=2024), 5)
         report(f"render_hdr end to end, head box {w}x{h} spp={spp}", ms, w * h * spp)
+    # The dense kernels; their plain versions' times are those of their
+    # checking calls in phases 15 and 16 (one call each: seconds).
+    rays512 = W512 * W512
+    dense_ms = {}
+    for label, (tb, to, td, _) in dense.items():
+        dense_ms[label] = time_ms(lambda: ct.chain_trace(tb, to, td, cfg), 10)
+        report(f"culled chain_trace kernel, {label} triangles 512x512", dense_ms[label], rays512)
+        report(f"trace_chain_plain (one call), {label} triangles 512x512", dense_plain_ms[label], rays512)
+    d_spp_ms = time_ms(lambda: st.spp_trace(spp_tables6, d_cam8, dpx, dpy, cfg, seed=1234), 5)
+    report("culled spp_trace kernel, 6016 triangles 512x512 spp=8", d_spp_ms, rays512 * 8)
+    report("spp_trace_plain (one call), 6016 triangles 512x512 spp=8", d_spp_plain_ms, rays512 * 8)
+    dense_grad_ms, dense_grad_plain_ms = {}, {}
+    for label, (tb, to, td, gg, _, _) in dense_grad.items():
+        dense_grad_ms[label] = time_ms(lambda: cg.chain_grad_dense(tb, to, td, gg, cfg), 5)
+        dense_grad_plain_ms[label] = plain_call_ms[label]
+        n_rays = to.shape[0]
+        report(f"chain_grad_dense kernel, {label}", dense_grad_ms[label], n_rays)
+        report(f"chain_grad_dense_plain (one call), {label}", dense_grad_plain_ms[label], n_rays)
+    for label, kw in (("6016", {}), ("50800", dict(ni=128, nj=200))):
+        r_scene, r_cam = dense_mesh_scene(W512, W512, spp=1, device=dev, **kw)
+        ms = time_ms(lambda: render_hdr(r_scene, r_cam, cfg_for(W512, W512)), 5)
+        report(f"render_hdr end to end, dense mesh {label} triangles 512x512 spp=1", ms, rays512)
+        r_flat = flatten_scene(r_scene)
+        pack_ms = time_ms(lambda: ct.pack_forward_tables_perm(r_flat, mean_direction(d_d6)), 5)
+        print(f"  pack_forward_tables_perm, {label} triangles: {pack_ms:.3f} ms [{card}]", flush=True)
+    for label, (dstep, dp, dst) in dense_steps.items():
+        time_step(f"dense training step (forward, backward, SGD), {label} triangles 512x512",
+                  lambda: dstep(dp, dst, None), rays512)
 
     # The training steps' device time by kernel, from the profiler.
     import re
@@ -608,6 +818,9 @@ def main() -> int:
             print(f"  {label} under the profiler: no device time recorded (not measured)")
             return
         total_ms = sum(dev_us.values()) / 1e3
+        pack = [e for e in prof.key_averages() if e.key == "pack_forward_tables_perm"]
+        pack_note = (f"; the packing span (render/pipeline.py) {pack[0].count // 3} per step, host "
+                     f"{pack[0].cpu_time_total / 3e3:.3f} ms per step" if pack else "")
         ours = {}
         for k, v in dev_us.items():
             m = re.search(r"(chain|wavefront|partials)_\w*kernel", k)
@@ -617,11 +830,14 @@ def main() -> int:
         print(f"  {label} under the profiler (it adds host time): wall {wall:.3f} ms, "
               f"device kernels {total_ms:.3f} ms: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
-              + f", {len(dev_us) - len(ours)} other kernel kinds {other:.3f} ms [{card}]", flush=True)
+              + f", {len(dev_us) - len(ours)} other kernel kinds {other:.3f} ms{pack_note} [{card}]",
+              flush=True)
 
     profile_step("training step 1080p", lambda: train_step(params, static, None))
     gstep, gp, gst = glass_steps[(W1080, H1080)]
     profile_step("glass training step 1080p", lambda: gstep(gp, gst, None))
+    for label, (dstep, dp, dst) in dense_steps.items():
+        profile_step(f"dense training step {label} triangles 512x512", lambda: dstep(dp, dst, None))
 
     # Roofline bounds from this run's work (roofline.py: intersection tests
     # only). The adjoint's function needs the forward's scans: one closest
@@ -657,6 +873,27 @@ def main() -> int:
           f"{g_work1.closest_ops / rays1:.0f} + march {g_work1.shadow_ops / rays1:.0f} fp32 ops/ray; "
           f"spp=8: {(g_work8.closest_ops + g_work8.shadow_ops) / rays1:.0f} ops/pixel, at most "
           f"{g_work8.max_pops} nodes in one sample's tree")
+    # The dense kernels' bounds: the culled work of a traversal that knew each
+    # scan's answer (roofline.py), on the timed rays.
+    dense_work = {label: chain_work(tb, to, td, cfg) for label, (tb, to, td, _) in dense.items()}
+    d_work8 = ChainWork(rays=0)
+    d_pids = dpy.to(torch.int64) * W512 + dpx.to(torch.int64)
+    for sample in range(d_cam8.spp):
+        o8, d8 = d_cam8.rays_for_pixels(dpx, dpy, st.pixel_jitter(1234, d_pids, sample))
+        d_work8 += chain_work(spp_tables6, o8.contiguous(), d8.contiguous(), cfg)
+    s_work = chain_work(s_tables, dense_grad["50800 256x256"][1], s_d, cfg)
+    bounds.update({
+        "chain_trace, 6016 triangles": bound_ms(work_ops(dense_work["6016"]), trace_bytes(rays512, tables6)),
+        "chain_trace_streamed": bound_ms(work_ops(dense_work["50800"]),
+                                         trace_bytes(rays512, dense["50800"][0])),
+        "spp_trace, 6016 triangles": bound_ms(work_ops(d_work8), trace_bytes(rays512, spp_tables6, in_per_ray=8)),
+        "chain_grad_dense": bound_ms(work_ops(dense_work["6016"]), adjoint_bytes(rays512, tables6)),
+        "chain_grad_dense_streamed": bound_ms(work_ops(s_work), adjoint_bytes(256 * 256, s_tables)),
+    })
+    for label, w in (*dense_work.items(), ("50800 256x256", s_work)):
+        print(f"  dense work {label}: {w.bounces / w.rays:.3f} bounces/ray, {w.shadow_rays / w.rays:.3f} "
+              f"shadow rays/ray, closest-hit {w.closest_ops / w.rays:.0f} + shadow "
+              f"{w.shadow_ops / w.rays:.0f} fp32 ops/ray (culled traversal)")
     for name, (b, by) in bounds.items():
         print(f"  bound {name}: {b:.4f} ms ({by}) [H100 SXM peaks; {card}]")
 
@@ -698,6 +935,29 @@ def main() -> int:
          "launches": glass_train_launches[(W1080, H1080)]["wavefront_grad"], "max_abs_err": wg_err,
          "ms": wgr_ms, "plain_ms": wgr_plain_ms, "bound_ms": bounds["wavefront_grad"][0],
          "bound_by": bounds["wavefront_grad"][1], "library_ms": None},
+        {"name": "chain_trace_streamed", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/chain_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/chain_trace.py:1275",
+         "launches": dense_train_launches["50800"]["chain_trace"],
+         "max_abs_err": dense_reports["50800"].max_abs, "ms": dense_ms["50800"],
+         "plain_ms": dense_plain_ms["50800"], "bound_ms": bounds["chain_trace_streamed"][0],
+         "bound_by": bounds["chain_trace_streamed"][1], "library_ms": None},
+        {"name": "chain_grad_dense", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/chain_grad_dense.cu",
+         "replaces": "raytracingengine_tpu/kernels/chain_grad.py:1143",
+         "launches": dense_train_launches["6016"]["chain_grad_dense"],
+         "max_abs_err": max(v[5] for k, v in dense_grad.items() if not k.startswith("50800")),
+         "ms": dense_grad_ms["6016 512x512"], "plain_ms": dense_grad_plain_ms["6016 512x512"],
+         "bound_ms": bounds["chain_grad_dense"][0], "bound_by": bounds["chain_grad_dense"][1],
+         "library_ms": None},
+        {"name": "chain_grad_dense_streamed", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/chain_grad_dense.cu",
+         "replaces": "raytracingengine_tpu/kernels/chain_grad.py:1697",
+         "launches": dense_train_launches["50800"]["chain_grad_dense"],
+         "max_abs_err": dense_grad["50800 256x256"][5], "ms": dense_grad_ms["50800 256x256"],
+         "plain_ms": dense_grad_plain_ms["50800 256x256"],
+         "bound_ms": bounds["chain_grad_dense_streamed"][0],
+         "bound_by": bounds["chain_grad_dense_streamed"][1], "library_ms": None},
     ]
     print(f"seam-flip pixels: chain_trace {chain_report.flips}/{chain_report.pixels}, "
           f"spp_trace {spp_report.flips}/{spp_report.pixels}, chain_grad "
@@ -706,8 +966,13 @@ def main() -> int:
           + ", ".join(f"{m} {r.flips}/{r.pixels}" for m, r in glass_reports.items())
           + f", wavefront_spp_trace {g_spp_report.flips}/{g_spp_report.pixels}, wavefront_grad "
           + ", ".join(f"{m} {r['d_d'].flips}/{r['d_d'].pixels}" for m, r in wg_reports.items())
+          + f", culled chain_trace " + ", ".join(
+              f"{k} {r.flips}/{r.pixels}" for k, r in dense_reports.items())
+          + f", culled spp_trace {d_spp_report.flips}/{d_spp_report.pixels}, chain_grad_dense "
+          + ", ".join(f"{k} {v[4]['d_d'].flips}/{v[4]['d_d'].pixels}" for k, v in dense_grad.items())
           + f"; training-path launches {train_launches}; glass-path launches {glass_launches}; "
-          f"glass training launches {glass_train_launches[(W1080, H1080)]} at 1080p; no PyTorch "
+          f"glass training launches {glass_train_launches[(W1080, H1080)]} at 1080p; dense training "
+          f"launches {dense_train_launches}; the dense kernels' plain_ms is one call's; no PyTorch "
           "call traces rays, so library_ms is null")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

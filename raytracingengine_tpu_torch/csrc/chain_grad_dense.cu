@@ -1,0 +1,125 @@
+// The dense adjoint of the chain trace: [R,3] rays and g = dL/d(rgb) ->
+// cotangents of every scene table (summed over rays) and of each ray's
+// origin and direction, for culled tables (above 128 triangles) or more than
+// 512 primitives.
+//
+// Replaces raytracingengine_tpu/kernels/chain_grad.py::
+// chain_grad_pallas_blocked (513-8,192 primitives) and
+// chain_grad_pallas_streamed (past 8,192 triangles: the same adjoint with the
+// triangle windows and their cotangents read, modified and written in HBM,
+// race-free there only because the TPU grid runs in order). One kernel
+// covers both: the tables stay in device memory at every size.
+//
+// The per-ray work is chain_grad.cu's (adjoint_common.cuh::
+// chain_adjoint_ray): a state-only forward saving each bounce's state in
+// device memory, the sky term's VJP, and the bounces' hand-derived adjoints in
+// reverse with the warp's lanes in step, the hit pulled back onto its one
+// winner. Every closest-hit and any-hit decision is the forward kernel's
+// culled scan (trace_common.cuh) over the same packed tables the forward
+// used (kernels/chain_grad.py keeps them for the backward), so the adjoint's
+// winners are the forward's.
+//
+// Table cotangents, two places:
+//   * spheres, planes, lights and the material columns of spheres and planes
+//     (a few KB) in the block's shared-memory accumulator, written as
+//     per-block partials and summed by partials_reduce_kernel in a fixed
+//     order, as chain_grad.cu does;
+//   * the triangle rows (12 of each tri table column, in scan order) and the
+//     triangles' material columns (6 rows, at the original index) straight
+//     into zeroed device memory: 3.7 MB at 50,800 triangles, far more than a
+//     block's shared memory. A warp first sums each entry over its lanes with
+//     shuffles where all its contributing lanes share the winner (neighbouring
+//     rays mostly do); one lane then adds the sum with a global atomicAdd,
+//     else each lane adds its own. This replaces the TPU's in-order
+//     read-modify-write, which would be a race on a GPU.
+// Tolerance: the global atomics land in an order that changes from run to
+// run, so the triangle and triangle-material cotangents do too, by the
+// rounding of an fp32 sum of up to ~10^5 terms in another order: changes
+// of order 1e-6 of an entry's magnitude. Two calls may differ by at most
+// 1e-4 of each output's largest entry (chip_smoke.py phase 16 checks it),
+// far inside parity.table_cot_rows (1e-3 of the row's largest entry + 2e-3
+// of the entry), which holds each table row to its plain version.
+//
+// What bounds it on the H100: the fp32 work of the intersection tests (the
+// forward's culled scans: one closest hit per bounce, the shadow scans) and
+// divergence; per ray 36 bytes in, 24 out, and the tables read and their
+// cotangents written once. This design adds a second closest-hit scan per
+// bounce (checkpoint, then re-run), 28 bytes of saved state per bounce each
+// way, and one global atomic per warp and winner entry.
+#include "adjoint_common.cuh"
+
+namespace {
+
+// Sphere, plane and light cotangents in the block's shared accumulator (its
+// mat part has one column per sphere and plane), triangle and
+// triangle-material cotangents in device memory.
+struct DenseSink {
+  float* acc;
+  Offsets off;
+  float* gtri;  // [tri rows, tri_cols], zeroed by the wrapper
+  float* gmat;  // [7, mat_cols], zeroed; only triangle columns are added here
+
+  __device__ __forceinline__ void light(bool lit, int li, int cols, const float (&v)[6]) {
+    add_column<6>(acc, lit, off.light + li, cols, 6, v);
+  }
+
+  __device__ __forceinline__ void hit(const Tables& T, bool hit, int gi, int tc,
+                                      const float (&mcot)[6], const float (&pc)[12]) {
+    const int nsp = T.ns + T.np;
+    const bool tri = gi >= nsp;
+    int pbase = 0, pcols = 0;
+    if (hit && !tri) {
+      if (gi < T.ns) {
+        pbase = off.sph + gi; pcols = T.sph_cols;
+      } else {
+        pbase = off.pl + gi - T.ns; pcols = T.pl_cols;
+      }
+    }
+    add_column<6>(acc, hit && !tri, off.mat + gi, nsp, 6, mcot);
+    add_column<12>(acc, hit && !tri, pbase, pcols, 4, pc);
+    add_column<6>(gmat, hit && tri, gi, T.mat_cols, 6, mcot);
+    add_column<12>(gtri, hit && tri, tc, T.tri_cols, 12, pc);
+  }
+};
+
+__global__ void __launch_bounds__(kChainThreads) chain_grad_dense_kernel(
+    Tables T, Offsets off, const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ g, float* __restrict__ go, float* __restrict__ gd, int n_rays,
+    float* __restrict__ states, float* __restrict__ partials, float* gtri, float* gmat,
+    int max_depth, float bias, float min_weight) {
+  extern __shared__ float acc[];
+  for (int j = threadIdx.x; j < off.total; j += blockDim.x) acc[j] = 0.0f;
+  __syncthreads();
+  DenseSink sink{acc, off, gtri, gmat};
+  chain_adjoint_ray(T, sink, o, d, g, go, gd, n_rays, states, max_depth, bias, min_weight);
+  write_partials(acc, off.total, partials);
+}
+
+}  // namespace
+
+// `total` is the shared accumulator's size: 4 sph_cols + 4 pl_cols +
+// 7 (ns + np) + 7 light_cols floats (kernels/chain_grad.py::
+// small_table_shapes, which raises where they exceed 227 KB).
+extern "C" int rte_chain_grad_dense(
+    const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
+    const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
+    const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
+    const float* o, const float* d, const float* g, float* go, float* gd, int n_rays,
+    float* states, float* partials, int total, float* gtri, float* gmat, int max_depth,
+    float bias, float min_weight, void* stream) {
+  if (n_rays <= 0) return 0;
+  const Tables T = rte::with_culling(
+      rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
+                       light, light_cols, nl),
+      taabb, n_blocks);
+  const Offsets off = make_offsets(sph_cols, pl_cols, 0, ns + np, light_cols);
+  if (off.total != total) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * static_cast<size_t>(total);
+  const cudaError_t e = allow_smem(chain_grad_dense_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (n_rays + kChainThreads - 1) / kChainThreads;
+  chain_grad_dense_kernel<<<blocks, kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      T, off, o, d, g, go, gd, n_rays, states, partials, gtri, gmat, max_depth, bias,
+      min_weight);
+  return static_cast<int>(cudaGetLastError());
+}

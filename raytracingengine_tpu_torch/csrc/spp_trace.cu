@@ -49,12 +49,15 @@ __global__ void __launch_bounds__(128) spp_trace_kernel(
 extern "C" int rte_spp_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
-    const float* light, int light_cols, int nl, const float* cam, const int* px,
-    const int* py, float* out, int n_pixels, int width, int height, int spp,
-    uint32_t seed, int max_depth, float bias, float min_weight, void* stream) {
+    const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
+    const float* cam, const int* px, const int* py, float* out, int n_pixels, int width,
+    int height, int spp, uint32_t seed, int max_depth, float bias, float min_weight,
+    void* stream) {
   if (n_pixels <= 0) return 0;
-  const rte::Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols,
-                                         nt, mat, mat_cols, light, light_cols, nl);
+  const rte::Tables T = rte::with_culling(
+      rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
+                       light, light_cols, nl),
+      taabb, n_blocks);
   const int threads = 128;
   const int blocks = (n_pixels + threads - 1) / threads;
   spp_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(

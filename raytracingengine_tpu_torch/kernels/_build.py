@@ -29,8 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
-    "chain_trace.cu", "spp_trace.cu", "chain_grad.cu", "wavefront_trace.cu",
-    "wavefront_spp_trace.cu", "wavefront_grad.cu",
+    "chain_trace.cu", "spp_trace.cu", "chain_grad.cu", "chain_grad_dense.cu",
+    "wavefront_trace.cu", "wavefront_spp_trace.cu", "wavefront_grad.cu",
 )
 HEADERS = ("trace_common.cuh", "adjoint_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -41,6 +41,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: Per table: pointer, column count, primitive count (light: pointer,
 #: columns, count; mat: pointer, columns).
 _TABLE_ARGTYPES = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I]
+#: The culling boxes and the block count (`culling_args`).
+_CULL_ARGTYPES = [_P, _I]
 _TRACE_ARGTYPES = [_I, _F, _F, _P]  # max_depth, bias, min_weight, stream
 #: max_depth, bias, min_weight, march, shadow_max_steps, shadow_min_t,
 #: budget, dropped-push counter, stream
@@ -107,10 +109,12 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's types."""
     path, _log = build()
     lib = ctypes.CDLL(str(path))
-    lib.rte_chain_trace.argtypes = _TABLE_ARGTYPES + [_P, _P, _P, _I] + _TRACE_ARGTYPES
+    lib.rte_chain_trace.argtypes = (
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _I] + _TRACE_ARGTYPES
+    )
     lib.rte_chain_trace.restype = _I
     lib.rte_spp_trace.argtypes = (
-        _TABLE_ARGTYPES + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32]
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32]
         + _TRACE_ARGTYPES
     )
     lib.rte_spp_trace.restype = _I
@@ -118,6 +122,11 @@ def load_library() -> ctypes.CDLL:
         _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _I] + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad.restype = _I
+    lib.rte_chain_grad_dense.argtypes = (
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P]
+        + _TRACE_ARGTYPES
+    )
+    lib.rte_chain_grad_dense.restype = _I
     lib.rte_wavefront_trace.argtypes = _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
     lib.rte_wavefront_trace.restype = _I
     lib.rte_wavefront_spp_trace.argtypes = (
@@ -149,6 +158,12 @@ def table_args(tables) -> list:
         tables.mat.data_ptr(), tables.mat.shape[1],
         tables.light.data_ptr(), tables.light.shape[1], tables.n_lights,
     ]
+
+
+def culling_args(tables) -> list:
+    """The culling boxes' pointer and the block count of a SceneTables:
+    null and 0 for tables that are not culled (csrc/trace_common.cuh)."""
+    return [tables.taabb.data_ptr() if tables.culled else None, tables.n_blocks]
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -1,49 +1,57 @@
-"""The chain trace's backward pass: a checkpointed adjoint, and the
-autograd Function that joins it to the forward kernel.
+"""The chain trace's backward pass: checkpointed adjoints, and the autograd
+Function that joins them to the forward kernel.
 
 What one adjoint call computes: given the scene tables, the rays o, d
 [R,3] and g = dL/d(rgb) [R,3] of `chain_trace`'s output, the cotangent of
 every table tensor (in that tensor's shape, summed over rays) and of each
 ray's origin and direction. Per ray:
 
-  1. a state-only forward (`state_bounce_plain`: closest hit and the
-     reflection update, no lighting) saves the ray state (o, d, weight)
-     before each bounce, until the ray dies or reaches max_depth;
+  1. a state-only forward (closest hit and the reflection update, no
+     lighting) saves the ray state (o, d, weight) before each bounce, until
+     the ray dies or reaches max_depth;
   2. the VJP of the depth-exhaustion sky term (`final_sky`) seeds the
      state cotangent;
-  3. from the last bounce back to the first, the full bounce
-     (`bounce_plain`: closest hit, binary shadows, Blinn-Phong, reflection)
-     is re-run from its saved state and its VJP taken: the state cotangent
-     moves one bounce back and the table cotangents accumulate.
+  3. from the last bounce back to the first, the full bounce (closest hit,
+     binary shadows, Blinn-Phong, reflection) is re-run from its saved
+     state and its VJP taken: the state cotangent moves one bounce back and
+     the table cotangents accumulate.
 
 Shadow occlusion is a boolean decision, so it carries no cotangent: the
 VJP treats it as a constant, which is the exact adjoint of the bounce.
 
-  * `bounce_plain`, `state_bounce_plain` and `final_sky` are plain
-    PyTorch with the tables as tensors, written from the JAX package's
-    kernels/chain_grad.py (`_make_bounce`, `_make_state_bounce`,
-    `_final_sky`) with its NaN guards: every reciprocal square root is
-    `where(ok, rsqrt(where(ok, x, 1)), 0)`. The transparency clip and the
-    maximum(0, .) keep JAX's subgradient of 0.5 at a tie.
-  * `chain_grad_plain` runs steps 1-3 with `torch.autograd.grad` of
-    `bounce_plain` for each depth.
-  * `chain_grad` is the wrapper: CPU tensors run `chain_grad_plain`, CUDA
-    tensors launch csrc/chain_grad.cu (the hand-derived adjoint) and count
-    the launch in `chain_grad.launches`.
-  * `ChainTraceFused` / `chain_trace_fused`: forward `chain_trace`,
-    backward `chain_grad`; autograd carries the table cotangents back
-    through `pack_scene_tables` and `flatten_scene` to the scene leaves,
-    and the ray cotangents to the camera.
+Two adjoints, as the JAX package has (kernels/chain_grad.py):
 
-It replaces raytracingengine_tpu/kernels/chain_grad.py::chain_grad_pallas
-and the custom_vjp `chain_trace_fused` (at most 512 primitives; the
-blocked and streamed adjoints for larger scenes are not ported yet).
+  * `chain_grad` (<= MAX_PRIMS primitives, tables that are not culled):
+    `bounce_plain` differentiates the closest hit over every primitive.
+    CPU tensors run `chain_grad_plain`, CUDA tensors csrc/chain_grad.cu.
+    It replaces chain_grad_pallas.
+  * `chain_grad_dense` (culled tables, or more than MAX_PRIMS primitives):
+    `bounce_dense_plain` finds the closest hit without gradient, with the
+    forward's scan (kernels/chain_trace.py), then recomputes (t, n) on the
+    winner's gathered columns only (`winner_hit`) and differentiates the
+    shading given that hit (`shade_hit`). CPU tensors run
+    `chain_grad_dense_plain`, CUDA tensors csrc/chain_grad_dense.cu. It
+    replaces chain_grad_pallas_blocked and chain_grad_pallas_streamed.
+
+The plain pieces are written from the JAX package's `_make_bounce`,
+`_make_state_bounce`, `_final_sky`, `_make_shade_hit` and `_*_tn_prim`,
+with their NaN guards: every reciprocal square root is
+`where(ok, rsqrt(where(ok, x, 1)), 0)`. The transparency clip and the
+maximum(0, .) keep JAX's subgradient of 0.5 at a tie.
+
+`ChainTraceFused` / `chain_trace_fused`: forward `chain_trace`, backward
+the adjoint `adjoint_route` picks; autograd carries the table cotangents
+back through `pack_forward_tables_perm` (the reorder is an index),
+`pack_scene_tables` and `flatten_scene` to the scene leaves, and the ray
+cotangents to the camera. Past the JAX package's ceilings the backward is
+autograd of render/integrator.py::integrate_chain, with a warning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import torch
 
@@ -52,17 +60,26 @@ from raytracingengine_tpu_torch.geometry.intersect import EPS
 from raytracingengine_tpu_torch.kernels import _build
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
+    MAX_TRIS_STREAM,
     SceneTables,
     _any_hit,
     _check_rays,
+    _closest_scan_pos,
     _HostTables,
     chain_trace,
     check_tables,
 )
+from raytracingengine_tpu_torch.render.integrator import integrate_chain
 
-#: Primitive ceiling of the adjoint (the JAX package's _MAX_PRIMS_UNROLL):
-#: the kernel keeps one block's table cotangents in shared memory.
+#: Primitive ceiling of `chain_grad` (the JAX package's _MAX_PRIMS_UNROLL):
+#: its kernel keeps one block's table cotangents in shared memory.
 MAX_PRIMS = 512
+#: Ceilings of the JAX package's fused adjoints (its MAX_PRIMS_GRAD, the
+#: streamed forward's triangle ceiling, and the 8,192 non-triangle
+#: primitives of its SMEM tables): past either, the backward is autograd of
+#: integrate_chain, as there.
+MAX_PRIMS_GRAD = MAX_TRIS_STREAM
+MAX_NON_TRI_GRAD = 8192
 #: The kernel's block size (csrc/chain_grad.cu) and its shared memory cap.
 THREADS = 128
 MAX_SMEM_BYTES = 227 * 1024
@@ -188,22 +205,20 @@ def final_sky(state):
     )
 
 
-def bounce_plain(state, tables: SceneTables, cfg, host: _HostTables | None = None):
-    """One Whitted bounce with binary shadows: (state, tables) -> (new
-    state, (cr, cg, cb)), differentiable in the state and the tables. Dead
-    lanes (live = 0) are identity maps with zero radiance. `host` holds the
-    tables as Python floats for the shadow scans (made here if omitted)."""
+def shade_hit(state, hitf, tables: SceneTables, cfg, host: _HostTables):
+    """One Whitted bounce with binary shadows given its closest hit
+    hitf = (t, nx, ny, nz, albedo rgb, specular, shininess, transparency)
+    -> (new state, (cr, cg, cb)), differentiable in the state, the hit and
+    the light table (`_make_shade_hit`). Dead lanes (live = 0) are identity
+    maps with zero radiance. The shadow scans read `host` (no gradient)."""
     ox, oy, oz, dx, dy, dz, w, live_f = state
     bias = cfg.bias
     live = live_f > 0.0
     zero, one = torch.zeros_like(ox), torch.ones_like(ox)
-    host = _HostTables(tables) if host is None else host
 
     t_sky = 0.5 * (dy + 1.0)
     sky = (1.0 - 0.5 * t_sky, 1.0 - 0.3 * t_sky, one)
-    t, nx, ny, nz, ar, ag, ab, spec, shin, tau_raw = _closest_hit(
-        tables, (0, 1, 2, 3, 4, 5), ox, oy, oz, dx, dy, dz
-    )
+    t, nx, ny, nz, ar, ag, ab, spec, shin, tau_raw = hitf
     tau = vm.clip(tau_raw, 0.0, 1.0)
     hit = t < _INF
     miss = live & ~hit
@@ -229,7 +244,7 @@ def bounce_plain(state, tables: SceneTables, cfg, host: _HostTables | None = Non
         if not bool(ok.any()):
             continue
         with torch.no_grad():  # boolean: no cotangent
-            occ = _any_hit(host, sox, soy, soz, ldx, ldy, ldz, bias, dist - bias)
+            occ = _any_hit(host, sox, soy, soz, ldx, ldy, ldz, bias, dist - bias, ok)
         vis = ok & ~occ
         inv_d2 = inv_d * inv_d
         contrib = inv_d2 * ndotl
@@ -252,6 +267,115 @@ def bounce_plain(state, tables: SceneTables, cfg, host: _HostTables | None = Non
     return new_state, rgb
 
 
+def bounce_plain(state, tables: SceneTables, cfg, host: _HostTables | None = None):
+    """One Whitted bounce with binary shadows: (state, tables) -> (new
+    state, (cr, cg, cb)), differentiable in the state and the tables, the
+    closest hit over every primitive included. `host` holds the tables as
+    Python floats for the shadow scans (made here if omitted)."""
+    host = _HostTables(tables) if host is None else host
+    hitf = _closest_hit(tables, (0, 1, 2, 3, 4, 5), *state[:6])
+    return shade_hit(state, hitf, tables, cfg, host)
+
+
+# ---------------------------------------------------------------------------
+# The dense adjoint's bounce: the hit found without gradient, (t, n)
+# recomputed on the winner's columns
+# ---------------------------------------------------------------------------
+
+
+def _sphere_tn(c, ox, oy, oz, dx, dy, dz):
+    """(t, n) of the sphere columns c [4, R] (`_sphere_tn_prim`)."""
+    cx, cy, cz, r2 = c
+    zero, one = torch.zeros_like(ox), torch.ones_like(ox)
+    a_coef = dx * dx + dy * dy + dz * dz
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    disc = b * b - 4.0 * a_coef * cc
+    ok = disc >= 0.0
+    sq = vm.sqrt_grad_safe(torch.where(ok, torch.maximum(disc, zero), one))
+    inv2a = 0.5 / a_coef
+    tt0 = (-b - sq) * inv2a
+    tt1 = (-b + sq) * inv2a
+    t = torch.where(tt0 >= EPS, tt0, tt1)
+    gx, gy, gz = ox + dx * t - cx, oy + dy * t - cy, oz + dz * t - cz
+    inv = _rsqrt_where(gx * gx + gy * gy + gz * gz, 1e-16)
+    return t, (gx * inv, gy * inv, gz * inv)
+
+
+def _plane_tn(c, ox, oy, oz, dx, dy, dz):
+    """(t, n) of the plane columns c [4, R] (`_plane_tn_prim`)."""
+    nx_, ny_, nz_, pn = c
+    denom = dx * nx_ + dy * ny_ + dz * nz_
+    ok = denom.abs() > EPS
+    on = ox * nx_ + oy * ny_ + oz * nz_
+    return (pn - on) / torch.where(ok, denom, torch.ones_like(denom)), (nx_, ny_, nz_)
+
+
+def _tri_tn(c, ox, oy, oz, dx, dy, dz):
+    """(t, n) of the triangle columns c [>= 12, R] (`_tri_tn_prim`): the
+    guarded Moller-Trumbore distance and the stored unit normal."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, nux, nuy, nuz = c[:12]
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    ok = a.abs() > EPS
+    f = 1.0 / torch.where(ok, a, torch.ones_like(a))
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    return f * (e2x * qx + e2y * qy + e2z * qz), (nux, nuy, nuz)
+
+
+def winner_hit(tables: SceneTables, mat_rows, hit, gi, pos, ox, oy, oz, dx, dy, dz):
+    """The hit fields (t, nx, ny, nz, *mat[mat_rows, gi]) of each lane's
+    winner, differentiable in the rays and the tables: the winner's table
+    columns are gathered (global index gi, tri table column pos) and its
+    (t, n) recomputed on them alone; t = _INF where `hit` is false. Each
+    family's formula runs on every lane with a clamped index, and its
+    guards keep the adjoints of the lanes it does not win finite."""
+    ns, np_ = tables.n_spheres, tables.n_planes
+    t = torch.full_like(ox, _INF)
+    n = [torch.zeros_like(ox)] * 3
+    rays = (ox, oy, oz, dx, dy, dz)
+    families = (
+        (ns, hit & (gi < ns), lambda: _sphere_tn(tables.sph[:, gi.clamp(0, ns - 1)], *rays)),
+        (np_, hit & (gi >= ns) & (gi < ns + np_),
+         lambda: _plane_tn(tables.pl[:, (gi - ns).clamp(0, np_ - 1)], *rays)),
+        (tables.n_triangles, hit & (gi >= ns + np_), lambda: _tri_tn(tables.tri[:, pos], *rays)),
+    )
+    for count, mine, tn in families:
+        if count:
+            tf, nf = tn()
+            t = torch.where(mine, tf, t)
+            n = [torch.where(mine, a, b) for a, b in zip(nf, n)]
+    return (t, *n, *(tables.mat[r, gi] for r in mat_rows))
+
+
+def _scan(host: _HostTables, state):
+    """The forward's closest-hit scan of the live lanes, without gradient."""
+    with torch.no_grad():
+        return _closest_scan_pos(host, *(x.detach() for x in state[:6]), state[7] > 0.0)
+
+
+def state_bounce_dense(state, host: _HostTables, cfg):
+    """`state_bounce_plain` with the forward's scan (culled tables scanned
+    block by block)."""
+    t, nx, ny, nz, gi, _ = _scan(host, state)
+    shade = (state[7] > 0.0) & (t < _INF)
+    return _reflect(state, t, nx, ny, nz, host.mat_t[3, gi], shade, cfg)[0]
+
+
+def bounce_dense_plain(state, tables: SceneTables, cfg, host: _HostTables):
+    """`bounce_plain` as the dense adjoint splits it: the closest hit of the
+    forward's scan, then `winner_hit` and `shade_hit` under autograd."""
+    t, _, _, _, gi, pos = _scan(host, state)
+    hitf = winner_hit(tables, (0, 1, 2, 3, 4, 5), t < _INF, gi, pos, *state[:6])
+    return shade_hit(state, hitf, tables, cfg, host)
+
+
 def _grads_or_zeros(outputs, grad_outputs, inputs):
     """torch.autograd.grad over the outputs that depend on the inputs; an
     input that no output reaches gets zeros."""
@@ -262,13 +386,10 @@ def _grads_or_zeros(outputs, grad_outputs, inputs):
     return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
 
 
-def chain_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
-                     gbar: torch.Tensor, cfg):
-    """The adjoint in plain PyTorch -> (table cotangents, d_o [R,3], d_d [R,3]).
-
-    The same structure as the kernel: a state-only forward saving each
-    bounce's state, the sky term's VJP, then per depth, from the last,
-    `torch.autograd.grad` of `bounce_plain` re-run from the saved state."""
+def _adjoint_plain(tables: SceneTables, o, d, gbar, cfg, state_bounce, bounce):
+    """Steps 1-3 of the module docstring in plain PyTorch -> (table
+    cotangents, d_o [R,3], d_d [R,3]), with `torch.autograd.grad` of
+    `bounce(state, tables, cfg, host)` re-run from each saved state."""
     o, d, gbar = o.detach(), d.detach(), gbar.detach()
     leaves = [t.detach().requires_grad_(True) for t in tables.tensors()]
     T = dataclasses.replace(
@@ -283,7 +404,7 @@ def chain_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
             if not bool((state[7] > 0.0).any()):  # live
                 break
             saved.append(state)
-            state = state_bounce_plain(state, T, cfg)
+            state = state_bounce(state, T, host, cfg)
     g = list(gbar.unbind(-1))
     with torch.enable_grad():
         st = [x.clone().requires_grad_(True) for x in state[:7]]
@@ -291,23 +412,60 @@ def chain_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
         table_cot = [torch.zeros_like(t) for t in leaves]
         for s in reversed(saved):
             st = [x.clone().requires_grad_(True) for x in s[:7]]
-            new, rgb = bounce_plain((*st, s[7]), T, cfg, host)
+            new, rgb = bounce((*st, s[7]), T, cfg, host)
             grads = _grads_or_zeros([*new[:7], *rgb], [*cot, *g], st + leaves)
             cot = grads[:7]
             table_cot = [a + b for a, b in zip(table_cot, grads[7:])]
     return tuple(table_cot), torch.stack(cot[0:3], -1), torch.stack(cot[3:6], -1)
 
 
+def chain_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
+                     gbar: torch.Tensor, cfg):
+    """The adjoint in plain PyTorch -> (table cotangents, d_o [R,3], d_d [R,3]).
+
+    The same structure as the kernel: a state-only forward saving each
+    bounce's state, the sky term's VJP, then per depth, from the last,
+    `torch.autograd.grad` of `bounce_plain` re-run from the saved state."""
+    return _adjoint_plain(tables, o, d, gbar, cfg,
+                          lambda st, T, host, cfg: state_bounce_plain(st, T, cfg), bounce_plain)
+
+
+def chain_grad_dense_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
+                           gbar: torch.Tensor, cfg):
+    """The dense adjoint in plain PyTorch -> (table cotangents in the
+    tables' shapes, d_o [R,3], d_d [R,3]); culled tables or not. The
+    structure of `chain_grad_plain`, with `state_bounce_dense` and
+    `bounce_dense_plain`: every hit decision is the forward's scan, and
+    autograd sees only the winner's columns."""
+    return _adjoint_plain(tables, o, d, gbar, cfg,
+                          lambda st, T, host, cfg: state_bounce_dense(st, host, cfg),
+                          bounce_dense_plain)
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers and routing
 # ---------------------------------------------------------------------------
+
+
+def adjoint_route(tables: SceneTables) -> str:
+    """The backward of `chain_trace_fused` for these tables, by the JAX
+    package's rule (its chain_grad.py `_fused_bwd`): "autograd" past
+    MAX_PRIMS_GRAD primitives or MAX_NON_TRI_GRAD non-triangle ones;
+    "chain_grad_dense" for culled tables or more than MAX_PRIMS
+    primitives; else "chain_grad"."""
+    non_tri = tables.n_spheres + tables.n_planes
+    if tables.n_primitives > MAX_PRIMS_GRAD or non_tri > MAX_NON_TRI_GRAD:
+        return "autograd"
+    if tables.culled or tables.n_primitives > MAX_PRIMS:
+        return "chain_grad_dense"
+    return "chain_grad"
 
 
 def _check_scope(tables: SceneTables) -> None:
-    if tables.n_primitives > MAX_PRIMS:
+    if adjoint_route(tables) != "chain_grad":
         raise NotImplementedError(
-            f"not ported yet: the adjoint for {tables.n_primitives} > {MAX_PRIMS} "
-            "primitives (chain_grad_pallas_blocked, ROADMAP queue 2 item 7)"
+            f"chain_grad covers tables that are not culled and at most {MAX_PRIMS} "
+            f"primitives ({tables.n_primitives} here); use chain_grad_dense"
         )
 
 
@@ -330,13 +488,15 @@ def table_entries(tables: SceneTables, name: str) -> int:
     return total
 
 
-def split_table_cots(flat: torch.Tensor, tables: SceneTables) -> tuple[torch.Tensor, ...]:
+def split_table_cots(flat: torch.Tensor, shapes) -> tuple[torch.Tensor, ...]:
     """The kernels' flat cotangent buffer (tables in order, row-major) ->
-    one view per table, in its shape."""
+    one view per table of `shapes` (tensors or sizes), in that shape."""
     cots, start = [], 0
-    for t in tables.tensors():
-        cots.append(flat[start:start + t.numel()].view(t.shape))
-        start += t.numel()
+    for shape in shapes:
+        shape = tuple(shape.shape) if torch.is_tensor(shape) else tuple(shape)
+        n = math.prod(shape)
+        cots.append(flat[start:start + n].view(shape))
+        start += n
     return tuple(cots)
 
 
@@ -350,8 +510,8 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     table cotangents, on the current stream."""
     _check_rays(o, d)
     check_gbar(gbar, o)
-    check_tables(tables, o.device)
     _check_scope(tables)
+    check_tables(tables, o.device)
     if o.device.type == "cpu":
         return chain_grad_plain(tables, o, d, gbar, cfg)
     if o.device.type != "cuda":
@@ -382,48 +542,156 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
                                         flat.data_ptr(), stream)
         _build.check(lib, err, "chain_grad reduce")
     chain_grad.launches += 1
-    return split_table_cots(flat, tables), go, gd
+    return split_table_cots(flat, tables.tensors()), go, gd
 
 
 #: Kernel launches since the last reset (the CPU path does not count).
 chain_grad.launches = 0
 
 
+def small_table_shapes(tables: SceneTables) -> tuple[tuple[int, int], ...]:
+    """Shapes of the dense adjoint's shared-memory accumulator: sph, pl,
+    the material columns of spheres and planes, light. Raise
+    NotImplementedError where they do not fit one block's shared memory."""
+    nsp = tables.n_spheres + tables.n_planes
+    shapes = ((4, tables.sph.shape[1]), (4, tables.pl.shape[1]), (7, nsp), (7, tables.light.shape[1]))
+    total = sum(r * c for r, c in shapes)
+    if 4 * total > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"not ported yet: the dense adjoint keeps the sphere, plane and light cotangents "
+            f"in one block's shared memory, and {4 * total} bytes exceed its "
+            f"{MAX_SMEM_BYTES} (ROADMAP queue 2 item 10)"
+        )
+    return shapes
+
+
+def chain_grad_dense(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
+                     gbar: torch.Tensor, cfg):
+    """The dense adjoint of `chain_trace` -> (table cotangents in the
+    tables' shapes, d_o [R,3], d_d [R,3]), for culled tables or not.
+
+    CPU tensors run `chain_grad_dense_plain`; CUDA tensors launch
+    csrc/chain_grad_dense.cu: the sphere, plane and light cotangents go
+    through per-block partials and the fixed-order reduction, the triangle
+    rows and the triangles' material columns straight to device memory
+    with atomics."""
+    _check_rays(o, d)
+    check_gbar(gbar, o)
+    check_tables(tables, o.device, culled_ok=True)
+    shapes = small_table_shapes(tables)
+    if o.device.type == "cpu":
+        return chain_grad_dense_plain(tables, o, d, gbar, cfg)
+    if o.device.type != "cuda":
+        raise ValueError(f"chain_grad_dense: unsupported device {o.device}")
+    if not all(t.is_contiguous() for t in (o, d, gbar)):
+        raise ValueError("chain_grad_dense: o, d and gbar must be contiguous")
+    r = o.shape[0]
+    if r == 0:
+        return tuple(torch.zeros_like(t) for t in tables.tensors()), o.clone(), d.clone()
+    lib = _build.load_library()
+    total = sum(a * b for a, b in shapes)
+    small = torch.empty(total, dtype=torch.float32, device=o.device)
+    gtri, gmat = torch.zeros_like(tables.tri), torch.zeros_like(tables.mat)
+    go, gd = torch.empty_like(o), torch.empty_like(d)
+    n_blocks = max(1, math.ceil(r / THREADS))
+    states = torch.empty((max(cfg.max_depth, 1), 7, r), dtype=torch.float32, device=o.device)
+    partials = torch.empty((total, n_blocks), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rte_chain_grad_dense(
+            *_build.table_args(tables), *_build.culling_args(tables), o.data_ptr(),
+            d.data_ptr(), gbar.data_ptr(), go.data_ptr(), gd.data_ptr(), r,
+            states.data_ptr(), partials.data_ptr(), total, gtri.data_ptr(), gmat.data_ptr(),
+            cfg.max_depth, cfg.bias, cfg.min_weight, stream,
+        )
+        _build.check(lib, err, "chain_grad_dense")
+        err = lib.rte_chain_grad_reduce(partials.data_ptr(), total, n_blocks,
+                                        small.data_ptr(), stream)
+        _build.check(lib, err, "chain_grad_dense reduce")
+    gsph, gpl, gmat_sp, glight = split_table_cots(small, shapes)
+    gmat[:, :gmat_sp.shape[1]] = gmat_sp  # the kernel adds only triangle columns there
+    chain_grad_dense.launches += 1
+    return (gsph, gpl, gtri, gmat, glight), go, gd
+
+
+#: Kernel launches since the last reset (the CPU path does not count).
+chain_grad_dense.launches = 0
+
+
 class ChainTraceFused(torch.autograd.Function):
-    """Forward `chain_trace`, backward `chain_grad`, on the tables' five
-    tensors and the rays. The forward runs on detached tensors, so the
-    forward-only wrappers keep refusing inputs that require grad."""
+    """Forward `chain_trace`, backward `chain_grad` or `chain_grad_dense`
+    (by `adjoint_route`), on the tables' five tensors and the rays. The
+    culling tables ride along as values. The forward runs on detached
+    tensors, so the forward-only wrappers keep refusing inputs that require
+    grad."""
 
     @staticmethod
-    def forward(ctx, counts, cfg, o, d, sph, pl, tri, mat, light):
-        ctx.counts, ctx.cfg = counts, cfg
+    def forward(ctx, counts, culling, cfg, o, d, sph, pl, tri, mat, light):
+        ctx.counts, ctx.culling, ctx.cfg = counts, culling, cfg
         ctx.save_for_backward(o, d, sph, pl, tri, mat, light)
         tables = SceneTables(sph.detach(), pl.detach(), tri.detach(), mat.detach(),
-                             light.detach(), *counts)
+                             light.detach(), *counts, *culling)
         return chain_trace(tables, o.detach().contiguous(), d.detach().contiguous(), cfg)
 
     @staticmethod
     def backward(ctx, g):
         o, d, *tabs = ctx.saved_tensors
-        tables = SceneTables(*(t.detach() for t in tabs), *ctx.counts)
-        table_cots, go, gd = chain_grad(
+        tables = SceneTables(*(t.detach() for t in tabs), *ctx.counts, *ctx.culling)
+        adjoint = chain_grad if adjoint_route(tables) == "chain_grad" else chain_grad_dense
+        table_cots, go, gd = adjoint(
             tables, o.detach().contiguous(), d.detach().contiguous(), g.contiguous(), ctx.cfg
         )
-        return (None, None, go, gd, *table_cots)
+        return (None, None, None, go, gd, *table_cots)
 
 
-def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
+class _ValueOf(torch.autograd.Function):
+    """value's numbers, carrier's gradient: the kernel's frame with the
+    integrator's backward."""
+
+    @staticmethod
+    def forward(ctx, value, carrier):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg,
+                      flat=None) -> torch.Tensor:
     """[R,3] origins/directions -> [R,3] HDR radiance, differentiable in the
-    rays and the table tensors (so, through pack_scene_tables and
-    flatten_scene, in every float scene leaf and the camera).
+    rays and the table tensors (so, through the packing and flatten_scene,
+    in every float scene leaf and the camera).
 
     Without gradients it is `chain_trace`. With them the backward is the
-    adjoint for at most MAX_PRIMS primitives; a larger scene raises."""
+    adjoint `adjoint_route` picks; a dense one whose small tables do not fit
+    shared memory raises here. Past the JAX package's ceilings the forward
+    stays on the kernel and the backward is autograd of
+    `integrate_chain(flat, o, d, cfg)`, with a warning, so `flat` (the
+    FlatScene the tables were packed from) is needed then."""
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (o, d, *tables.tensors())
     )
     if not needs_grad:
         return chain_trace(tables, o.contiguous(), d.contiguous(), cfg)
-    _check_scope(tables)
+    route = adjoint_route(tables)
+    if route == "autograd":
+        if flat is None:
+            raise ValueError("chain_trace_fused: past the fused adjoints' ceilings the backward "
+                             "is autograd of integrate_chain, which needs `flat`")
+        warnings.warn(
+            f"chain_trace_fused backward falls back to autograd of integrate_chain: "
+            f"{tables.n_primitives} primitives ({tables.n_spheres + tables.n_planes} not "
+            f"triangles) exceed MAX_PRIMS_GRAD={MAX_PRIMS_GRAD} or MAX_NON_TRI_GRAD="
+            f"{MAX_NON_TRI_GRAD}. The forward stays on the kernel; expect a much slower "
+            f"training step.", stacklevel=2,
+        )
+        with torch.no_grad():
+            frame = chain_trace(dataclasses.replace(tables, **{
+                k: getattr(tables, k).detach() for k in ("sph", "pl", "tri", "mat", "light")}),
+                o.detach().contiguous(), d.detach().contiguous(), cfg)
+        return _ValueOf.apply(frame, integrate_chain(flat, o, d, cfg))
+    if route == "chain_grad_dense":
+        small_table_shapes(tables)
     counts = (tables.n_spheres, tables.n_planes, tables.n_triangles, tables.n_lights)
-    return ChainTraceFused.apply(counts, cfg, o, d, *tables.tensors())
+    return ChainTraceFused.apply(counts, (tables.taabb, tables.perm), cfg, o, d, *tables.tensors())

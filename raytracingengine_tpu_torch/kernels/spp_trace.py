@@ -116,7 +116,8 @@ def spp_trace_plain(
     return mean_over_samples(trace, camera, px, py, seed=seed, jitter=jitter)
 
 
-def check_pixels(tables: SceneTables, camera, px: torch.Tensor, py: torch.Tensor) -> None:
+def check_pixels(tables: SceneTables, camera, px: torch.Tensor, py: torch.Tensor,
+                 culled_ok: bool = False) -> None:
     """Raise unless px/py are int32 [R] on one device with the tables and
     the camera, and spp >= 1 (a CUDA launch also needs them contiguous)."""
     for name, t in (("px", px), ("py", py)):
@@ -124,7 +125,7 @@ def check_pixels(tables: SceneTables, camera, px: torch.Tensor, py: torch.Tensor
             raise ValueError(f"{name}: expected int32 [R], got {t.dtype} {tuple(t.shape)}")
     if px.shape != py.shape or px.device != py.device:
         raise ValueError("px and py must have one shape and one device")
-    check_tables(tables, px.device)
+    check_tables(tables, px.device, culled_ok)
     if camera.position.device != px.device:
         raise ValueError(f"camera on {camera.position.device}, pixels on {px.device}")
     if camera.spp < 1:
@@ -145,8 +146,10 @@ def spp_trace(
     """Pixels px/py (int32 [R]) -> mean HDR [R, 3] over `camera.spp`.
 
     CPU tensors run `spp_trace_plain`; CUDA tensors launch the CUDA
-    kernel (csrc/spp_trace.cu) on the current stream."""
-    check_pixels(tables, camera, px, py)
+    kernel (csrc/spp_trace.cu) on the current stream. Culled tables
+    (`pack_forward_tables_perm`) are scanned with culling by the kernel and
+    without by the plain version."""
+    check_pixels(tables, camera, px, py, culled_ok=True)
     if px.device.type == "cpu":
         return spp_trace_plain(tables, camera, px, py, cfg, seed=seed)
     if px.device.type != "cuda":
@@ -159,7 +162,7 @@ def spp_trace(
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_spp_trace(
-            *_build.table_args(tables),
+            *_build.table_args(tables), *_build.culling_args(tables),
             cam.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(),
             px.shape[0], camera.width, camera.height, camera.spp, seed & _MASK,
             cfg.max_depth, cfg.bias, cfg.min_weight, stream,

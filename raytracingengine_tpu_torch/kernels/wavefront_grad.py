@@ -385,7 +385,7 @@ def wavefront_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
         )
         _build.check(lib, err, "wavefront_grad")
     wavefront_grad.launches += 1
-    return split_table_cots(flat, tables), go, gd
+    return split_table_cots(flat, tables.tensors()), go, gd
 
 
 #: Kernel launches since the last reset (the CPU path does not count).

@@ -10,10 +10,15 @@ package's `_render_chunk`:
 
   * chain, spp == 1: camera rays (Camera.rays_for_pixels) ->
     kernels.chain_grad.chain_trace_fused: the chain trace kernel forward
-    and, when a scene or camera tensor requires grad, the adjoint kernel
-    backward;
+    and, when a scene or camera tensor requires grad, an adjoint kernel
+    backward (`chain_grad`, or `chain_grad_dense` for dense scenes);
   * chain, spp > 1: pixel coordinates -> kernels.spp_trace, the whole AA
     loop per pixel;
+
+above TRI_BLOCK triangles the chain kernels take culled tables
+(`pack_forward_tables_perm`), ordered front to back along the chunk's mean
+ray direction at spp == 1 (in no particular order at spp > 1, as the JAX
+package's spp kernel);
   * wavefront, spp == 1: camera rays -> kernels.wavefront_grad.
     wavefront_trace_fused: the wavefront trace kernel forward and, when a
     scene or camera tensor requires grad, the glass adjoint kernel
@@ -41,7 +46,13 @@ import torch
 from raytracingengine_tpu_torch.core.camera import Camera
 from raytracingengine_tpu_torch.geometry.intersect import FlatScene, flatten_scene
 from raytracingengine_tpu_torch.kernels.chain_grad import chain_trace_fused
-from raytracingengine_tpu_torch.kernels.chain_trace import SceneTables, pack_scene_tables, pallas_applicable
+from raytracingengine_tpu_torch.kernels.chain_trace import (
+    TRI_BLOCK,
+    SceneTables,
+    pack_forward_tables_perm,
+    pack_scene_tables,
+    pallas_applicable,
+)
 from raytracingengine_tpu_torch.kernels.spp_trace import spp_trace
 from raytracingengine_tpu_torch.kernels.wavefront_grad import wavefront_trace_fused
 from raytracingengine_tpu_torch.kernels.wavefront_trace import wavefront_spp_trace
@@ -85,6 +96,30 @@ def check_supported(mode: str, cfg: RenderConfig, spp: int = 1, grad: bool = Fal
         raise NotImplementedError(f"not ported yet: {todo}")
 
 
+def _culled(flat: FlatScene, mode: str, cfg: RenderConfig) -> bool:
+    """Do the mode's kernels take culled tables for this scene?"""
+    return uses_kernels(mode, cfg) and mode == "chain" and flat.n_triangles > TRI_BLOCK
+
+
+def mean_direction(d: torch.Tensor) -> torch.Tensor:
+    """The unit mean of the ray directions [R,3], a value only: the culled
+    tables' front-to-back order, which changes no result."""
+    dm = d.detach().mean(0)
+    return dm * torch.rsqrt((dm * dm).sum().clamp_min(1e-20))
+
+
+def _tables(flat: FlatScene, mode: str, cfg: RenderConfig, d=None) -> SceneTables | None:
+    """The kernels' tables (culled above TRI_BLOCK triangles in chain mode,
+    ordered along the mean of `d` when given), or None for the integrators."""
+    if not uses_kernels(mode, cfg):
+        return None
+    if _culled(flat, mode, cfg):
+        # A profiler span: the packing's host cost per frame or step.
+        with torch.profiler.record_function("pack_forward_tables_perm"):
+            return pack_forward_tables_perm(flat, None if d is None else mean_direction(d))
+    return pack_scene_tables(flat)
+
+
 def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg) -> torch.Tensor:
     """Camera or arbitrary rays [R,3] -> HDR [R,3] by the mode's route."""
     if tables is None:
@@ -92,7 +127,7 @@ def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg) ->
         return integrate(flat, o, d, cfg)
     if mode == "wavefront":
         return wavefront_trace_fused(tables, o, d, cfg)
-    return chain_trace_fused(tables, o, d, cfg)
+    return chain_trace_fused(tables, o, d, cfg, flat)
 
 
 def render_rays(
@@ -106,8 +141,7 @@ def render_rays(
     grad = _requires_grad(scene) or (torch.is_grad_enabled() and (o.requires_grad or d.requires_grad))
     check_supported(mode, cfg, 1, grad)
     flat = flatten_scene(scene)
-    tables = pack_scene_tables(flat) if uses_kernels(mode, cfg) else None
-    return _trace(flat, tables, mode, o, d, cfg)
+    return _trace(flat, _tables(flat, mode, cfg, d), mode, o, d, cfg)
 
 
 def render_hdr(
@@ -132,7 +166,8 @@ def render_hdr(
             torch.randint(0, 2**31 - 1, (), generator=generator, device=generator.device)
         )
     flat = flatten_scene(scene)
-    tables = pack_scene_tables(flat) if uses_kernels(mode, cfg) else None
+    per_chunk = camera.spp == 1 and _culled(flat, mode, cfg)  # ordered by each chunk's rays
+    tables = None if per_chunk else _tables(flat, mode, cfg)
     aa = wavefront_spp_trace if mode == "wavefront" else spp_trace
     r = camera.num_pixels
     chunk = max(1, min(cfg.chunk_size, r))
@@ -144,5 +179,6 @@ def render_hdr(
             parts.append(aa(tables, camera, px, py, cfg, seed=seed))
             continue
         o, d = camera.rays_for_pixels(px, py)
-        parts.append(_trace(flat, tables, mode, o, d, cfg))
+        chunk_tables = _tables(flat, mode, cfg, d) if per_chunk else tables
+        parts.append(_trace(flat, chunk_tables, mode, o, d, cfg))
     return torch.cat(parts).reshape(camera.height, camera.width, 3)

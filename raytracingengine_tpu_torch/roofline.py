@@ -14,6 +14,17 @@ first early exit, at the fp32 operation counts of csrc/trace_common.cuh
 below. The shading, the Fresnel and child-ray arithmetic, the stack and the
 adjoint's own arithmetic are left out, so the count is a lower bound and so
 is the time.
+
+On culled tables (above 128 triangles) the triangles' count is that of a
+traversal of the two-level hierarchy that knew the answer: the slab tests
+of every group box, of the block boxes of each group whose box the ray's
+segment meets, and the triangle tests (to their first exit) of each block
+whose box it meets. The segment is [0, t of the final hit] (the whole ray
+on a miss) for a closest-hit scan and [0, hi] for a shadow ray, the bounds
+the kernel's box tests use. Any traversal of this hierarchy must do at
+least that much, so it is a lower bound for the culled kernels; counting
+every triangle, as a linear scan does, would put the bound far above what
+they need.
 """
 
 from __future__ import annotations
@@ -23,17 +34,19 @@ import dataclasses
 import torch
 
 from raytracingengine_tpu_torch.geometry.intersect import EPS
-from raytracingengine_tpu_torch.kernels.chain_grad import state_bounce_plain
-from raytracingengine_tpu_torch.kernels.wavefront_trace import trace_wavefront_plain
+from raytracingengine_tpu_torch.kernels.chain_grad import state_bounce_dense
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
+    TRI_GROUP,
     SceneTables,
+    _block_rows,
     _closest_hit,
     _HostTables,
     _plane_t,
     _sphere_t,
     _tri_t,
 )
+from raytracingengine_tpu_torch.kernels.wavefront_trace import trace_wavefront_plain
 
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_OPS_PER_S = 67e12
@@ -49,6 +62,9 @@ SPHERE_MISS, SPHERE_FULL = 19, 25
 PLANE_PARALLEL, PLANE_FULL = 5, 12
 #: tri_t: h 9, a 5 -> exit on |a| <= eps; else f 1, s 3, u 6, q 9, v 6, t 6
 TRI_PARALLEL, TRI_FULL = 14, 45
+#: make_slab: three reciprocals, once per culled scan; box_hit: 6 sub, 6 mul,
+#: 6 min/max of the slabs, 4 min/max for tmin and tmax
+SLAB_SETUP, SLAB_TEST = 3, 22
 
 
 @dataclasses.dataclass
@@ -81,7 +97,7 @@ def _past_exit(T: _HostTables, a_coef, ox, oy, oz, dx, dy, dz):
     def plane(i):
         return (dx * T.pl[0][i] + dy * T.pl[1][i] + dz * T.pl[2][i]).abs() > EPS
 
-    def tri(i):
+    def tri(i):  # tables that are not culled
         e1x, e1y, e1z, e2x, e2y, e2z = (T.tri[k][i] for k in range(3, 9))
         hx, hy, hz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
         return (e1x * hx + e1y * hy + e1z * hz).abs() > EPS
@@ -89,11 +105,60 @@ def _past_exit(T: _HostTables, a_coef, ox, oy, oz, dx, dy, dz):
     return sphere, plane, tri
 
 
-def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None):
+def _box_meets(taabb: torch.Tensor, ox, oy, oz, dx, dy, dz, t_hi) -> torch.Tensor:
+    """[R, boxes] bool: does each ray's segment [0, t_hi] meet each box?
+    (csrc/trace_common.cuh::box_hit, fp32 as there.)"""
+    inv = lambda x: 1.0 / torch.where(x.abs() < 1e-12, torch.where(x < 0.0, -1e-12, 1e-12), x)  # noqa: E731
+    t1, t2 = [], []
+    for k, (o, d) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
+        i = inv(d)[:, None]
+        t1.append((taabb[k][None] - o[:, None]) * i)
+        t2.append((taabb[k + 3][None] - o[:, None]) * i)
+    tmin = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]), torch.minimum(t1[1], t2[1])),
+                         torch.minimum(t1[2], t2[2]))
+    tmax = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]), torch.maximum(t1[1], t2[1])),
+                         torch.maximum(t1[2], t2[2]))
+    return (tmax >= tmin) & (tmax >= 0.0) & (tmin <= t_hi[:, None])
+
+
+def _culled_ops(T: _HostTables, taabb, ox, oy, oz, dx, dy, dz, active, t_hi) -> torch.Tensor:
+    """Per ray, the fp32 operations of the culled triangle scan that knew
+    its segment [0, t_hi]: its slab tests, and the tests of the triangles
+    in the blocks whose box the segment meets, each to its first exit."""
+    nb, ng = T.n_blocks, T.n_blocks // TRI_GROUP
+    ops = torch.zeros_like(ox)
+    if not bool(active.any()):
+        return ops
+    idx = active.nonzero().squeeze(1)
+    chunk = 1 << 16  # rays per [chunk, boxes] test, to bound the memory
+    for s in range(0, idx.shape[0], chunk):
+        j = idx[s:s + chunk]
+        rays = tuple(x[j] for x in (ox, oy, oz, dx, dy, dz))
+        meets = _box_meets(taabb, *rays, t_hi[j])
+        groups = meets[:, nb:]
+        blocks = meets[:, :nb] & groups.repeat_interleave(TRI_GROUP, 1)
+        cost = SLAB_SETUP + SLAB_TEST * (ng + TRI_GROUP * groups.sum(1).to(ox.dtype))
+        bo, bd = rays[:3], rays[3:]
+        for b in range(nb):
+            k = blocks[:, b].nonzero().squeeze(1)
+            if k.numel() == 0:
+                continue
+            r = _block_rows(T, b)
+            dx_, dy_, dz_ = (x[k][:, None] for x in bd)
+            hx, hy, hz = dy_ * r[8] - dz_ * r[7], dz_ * r[6] - dx_ * r[8], dx_ * r[7] - dy_ * r[6]
+            past = (r[3] * hx + r[4] * hy + r[5] * hz).abs() > EPS
+            cost[k] += torch.where(past, float(TRI_FULL), float(TRI_PARALLEL)).sum(1)
+        ops[j] = cost
+    return ops
+
+
+def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None,
+              taabb=None, t_hit=None):
     """fp32 operations of one scan for each ray of `active` [R] bool, with the
     plain version's tests. With lo/hi it is an any-hit scan, which stops at
     the first primitive with lo < t < hi; else a closest-hit scan of every
-    primitive."""
+    primitive. On culled tables (`taabb`) the triangles count as
+    `_culled_ops` on [0, hi], or on [0, t_hit] for a closest-hit scan."""
     scanning = active.clone()
     ops = torch.where(active, float(SCAN_SETUP), 0.0)
     a_coef = dx * dx + dy * dy + dz * dz
@@ -101,7 +166,8 @@ def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None):
     scans = (
         (T.ns, lambda i: _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz), SPHERE_MISS, SPHERE_FULL),
         (T.np, lambda i: _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz), PLANE_PARALLEL, PLANE_FULL),
-        (T.nt, lambda i: _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz), TRI_PARALLEL, TRI_FULL),
+        (0 if taabb is not None else T.nt, lambda i: _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz),
+         TRI_PARALLEL, TRI_FULL),
     )
     for (n, test, short, full), past_exit in zip(scans, exits):
         for i in range(n):
@@ -110,26 +176,31 @@ def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None):
             if lo is not None:
                 t_new, hit = test(i)
                 scanning = scanning & ~(hit & (t_new > lo) & (t_new < hi))
+    if taabb is not None:
+        seg = hi if lo is not None else t_hit
+        ops = ops + _culled_ops(T, taabb, ox, oy, oz, dx, dy, dz, scanning, seg)
     return float(ops.to(torch.float64).sum())
 
 
 @torch.no_grad()
 def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> ChainWork:
     """Replay the opaque chain (the kernels' per-ray control flow) on these
-    rays and count its scans and their operations."""
+    rays and count its scans and their operations, culled or linear as the
+    tables are."""
     T = _HostTables(tables)
     one = torch.ones_like(o[:, 0])
     state = (*o.unbind(-1), *d.unbind(-1), one, one)
     work = ChainWork(rays=o.shape[0])
     bias = cfg.bias
+    taabb = tables.taabb
     for _ in range(cfg.max_depth):
         live = state[7] > 0.0
         if not bool(live.any()):
             break
         ox, oy, oz, dx, dy, dz = state[:6]
         work.bounces += int(live.sum())
-        work.closest_ops += _test_ops(T, ox, oy, oz, dx, dy, dz, live)
-        t, nx, ny, nz = _closest_hit(T, ox, oy, oz, dx, dy, dz)[:4]
+        t, nx, ny, nz = _closest_hit(T, ox, oy, oz, dx, dy, dz, live)[:4]
+        work.closest_ops += _test_ops(T, ox, oy, oz, dx, dy, dz, live, taabb=taabb, t_hit=t)
         shade = live & (t < _INF)
         flip = torch.where(nx * dx + ny * dy + nz * dz < 0.0, 1.0, -1.0)
         nx, ny, nz = nx * flip, ny * flip, nz * flip
@@ -143,9 +214,9 @@ def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> Ch
             work.shadow_rays += int(ok.sum())
             work.shadow_ops += _test_ops(
                 T, px + nx * bias, py + ny * bias, pz + nz * bias, ldx, ldy, ldz, ok,
-                lo=bias, hi=dist - bias,
+                lo=bias, hi=dist - bias, taabb=taabb,
             )
-        state = state_bounce_plain(state, tables, cfg)
+        state = state_bounce_dense(state, T, cfg)
     return work
 
 
@@ -205,7 +276,9 @@ def wavefront_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -
 
 
 def table_bytes(tables: SceneTables) -> int:
-    return 4 * sum(t.numel() for t in tables.tensors())
+    """The tables' bytes, culling boxes included."""
+    boxes = tables.taabb.numel() if tables.culled else 0
+    return 4 * (sum(t.numel() for t in tables.tensors()) + boxes)
 
 
 def trace_bytes(rays: int, tables: SceneTables, in_per_ray: int = 24) -> int:

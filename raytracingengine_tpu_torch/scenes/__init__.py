@@ -1,8 +1,13 @@
-from raytracingengine_tpu_torch.scenes.assets import cube_mesh
+from raytracingengine_tpu_torch.scenes.assets import bumpy_sphere_mesh, cube_mesh
 from raytracingengine_tpu_torch.scenes.builders import (
     baseline_sphere_scene,
+    dense_mesh_scene,
     glass_sphere_scene,
     head_box_scene,
+    mixed_dense_scene,
 )
 
-__all__ = ["cube_mesh", "head_box_scene", "baseline_sphere_scene", "glass_sphere_scene"]
+__all__ = [
+    "bumpy_sphere_mesh", "cube_mesh", "head_box_scene", "baseline_sphere_scene",
+    "glass_sphere_scene", "dense_mesh_scene", "mixed_dense_scene",
+]

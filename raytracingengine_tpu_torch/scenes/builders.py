@@ -1,5 +1,5 @@
-"""Standard scenes: the reference's HEAD scene, the baseline spheres and
-the glass sphere.
+"""Standard scenes: the reference's HEAD scene, the baseline spheres, the
+glass sphere and the dense-mesh scenes.
 
 `head_box_scene` rebuilds main() (RaytracingEngine.cpp:216-290): camera at
 (0,0,-25) with focal 500 px and near/far 0/200, a box mesh at (0,0,10)
@@ -11,12 +11,13 @@ of intensity 150 at (0,0,-5) and (-2,2,-5).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raytracingengine_tpu_torch.core.camera import Camera
 from raytracingengine_tpu_torch.geometry.materials import Material
 from raytracingengine_tpu_torch.scene import Scene, SceneBuilder
-from raytracingengine_tpu_torch.scenes.assets import cube_mesh
+from raytracingengine_tpu_torch.scenes.assets import bumpy_sphere_mesh, cube_mesh
 
 #: Plane set from RaytracingEngine.cpp:253-284.
 _PLANE_NORMALS = [
@@ -136,3 +137,78 @@ def glass_sphere_scene(
         near=0.0, far=100.0, spp=spp, dtype=dtype, device=device,
     )
     return scene, camera
+
+
+#: The dense mesh's material and placement (refbuild/parity_main.cpp builds
+#: the same scene). The x offset moves the camera's central pixel column off
+#: the mesh's symmetry plane, where fp32 and fp64 break a column of exact
+#: closest-hit ties differently.
+_MESH_MATERIAL = dict(color=(0.85, 0.35, 0.2), shininess=64.0, specular=0.25,
+                      transparency=0.0, refractive_index=1.0)
+_MESH_TRANSLATION = (0.137, 0.5, 8.0)
+
+
+def _floor_and_lights(b: SceneBuilder) -> None:
+    b.add_plane((0.0, -2.5, 0.0), (0.0, 1.0, 0.0), Material(color=(0.9, 0.9, 0.9)))
+    b.add_light((-4.0, 6.0, -2.0), (1, 1, 1), 120.0)
+    b.add_light((4.0, 5.0, 2.0), (1, 1, 1), 90.0)
+
+
+def _mesh_camera(width, height, spp, dtype, device) -> Camera:
+    return Camera.create(
+        (0, 0, -8), focal=float(width), width=width, height=height,
+        near=0.0, far=100.0, spp=spp, dtype=dtype, device=device,
+    )
+
+
+def dense_mesh_scene(
+    width: int = 128,
+    height: int = 128,
+    spp: int = 1,
+    ni: int = 48,
+    nj: int = 64,
+    dtype=torch.float32,
+    scramble: int | None = None,
+    device: torch.device | str = "cuda",
+) -> tuple[Scene, Camera]:
+    """A bumpy-sphere mesh (6,016 triangles at the default ni, nj; 50,800
+    at ni=128, nj=200) over a floor plane, with two lights.
+
+    `scramble` (a seed) shuffles the triangle list: the same geometry in
+    the worst authoring order, as an OBJ written in hash order would be.
+    The frame matches the unscrambled one except at exact seam ties, and
+    the spatial reorder of kernels/chain_trace.py::pack_forward_tables_perm
+    has to restore the culling."""
+    b = SceneBuilder()
+    verts, idx = bumpy_sphere_mesh(radius=2.0, ni=ni, nj=nj, amp=0.15)
+    if scramble is not None:
+        tris = np.asarray(idx).reshape(-1, 3)
+        idx = tris[np.random.default_rng(scramble).permutation(len(tris))].reshape(-1)
+    b.add_model(verts, idx, Material(**_MESH_MATERIAL), translation=_MESH_TRANSLATION)
+    _floor_and_lights(b)
+    scene = b.build(dtype=dtype, device=device)
+    return scene, _mesh_camera(width, height, spp, dtype, device)
+
+
+def mixed_dense_scene(
+    width: int = 128,
+    height: int = 128,
+    spp: int = 1,
+    ni: int = 16,
+    nj: int = 36,
+    dtype=torch.float32,
+    device: torch.device | str = "cuda",
+) -> tuple[Scene, Camera]:
+    """The dense mesh with two spheres and the floor plane: every primitive
+    family in one scene past 512 primitives (1,083 at the default ni, nj)."""
+    b = SceneBuilder()
+    b.add_sphere(
+        (-3.2, -0.8, 6.0), 1.1,
+        Material(color=(0.2, 0.7, 0.3), specular=0.3, shininess=64.0),
+    )
+    b.add_sphere((3.1, 1.2, 7.0), 0.9, Material(color=(0.2, 0.3, 0.8)))
+    verts, idx = bumpy_sphere_mesh(radius=2.0, ni=ni, nj=nj, amp=0.15)
+    b.add_model(verts, idx, Material(**_MESH_MATERIAL), translation=_MESH_TRANSLATION)
+    _floor_and_lights(b)
+    scene = b.build(dtype=dtype, device=device)
+    return scene, _mesh_camera(width, height, spp, dtype, device)

@@ -42,6 +42,15 @@ SCENES = {
 }
 
 
+def jit_o0(fn):
+    """jax.jit for a one-shot reference, compiled without XLA's backend
+    optimisations: they cost more compile time than they save on one call."""
+    def run(*args):
+        return jax.jit(fn).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})(*args)
+    return run
+
+
 def port_trace(fn, size, cfg=CFG, **kw):
     scene, cam = getattr(builders, fn)(width=size, height=size, spp=1, device="cpu", **kw)
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
@@ -62,7 +71,7 @@ def test_chain_plain_matches_jax_render(name):
     fn, kw = SCENES[name]
     ours = port_trace(fn, 32, **kw)
     j_scene, j_cam = getattr(jax_builders, fn)(width=32, height=32, spp=1, **kw)
-    render = jax.jit(lambda s, c: jax_render_hdr(s, c, JAX_CFG, mode="chain"))
+    render = jit_o0(lambda s, c: jax_render_hdr(s, c, JAX_CFG, mode="chain"))
     ref = np.asarray(render(j_scene, j_cam)).reshape(-1, 3)
     check(name, ours, ref)
 
@@ -76,7 +85,7 @@ def test_chain_plain_depth_and_pruning(max_depth, min_weight):
     ours = port_trace("head_box_scene", 16, cfg)
     j_scene, j_cam = jax_builders.head_box_scene(width=16, height=16, spp=1)
     o, d = j_cam.rays_for_pixels(*j_cam.pixel_grid())
-    ref = np.asarray(jax.jit(lambda: integrate_chain(jax_flatten(j_scene), o, d, jcfg))())
+    ref = np.asarray(jit_o0(lambda: integrate_chain(jax_flatten(j_scene), o, d, jcfg))())
     check(f"depth={max_depth} min_weight={min_weight}", ours, ref)
 
 
@@ -115,7 +124,7 @@ def test_chain_plain_on_seeded_rays():
     d = rng.normal(size=(512, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     j_scene, _ = jax_builders.head_box_scene(width=8, height=8, spp=1)
-    ref = np.asarray(jax.jit(
+    ref = np.asarray(jit_o0(
         lambda: integrate_chain(jax_flatten(j_scene), jnp.asarray(o), jnp.asarray(d), JAX_CFG)
     )())
     scene, _ = builders.head_box_scene(width=8, height=8, spp=1, device="cpu")

@@ -54,6 +54,15 @@ SCENES = {
 }
 
 
+def jit_o0(fn):
+    """jax.jit for a one-shot reference, compiled without XLA's backend
+    optimisations: they cost more compile time than they save on one call."""
+    def run(*args):
+        return jax.jit(fn).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})(*args)
+    return run
+
+
 def jax_leaves(tree) -> dict[str, np.ndarray]:
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
     return {".".join(k.name for k in path): np.asarray(x) for path, x in flat}
@@ -73,18 +82,11 @@ def jax_rays(name):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_forward(name):
-    """-> the JAX image alone (one compile without the VJP)."""
-    scene, o, d, cfg = jax_rays(name)
-    return np.asarray(jax.jit(lambda s, oo, dd: integrate_chain_jax(s, oo, dd, cfg))(scene, o, d))
-
-
-@functools.lru_cache(maxsize=None)
 def jax_reference(name):
     """-> (rays o, d, image, scene-leaf grads, d_o, d_d) of sum(img^2)."""
     scene, o, d, cfg = jax_rays(name)
 
-    @jax.jit
+    @jit_o0
     def img_and_grads(s, oo, dd):  # one compile for the forward and the VJP
         img, vjp = jax.vjp(lambda s, oo, dd: integrate_chain_jax(s, oo, dd, cfg), s, oo, dd)
         return img, vjp(2.0 * img)
@@ -116,7 +118,7 @@ PATHS = {
 def test_integrate_chain_forward_matches_jax(name):
     scene, o, d, cfg = port_setup(name)
     ours = integrate_chain(isect.flatten_scene(scene), o, d, cfg).numpy()
-    report = seam_budget(ours, jax_forward(name))
+    report = seam_budget(ours, jax_reference(name)[2])
     print(f"{name}: {report}")
     assert np.isfinite(ours).all() and report.ok, report
 
@@ -226,7 +228,7 @@ def test_focal_grad_through_render_hdr_matches_jax():
     def jloss(focal):
         return jnp.mean(jax_render_hdr(j_scene, dataclasses.replace(j_cam, focal=focal), jcfg) ** 2)
 
-    g_ref = float(jax.jit(jax.grad(jloss))(j_cam.focal))
+    g_ref = float(jit_o0(jax.grad(jloss))(j_cam.focal))
     scene, cam = builders.baseline_sphere_scene(width=16, height=16, spp=1, device="cpu")
     focal = cam.focal.clone().requires_grad_(True)
     cfg = RenderConfig(shadow_mode="binary", chunk_size=100, use_pallas=True)
@@ -246,7 +248,14 @@ def test_spp_with_grad_raises():
         assert torch.isfinite(render_hdr(combine(params, static), cam, cfg)).all()
 
 
-def test_grad_above_adjoint_scope_raises():
+def test_grad_above_adjoint_scope_raises(monkeypatch):
+    """Past chain_grad's 512 primitives a scene no longer raises: its 513
+    triangles take culled tables, the backward routes to the dense adjoint
+    (chain_grad_dense; its plain version on the CPU), and the leaf
+    gradients match autograd of the port's integrate_chain. chain_grad
+    itself still refuses such tables."""
+    import raytracingengine_tpu_torch.kernels.chain_grad as cg
+
     b = SceneBuilder()
     mat = Material(color=(0.5, 0.5, 0.5))
     for i in range(MAX_PRIMS + 1):
@@ -257,8 +266,20 @@ def test_grad_above_adjoint_scope_raises():
     scene = b.build(device="cpu")
     _, cam = builders.baseline_sphere_scene(width=4, height=4, spp=1, device="cpu")
     cfg = RenderConfig(shadow_mode="binary", use_pallas=True, max_depth=2)
-    params, static = partition(scene)
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        render_hdr(combine(params, static), cam, cfg)
-    with torch.no_grad():  # the forward kernel has no such ceiling
-        assert torch.isfinite(render_hdr(combine(params, static), cam, cfg)).all()
+    calls = []
+    dense = cg.chain_grad_dense_plain
+    monkeypatch.setattr(cg, "chain_grad_dense_plain", lambda *a: calls.append(a[0]) or dense(*a))
+    grads = {}
+    for use_pallas in (True, False):
+        params, static = partition(scene)
+        img = render_hdr(combine(params, static), cam, dataclasses.replace(cfg, use_pallas=use_pallas))
+        (img * img).mean().backward()
+        grads[use_pallas] = {k: np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
+                             for k, p in params.items()}
+    assert len(calls) == 1 and calls[0].culled
+    assert np.abs(grads[True]["triangles.v0"]).max() > 0
+    errors = grad_leaf_mismatches(grads[True], grads[False])
+    assert not errors, errors
+    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+    with pytest.raises(NotImplementedError, match="use chain_grad_dense"):
+        cg.chain_grad(calls[0], o.contiguous(), d, torch.zeros_like(o), cfg)

@@ -39,6 +39,15 @@ torch.set_num_threads(2)
 CFG = RenderConfig(shadow_mode="binary", use_pallas=True)
 
 
+def jit_o0(fn):
+    """jax.jit for a one-shot reference, compiled without XLA's backend
+    optimisations: they cost more compile time than they save on one call."""
+    def run(*args):
+        return jax.jit(fn).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})(*args)
+    return run
+
+
 def spheres(size=8, **kw):
     return builders.baseline_sphere_scene(width=size, height=size, spp=1, device="cpu", **kw)
 
@@ -155,7 +164,7 @@ def test_jax_params_carry_across():
     flat, _ = jax.tree_util.tree_flatten_with_path(j_params)
     leaves = {".".join(k.name for k in path): np.asarray(x) for path, x in flat}
     jcfg = JaxConfig(shadow_mode="binary", chunk_size=256)
-    ref = float(jax.jit(lambda p: jnp.mean(jax_render_hdr(jax_combine(p, j_static), j_cam, jcfg) ** 2))(
+    ref = float(jit_o0(lambda p: jnp.mean(jax_render_hdr(jax_combine(p, j_static), j_cam, jcfg) ** 2))(
         j_params))
 
     scene, cam = builders.baseline_sphere_scene(width=16, height=16, spp=1, n_lights=2, device="cpu")

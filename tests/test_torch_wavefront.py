@@ -48,6 +48,15 @@ torch.set_num_threads(2)
 SHADOWS = ["binary", "march"]
 
 
+def jit_o0(fn):
+    """jax.jit for a one-shot reference, compiled without XLA's backend
+    optimisations: they cost more compile time than they save on one call."""
+    def run(*args):
+        return jax.jit(fn).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})(*args)
+    return run
+
+
 def jax_leaves(tree) -> dict[str, np.ndarray]:
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
     return {".".join(k.name for k in path): np.asarray(x) for path, x in flat}
@@ -156,7 +165,7 @@ def jax_glass(shadow_mode, size=16):
     scene, cam = glass_scene(size, pkg=jax_builders)
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     cfg = JaxConfig(shadow_mode=shadow_mode)
-    img = jax.jit(lambda s, o, d: jax_integrate_wavefront(jax_flatten(s), o, d, cfg))(scene, o, d)
+    img = jit_o0(lambda s, o, d: jax_integrate_wavefront(jax_flatten(s), o, d, cfg))(scene, o, d)
     return np.array(o), np.array(d), np.asarray(img)
 
 
@@ -215,7 +224,7 @@ def test_wavefront_spp_plain_with_given_jitter_matches_jax():
     jpx, jpy = j_cam.pixel_grid()
     rays = [j_cam.rays_for_pixels(jpx, jpy, jnp.asarray(j)) for j in jitter]
     o, d = (jnp.concatenate(x) for x in zip(*rays))  # one call for all samples
-    img = jax.jit(lambda s, o, d: jax_integrate_wavefront(jax_flatten(s), o, d, JaxConfig()))(j_scene, o, d)
+    img = jit_o0(lambda s, o, d: jax_integrate_wavefront(jax_flatten(s), o, d, JaxConfig()))(j_scene, o, d)
     ref = np.asarray(img).reshape(spp, -1, 3).mean(axis=0)
     report = seam_budget(ours, ref)
     print(f"spp={spp}: {report}")
@@ -264,7 +273,7 @@ def test_head_box_default_config_matches_jax():
     scene, cam = builders.head_box_scene(width=12, height=12, spp=1, device="cpu")
     ours = pipeline.render_hdr(scene, cam, RenderConfig()).numpy()
     j_scene, j_cam = jax_builders.head_box_scene(width=12, height=12, spp=1)
-    ref = np.asarray(jax.jit(lambda s, c: jax_render_hdr(s, c, JaxConfig()))(j_scene, j_cam))
+    ref = np.asarray(jit_o0(lambda s, c: jax_render_hdr(s, c, JaxConfig()))(j_scene, j_cam))
     report = seam_budget(ours, ref)
     print(report)
     assert np.isfinite(ours).all() and report.ok, report
@@ -308,7 +317,7 @@ def test_integrate_wavefront_grads_match_jax():
     cfg_kw = dict(shadow_mode="binary", differentiable=True, wavefront_budget=64)
     j_scene, j_cam = glass_scene(8, pkg=jax_builders)
     o, d = j_cam.rays_for_pixels(*j_cam.pixel_grid())
-    @jax.jit
+    @jit_o0
     def img_and_grad(s):
         img, vjp = jax.vjp(lambda s: jax_integrate_wavefront(jax_flatten(s), o, d, JaxConfig(**cfg_kw)), s)
         return img, vjp(2.0 * img)[0]
