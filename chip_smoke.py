@@ -812,13 +812,18 @@ def main() -> int:
                     step()
                 sync()
                 wall = (time.perf_counter() - t0) * 1e3 / 3
-            dev_us = {e.key: getattr(e, "device_time_total", 0.0) / 3 for e in prof.key_averages()
-                      if str(e.device_type).endswith("CUDA") and getattr(e, "device_time_total", 0.0) > 0}
+            events = prof.key_averages()
+            # the packing's span (render/pipeline.py) also shows as a device-side
+            # annotation, which is no kernel
+            dev_us = {e.key: getattr(e, "device_time_total", 0.0) / 3 for e in events
+                      if str(e.device_type).endswith("CUDA") and getattr(e, "device_time_total", 0.0) > 0
+                      and e.key != "pack_forward_tables_perm"}
         if not dev_us:
             print(f"  {label} under the profiler: no device time recorded (not measured)")
             return
         total_ms = sum(dev_us.values()) / 1e3
-        pack = [e for e in prof.key_averages() if e.key == "pack_forward_tables_perm"]
+        pack = [e for e in events
+                if e.key == "pack_forward_tables_perm" and str(e.device_type).endswith("CPU")]
         pack_note = (f"; the packing span (render/pipeline.py) {pack[0].count // 3} per step, host "
                      f"{pack[0].cpu_time_total / 3e3:.3f} ms per step" if pack else "")
         ours = {}
