@@ -18,7 +18,8 @@ training step at full resolution, and times kernels against plain versions:
                 the training steps with the host running ahead and synchronised
                 after every step; each step's device time by kernel from the
                 profiler; each kernel's roofline bound from this run's work
-                counts
+                counts; chain_grad_dense on the head box's tables (not culled)
+                held to chain_grad and timed beside it
   9. grad       chain_grad vs chain_grad_plain, head box 1920x1080 with the main
                 path's camera, g = d mean(img^2) / d img; run-to-run spread;
                 then the same on baseline spheres (2 lights), whose sphere
@@ -52,10 +53,10 @@ training step at full resolution, and times kernels against plain versions:
                 refbuild/dense_mesh_streamed_256.hdr64; the scrambled mesh's
                 kernel time beside the unscrambled one
  16. dense grad chain_grad_dense vs chain_grad_dense_plain, g = d mean(img^2) /
-                d img: dense_mesh_scene 512x512, mixed_dense_scene 512x512 and
-                the 50,800-triangle mesh at 256x256 (the plain version's cost);
-                ray cotangents, table rows, run-to-run spread (global atomics),
-                flips beside phase 15's
+                d img, at 512x512 as the training steps run it: dense_mesh_scene
+                with 6,016 and 50,800 triangles on phase 15's tables and rays,
+                and mixed_dense_scene; ray cotangents, table rows, run-to-run
+                spread (global atomics), flips beside phase 15's
  17. dense train the dense training steps of bench.py:272-296 and :359-383
                 through the entry points: 512x512, 6,016 and 50,800 triangles,
                 SGD(lr=1e-6) on mean(img^2), the camera focal trained too, 8
@@ -617,14 +618,11 @@ def main() -> int:
     m_scene, m_cam = mixed_dense_scene(W512, W512, device=dev)
     m_o, m_d = m_cam.rays_for_pixels(*m_cam.pixel_grid())
     m_tables = ct.pack_forward_tables_perm(flatten_scene(m_scene), mean_direction(m_d))
-    s_scene, s_cam = dense_mesh_scene(256, 256, spp=1, ni=128, nj=200, device=dev)
-    s_o, s_d = s_cam.rays_for_pixels(*s_cam.pixel_grid())
-    s_tables = ct.pack_forward_tables_perm(flatten_scene(s_scene), mean_direction(s_d))
     dense_grad = {}  # label -> (tables, o, d, g, ray-cotangent reports, max|diff|, plain ms)
     for label, (tb, to, td) in (
         ("6016 512x512", (tables6, d_o6, d_d6)),
         (f"mixed {m_tables.n_primitives} primitives 512x512", (m_tables, m_o.contiguous(), m_d)),
-        ("50800 256x256", (s_tables, s_o.contiguous(), s_d)),
+        ("50800 512x512", dense["50800"][:3]),
     ):
         img = ct.chain_trace(tb, to, td, cfg)
         gg = (2.0 * img / img.numel()).contiguous()
@@ -637,7 +635,7 @@ def main() -> int:
         f"{k} {v[4]['d_o'].flips}, {v[4]['d_d'].flips}" for k, v in dense_grad.items())
         + "; of the culled forward (phase 15): " + ", ".join(
             f"{k} {r.flips}" for k, r in dense_reports.items()), flush=True)
-    del m_scene, s_scene
+    del m_scene
 
     # 17. the dense training steps, as a user calls them (bench.py:272-296, :359-383)
     print("[17 dense train] 512x512, SGD(lr=1e-6) on mean(img^2), camera focal trained too, "
@@ -715,6 +713,26 @@ def main() -> int:
     )
     report("chain_grad kernel, 1080p", grad_ms, rays1)
     report("chain_grad_plain, 1080p", grad_plain_ms, rays1)
+    # The dense adjoint serves the head box's tables too (not culled: a linear
+    # scan): it must agree with chain_grad there, and its time beside
+    # chain_grad's says whether chain_grad.cu still earns its place.
+    hb_dense, hb_grad = cg.chain_grad_dense(tables, o, d, g, cfg), cg.chain_grad(tables, o, d, g, cfg)
+    sync()
+    hb_bad = [f"{cot}: {r}" for cot, a, b in (("d_o", hb_dense[1], hb_grad[1]), ("d_d", hb_dense[2], hb_grad[2]))
+              for r in [ray_cot_seam_budget(a.cpu().numpy(), b.cpu().numpy())] if not r.ok]
+    hb_bad += [str(r) for name, a, b in zip(("sph", "pl", "tri", "mat", "light"), hb_dense[0], hb_grad[0])
+               for r in table_cot_rows(name, a.cpu().numpy(), b.cpu().numpy()) if not r.ok]
+    hb_err = max(float((a - b).abs().max()) for a, b in zip((*hb_dense[0], *hb_dense[1:]),
+                                                             (*hb_grad[0], *hb_grad[1:])))
+    print(f"  {'PASS' if not hb_bad else 'FAIL'} chain_grad_dense vs chain_grad kernel, head box 1080p: "
+          f"max|diff| over all outputs {hb_err:.3e}, ray cotangents and table rows in budget", flush=True)
+    if hb_bad:
+        raise AssertionError(f"chain_grad_dense disagrees with chain_grad on the head box: {hb_bad}")
+    del hb_dense, hb_grad
+    hb_dense_ms, hb_grad_ms = in_turns(lambda: cg.chain_grad_dense(tables, o, d, g, cfg),
+                                       lambda: cg.chain_grad(tables, o, d, g, cfg), 10, 10)
+    report("chain_grad_dense kernel, head box 1080p (in turns with chain_grad)", hb_dense_ms, rays1)
+    report("chain_grad kernel, head box 1080p (in turns with chain_grad_dense)", hb_grad_ms, rays1)
 
     def time_step(label: str, step, rays: int) -> None:
         report(f"{label}, host running ahead (CUDA events)", time_ms(step, 10), rays)
@@ -886,16 +904,16 @@ def main() -> int:
     for sample in range(d_cam8.spp):
         o8, d8 = d_cam8.rays_for_pixels(dpx, dpy, st.pixel_jitter(1234, d_pids, sample))
         d_work8 += chain_work(spp_tables6, o8.contiguous(), d8.contiguous(), cfg)
-    s_work = chain_work(s_tables, dense_grad["50800 256x256"][1], s_d, cfg)
     bounds.update({
         "chain_trace, 6016 triangles": bound_ms(work_ops(dense_work["6016"]), trace_bytes(rays512, tables6)),
         "chain_trace_streamed": bound_ms(work_ops(dense_work["50800"]),
                                          trace_bytes(rays512, dense["50800"][0])),
         "spp_trace, 6016 triangles": bound_ms(work_ops(d_work8), trace_bytes(rays512, spp_tables6, in_per_ray=8)),
         "chain_grad_dense": bound_ms(work_ops(dense_work["6016"]), adjoint_bytes(rays512, tables6)),
-        "chain_grad_dense_streamed": bound_ms(work_ops(s_work), adjoint_bytes(256 * 256, s_tables)),
+        "chain_grad_dense_streamed": bound_ms(work_ops(dense_work["50800"]),
+                                              adjoint_bytes(rays512, dense["50800"][0])),
     })
-    for label, w in (*dense_work.items(), ("50800 256x256", s_work)):
+    for label, w in dense_work.items():
         print(f"  dense work {label}: {w.bounces / w.rays:.3f} bounces/ray, {w.shadow_rays / w.rays:.3f} "
               f"shadow rays/ray, closest-hit {w.closest_ops / w.rays:.0f} + shadow "
               f"{w.shadow_ops / w.rays:.0f} fp32 ops/ray (culled traversal)")
@@ -959,8 +977,8 @@ def main() -> int:
          "source": "raytracingengine_tpu_torch/csrc/chain_grad_dense.cu",
          "replaces": "raytracingengine_tpu/kernels/chain_grad.py:1697",
          "launches": dense_train_launches["50800"]["chain_grad_dense"],
-         "max_abs_err": dense_grad["50800 256x256"][5], "ms": dense_grad_ms["50800 256x256"],
-         "plain_ms": dense_grad_plain_ms["50800 256x256"],
+         "max_abs_err": dense_grad["50800 512x512"][5], "ms": dense_grad_ms["50800 512x512"],
+         "plain_ms": dense_grad_plain_ms["50800 512x512"],
          "bound_ms": bounds["chain_grad_dense_streamed"][0],
          "bound_by": bounds["chain_grad_dense_streamed"][1], "library_ms": None},
     ]

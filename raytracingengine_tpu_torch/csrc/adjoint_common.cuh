@@ -184,26 +184,28 @@ __device__ __forceinline__ void plane_pullback(const Tables& T, int i, const Ray
   pc[0] = Nb.x; pc[1] = Nb.y; pc[2] = Nb.z; pc[3] = pnb;
 }
 
-__device__ __forceinline__ void tri_pullback(const Tables& T, int i, const Ray& r, float tb,
-                                             V3 nb, RayCot& c, float (&pc)[12]) {
+// A triangle hit at the forward's t, pulled back as the plane through v0 with
+// normal N = e1 x e2 met at p = o + d t: with s = o - v0 and the
+// Moller-Trumbore factor f = 1 / (e1 . (d x e2)),
+//   dt = f [N . (ds + t dd) + dN . (p - v0)].
+// The expanded adjoint of t = f (e2 . (s x e1)) is the same in exact
+// arithmetic but finds p - v0 as a difference of two terms ~|s| / |p - v0|
+// times larger, through its own f and that product; on a grazing ray both
+// are cancellations, so FMA contraction here (none in PyTorch) moved the e1
+// and e2 rows by 2% at 50,800 triangles. Here p - v0 takes the forward's t,
+// which the plain version (kernels/chain_grad.py::_tri_t_plane) shares.
+__device__ __forceinline__ void tri_pullback(const Tables& T, int i, const Ray& r, float t,
+                                             float tb, V3 nb, RayCot& c, float (&pc)[12]) {
   const int cols = T.tri_cols;
   const V3 v0 = tab3(T.tri, cols, 0, i), e1 = tab3(T.tri, cols, 3, i);
   const V3 e2 = tab3(T.tri, cols, 6, i);
-  // t = f k, f = 1 / (e1 . (d x e2)), k = e2 . ((o - v0) x e1)
-  const V3 h = cross(r.d, e2);
-  const float f = 1.0f / dot(e1, h);
-  const V3 s = r.o - v0;
-  const V3 q = cross(s, e1);
-  const float k = dot(e2, q);
-  const float fb = tb * k, kb = tb * f;
-  const V3 qb = e2 * kb;
-  const V3 sb = cross(e1, qb);
-  const float ab = -fb * f * f;
-  const V3 e1b = cross(qb, s) + h * ab;
-  const V3 hb = e1 * ab;
-  const V3 e2b = q * kb + cross(hb, r.d);
-  c.d += cross(e2, hb);
+  const float f = 1.0f / dot(e1, cross(r.d, e2));
+  const float ft = tb * f;
+  const V3 sb = cross(e1, e2) * ft;          // dt/ds = f N
+  const V3 Nb = ((r.o - v0) + r.d * t) * ft;  // dt/dN = f (p - v0)
+  const V3 e1b = cross(e2, Nb), e2b = cross(Nb, e1);
   c.o += sb;
+  c.d += sb * t;
   // rows: v0, e1, e2, and the unit normal, which is its own table row
   pc[0] = -sb.x; pc[1] = -sb.y; pc[2] = -sb.z;
   pc[3] = e1b.x; pc[4] = e1b.y; pc[5] = e1b.z;
@@ -372,7 +374,7 @@ __device__ __forceinline__ void bounce_adjoint(const Tables& T, Sink& sink, bool
     } else if (gi < T.ns + T.np) {
       plane_pullback(T, gi - T.ns, r, h.t, tb, nb, old, pc);
     } else {
-      tri_pullback(T, h.tc, r, tb, nb, old, pc);
+      tri_pullback(T, h.tc, r, h.t, tb, nb, old, pc);
     }
     c = old;
   }

@@ -360,7 +360,7 @@ __device__ __forceinline__ RayCot node_adjoint(const Tables& T, const WavefrontP
       plane_pullback(T, gi - T.ns, r, h.t, tb, nb, c, pc);
       pbase = off.pl + gi - T.ns; pcols = T.pl_cols; prows = 4;
     } else {
-      tri_pullback(T, gi - T.ns - T.np, r, tb, nb, c, pc);
+      tri_pullback(T, gi - T.ns - T.np, r, h.t, tb, nb, c, pc);
       pbase = off.tri + gi - T.ns - T.np; pcols = T.tri_cols; prows = 12;
     }
   }

@@ -37,21 +37,24 @@ The plain pieces are written from the JAX package's `_make_bounce`,
 `_make_state_bounce`, `_final_sky`, `_make_shade_hit` and `_*_tn_prim`,
 with their NaN guards: every reciprocal square root is
 `where(ok, rsqrt(where(ok, x, 1)), 0)`. The transparency clip and the
-maximum(0, .) keep JAX's subgradient of 0.5 at a tie.
+maximum(0, .) keep JAX's subgradient of 0.5 at a tie. A triangle's
+distance is found without gradient and differentiated in the plane form
+(`_tri_t_plane`), as the kernels' `tri_pullback` does: the gradient of
+autodiff of the Moller-Trumbore formula, at the forward's hit point.
 
 `ChainTraceFused` / `chain_trace_fused`: forward `chain_trace`, backward
 the adjoint `adjoint_route` picks; autograd carries the table cotangents
 back through `pack_forward_tables_perm` (the reorder is an index),
 `pack_scene_tables` and `flatten_scene` to the scene leaves, and the ray
-cotangents to the camera. Past the JAX package's ceilings the backward is
-autograd of render/integrator.py::integrate_chain, with a warning.
+cotangents to the camera. `chain_grad_dense` serves any triangle count (its
+triangle cotangents live in device memory); where its sphere, plane and
+light cotangents do not fit one block's shared memory, it raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import warnings
 
 import torch
 
@@ -60,7 +63,6 @@ from raytracingengine_tpu_torch.geometry.intersect import EPS
 from raytracingengine_tpu_torch.kernels import _build
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
-    MAX_TRIS_STREAM,
     SceneTables,
     _any_hit,
     _check_rays,
@@ -69,17 +71,10 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     chain_trace,
     check_tables,
 )
-from raytracingengine_tpu_torch.render.integrator import integrate_chain
 
 #: Primitive ceiling of `chain_grad` (the JAX package's _MAX_PRIMS_UNROLL):
 #: its kernel keeps one block's table cotangents in shared memory.
 MAX_PRIMS = 512
-#: Ceilings of the JAX package's fused adjoints (its MAX_PRIMS_GRAD, the
-#: streamed forward's triangle ceiling, and the 8,192 non-triangle
-#: primitives of its SMEM tables): past either, the backward is autograd of
-#: integrate_chain, as there.
-MAX_PRIMS_GRAD = MAX_TRIS_STREAM
-MAX_NON_TRI_GRAD = 8192
 #: The kernel's block size (csrc/chain_grad.cu) and its shared memory cap.
 THREADS = 128
 MAX_SMEM_BYTES = 227 * 1024
@@ -132,23 +127,26 @@ def _closest_hit(tables: SceneTables, mat_rows, ox, oy, oz, dx, dy, dz):
 
     base = tables.n_spheres + tables.n_planes
     for i in range(tables.n_triangles):
-        v0x, v0y, v0z = tri[0, i], tri[1, i], tri[2, i]
-        e1x, e1y, e1z = tri[3, i], tri[4, i], tri[5, i]
-        e2x, e2y, e2z = tri[6, i], tri[7, i], tri[8, i]
-        hx = dy * e2z - dz * e2y
-        hy = dz * e2x - dx * e2z
-        hz = dx * e2y - dy * e2x
-        a = e1x * hx + e1y * hy + e1z * hz
-        ok = a.abs() > EPS
-        f = 1.0 / torch.where(ok, a, one)
-        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-        u = f * (sx * hx + sy * hy + sz * hz)
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        v = f * (dx * qx + dy * qy + dz * qz)
-        t_new = f * (e2x * qx + e2y * qy + e2z * qz)
-        hit = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t_new > EPS)
+        with torch.no_grad():
+            v0x, v0y, v0z = tri[0, i], tri[1, i], tri[2, i]
+            e1x, e1y, e1z = tri[3, i], tri[4, i], tri[5, i]
+            e2x, e2y, e2z = tri[6, i], tri[7, i], tri[8, i]
+            hx = dy * e2z - dz * e2y
+            hy = dz * e2x - dx * e2z
+            hz = dx * e2y - dy * e2x
+            a = e1x * hx + e1y * hy + e1z * hz
+            ok = a.abs() > EPS
+            f = 1.0 / torch.where(ok, a, one)
+            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+            u = f * (sx * hx + sy * hy + sz * hz)
+            qx = sy * e1z - sz * e1y
+            qy = sz * e1x - sx * e1z
+            qz = sx * e1y - sy * e1x
+            v = f * (dx * qx + dy * qy + dz * qz)
+            t0 = f * (e2x * qx + e2y * qy + e2z * qz)
+            hit = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t0 > EPS)
+        t_new = _tri_t_plane(torch.where(hit, t0, zero), tri[0:3, i], tri[3:6, i], tri[6:9, i],
+                             ox, oy, oz, dx, dy, dz)
         upd(t_new, hit, (tri[9, i], tri[10, i], tri[11, i]), base + i)
     return fields
 
@@ -312,31 +310,57 @@ def _plane_tn(c, ox, oy, oz, dx, dy, dz):
     return (pn - on) / torch.where(ok, denom, torch.ones_like(denom)), (nx_, ny_, nz_)
 
 
-def _tri_tn(c, ox, oy, oz, dx, dy, dz):
-    """(t, n) of the triangle columns c [>= 12, R] (`_tri_tn_prim`): the
-    guarded Moller-Trumbore distance and the stored unit normal."""
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, nux, nuy, nuz = c[:12]
-    hx = dy * e2z - dz * e2y
-    hy = dz * e2x - dx * e2z
-    hz = dx * e2y - dy * e2x
-    a = e1x * hx + e1y * hy + e1z * hz
-    ok = a.abs() > EPS
-    f = 1.0 / torch.where(ok, a, torch.ones_like(a))
+def _tri_t_plane(t0, v0, e1, e2, ox, oy, oz, dx, dy, dz):
+    """A triangle's distance t0 (found without gradient; 0 where it is
+    not hit) with the gradient of the plane through v0 with normal
+    N = e1 x e2 met at p = o + d t:
+
+        dt = f [N . (ds + t dd) + dN . (p - v0)],  s = o - v0,
+
+    f = 1 / (e1 . (d x e2)), the guarded Moller-Trumbore factor. The
+    expanded gradient of t = f (e2 . (s x e1)) is the same in exact
+    arithmetic, but it finds p - v0 as a difference of two terms ~|s| /
+    |p - v0| times larger, through its own f and that product; on a grazing
+    ray both are cancellations, so each implementation's rounding of them
+    (FMA contraction in the kernels, none here) moves the e1 and e2 rows by
+    percents. Here p - v0 = s + t d takes the forward's t, which the kernels
+    and the plain versions share. csrc/adjoint_common.cuh::tri_pullback
+    computes this form."""
+    (v0x, v0y, v0z), (e1x, e1y, e1z), (e2x, e2y, e2z) = v0, e1, e2
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
     sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-    qx = sy * e1z - sz * e1y
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    return f * (e2x * qx + e2y * qy + e2z * qz), (nux, nuy, nuz)
+    with torch.no_grad():
+        hx = dy * e2z - dz * e2y
+        hy = dz * e2x - dx * e2z
+        hz = dx * e2y - dy * e2x
+        a = e1x * hx + e1y * hy + e1z * hz
+        f = 1.0 / torch.where(a.abs() > EPS, a, torch.ones_like(a))
+        wx, wy, wz = sx + dx * t0, sy + dy * t0, sz + dz * t0  # p - v0
+        n0x, n0y, n0z = nx.detach(), ny.detach(), nz.detach()
+    lin = f * (nx * wx + ny * wy + nz * wz
+               + n0x * (sx + dx * t0) + n0y * (sy + dy * t0) + n0z * (sz + dz * t0))
+    return t0 + (lin - lin.detach())
 
 
-def winner_hit(tables: SceneTables, mat_rows, hit, gi, pos, ox, oy, oz, dx, dy, dz):
+def _tri_tn(c, t0, ox, oy, oz, dx, dy, dz):
+    """(t, n) of the triangle columns c [>= 12, R] (`_tri_tn_prim`) hit at
+    the scan's t0: `_tri_t_plane` and the stored unit normal."""
+    t = _tri_t_plane(t0, c[0:3], c[3:6], c[6:9], ox, oy, oz, dx, dy, dz)
+    return t, (c[9], c[10], c[11])
+
+
+def winner_hit(tables: SceneTables, mat_rows, hit, t, gi, pos, ox, oy, oz, dx, dy, dz):
     """The hit fields (t, nx, ny, nz, *mat[mat_rows, gi]) of each lane's
-    winner, differentiable in the rays and the tables: the winner's table
-    columns are gathered (global index gi, tri table column pos) and its
-    (t, n) recomputed on them alone; t = _INF where `hit` is false. Each
-    family's formula runs on every lane with a clamped index, and its
+    winner at the scan's distance t, differentiable in the rays and the
+    tables: the winner's table columns are gathered (global index gi, tri
+    table column pos) and its (t, n) recomputed on them alone (a
+    triangle's t keeps the scan's value); t = _INF where `hit` is false.
+    Each family's formula runs on every lane with a clamped index, and its
     guards keep the adjoints of the lanes it does not win finite."""
     ns, np_ = tables.n_spheres, tables.n_planes
+    t_tri = torch.where(hit & (gi >= ns + np_), t, torch.zeros_like(t))
     t = torch.full_like(ox, _INF)
     n = [torch.zeros_like(ox)] * 3
     rays = (ox, oy, oz, dx, dy, dz)
@@ -344,7 +368,8 @@ def winner_hit(tables: SceneTables, mat_rows, hit, gi, pos, ox, oy, oz, dx, dy, 
         (ns, hit & (gi < ns), lambda: _sphere_tn(tables.sph[:, gi.clamp(0, ns - 1)], *rays)),
         (np_, hit & (gi >= ns) & (gi < ns + np_),
          lambda: _plane_tn(tables.pl[:, (gi - ns).clamp(0, np_ - 1)], *rays)),
-        (tables.n_triangles, hit & (gi >= ns + np_), lambda: _tri_tn(tables.tri[:, pos], *rays)),
+        (tables.n_triangles, hit & (gi >= ns + np_),
+         lambda: _tri_tn(tables.tri[:, pos], t_tri, *rays)),
     )
     for count, mine, tn in families:
         if count:
@@ -372,7 +397,7 @@ def bounce_dense_plain(state, tables: SceneTables, cfg, host: _HostTables):
     """`bounce_plain` as the dense adjoint splits it: the closest hit of the
     forward's scan, then `winner_hit` and `shade_hit` under autograd."""
     t, _, _, _, gi, pos = _scan(host, state)
-    hitf = winner_hit(tables, (0, 1, 2, 3, 4, 5), t < _INF, gi, pos, *state[:6])
+    hitf = winner_hit(tables, (0, 1, 2, 3, 4, 5), t < _INF, t, gi, pos, *state[:6])
     return shade_hit(state, hitf, tables, cfg, host)
 
 
@@ -448,14 +473,9 @@ def chain_grad_dense_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor
 
 
 def adjoint_route(tables: SceneTables) -> str:
-    """The backward of `chain_trace_fused` for these tables, by the JAX
-    package's rule (its chain_grad.py `_fused_bwd`): "autograd" past
-    MAX_PRIMS_GRAD primitives or MAX_NON_TRI_GRAD non-triangle ones;
-    "chain_grad_dense" for culled tables or more than MAX_PRIMS
-    primitives; else "chain_grad"."""
-    non_tri = tables.n_spheres + tables.n_planes
-    if tables.n_primitives > MAX_PRIMS_GRAD or non_tri > MAX_NON_TRI_GRAD:
-        return "autograd"
+    """The backward of `chain_trace_fused` for these tables:
+    "chain_grad_dense" for culled tables or more than MAX_PRIMS primitives;
+    else "chain_grad"."""
     if tables.culled or tables.n_primitives > MAX_PRIMS:
         return "chain_grad_dense"
     return "chain_grad"
@@ -644,54 +664,20 @@ class ChainTraceFused(torch.autograd.Function):
         return (None, None, None, go, gd, *table_cots)
 
 
-class _ValueOf(torch.autograd.Function):
-    """value's numbers, carrier's gradient: the kernel's frame with the
-    integrator's backward."""
-
-    @staticmethod
-    def forward(ctx, value, carrier):
-        return value.clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        return None, g
-
-
-def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg,
-                      flat=None) -> torch.Tensor:
+def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
     """[R,3] origins/directions -> [R,3] HDR radiance, differentiable in the
     rays and the table tensors (so, through the packing and flatten_scene,
     in every float scene leaf and the camera).
 
     Without gradients it is `chain_trace`. With them the backward is the
-    adjoint `adjoint_route` picks; a dense one whose small tables do not fit
-    shared memory raises here. Past the JAX package's ceilings the forward
-    stays on the kernel and the backward is autograd of
-    `integrate_chain(flat, o, d, cfg)`, with a warning, so `flat` (the
-    FlatScene the tables were packed from) is needed then."""
+    adjoint `adjoint_route` picks; a dense one whose sphere, plane and light
+    cotangents do not fit shared memory raises here, before the forward."""
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (o, d, *tables.tensors())
     )
     if not needs_grad:
         return chain_trace(tables, o.contiguous(), d.contiguous(), cfg)
-    route = adjoint_route(tables)
-    if route == "autograd":
-        if flat is None:
-            raise ValueError("chain_trace_fused: past the fused adjoints' ceilings the backward "
-                             "is autograd of integrate_chain, which needs `flat`")
-        warnings.warn(
-            f"chain_trace_fused backward falls back to autograd of integrate_chain: "
-            f"{tables.n_primitives} primitives ({tables.n_spheres + tables.n_planes} not "
-            f"triangles) exceed MAX_PRIMS_GRAD={MAX_PRIMS_GRAD} or MAX_NON_TRI_GRAD="
-            f"{MAX_NON_TRI_GRAD}. The forward stays on the kernel; expect a much slower "
-            f"training step.", stacklevel=2,
-        )
-        with torch.no_grad():
-            frame = chain_trace(dataclasses.replace(tables, **{
-                k: getattr(tables, k).detach() for k in ("sph", "pl", "tri", "mat", "light")}),
-                o.detach().contiguous(), d.detach().contiguous(), cfg)
-        return _ValueOf.apply(frame, integrate_chain(flat, o, d, cfg))
-    if route == "chain_grad_dense":
+    if adjoint_route(tables) == "chain_grad_dense":
         small_table_shapes(tables)
     counts = (tables.n_spheres, tables.n_planes, tables.n_triangles, tables.n_lights)
     return ChainTraceFused.apply(counts, (tables.taabb, tables.perm), cfg, o, d, *tables.tensors())

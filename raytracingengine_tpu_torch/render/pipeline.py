@@ -127,7 +127,7 @@ def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg) ->
         return integrate(flat, o, d, cfg)
     if mode == "wavefront":
         return wavefront_trace_fused(tables, o, d, cfg)
-    return chain_trace_fused(tables, o, d, cfg, flat)
+    return chain_trace_fused(tables, o, d, cfg)
 
 
 def render_rays(

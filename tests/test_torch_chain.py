@@ -6,7 +6,6 @@ most max(4, 1e-3 * pixels) pixels may exceed it as closest-hit seam ties.
 Each test prints the count of such pixels.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +27,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
 from raytracingengine_tpu_torch.parity import seam_budget
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.scenes import builders
+from jax_refs import jit_o0
 
 torch.set_num_threads(2)
 
@@ -40,15 +40,6 @@ SCENES = {
     "baseline_spheres": ("baseline_sphere_scene", {"n_lights": 2}),
     "baseline_spheres_pad8": ("baseline_sphere_scene", {"n_lights": 2, "pad_multiple": 8}),
 }
-
-
-def jit_o0(fn):
-    """jax.jit for a one-shot reference, compiled without XLA's backend
-    optimisations: they cost more compile time than they save on one call."""
-    def run(*args):
-        return jax.jit(fn).lower(*args).compile(
-            compiler_options={"xla_backend_optimization_level": 0})(*args)
-    return run
 
 
 def port_trace(fn, size, cfg=CFG, **kw):

@@ -58,6 +58,7 @@ from raytracingengine_tpu_torch.parity import (
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.pipeline import mean_direction, render_hdr, render_rays
 from raytracingengine_tpu_torch.scenes import assets, builders
+from jax_refs import jit_o0
 
 torch.set_num_threads(2)
 
@@ -69,15 +70,6 @@ SCENES = {
     "dense": ("dense_mesh_scene", dict(ni=16, nj=36)),
     "mixed": ("mixed_dense_scene", {}),
 }
-
-
-def jit_o0(fn):
-    """jax.jit for a one-shot reference, compiled without XLA's backend
-    optimisations: they cost more compile time than they save on one call."""
-    def run(*args):
-        return jax.jit(fn).lower(*args).compile(
-            compiler_options={"xla_backend_optimization_level": 0})(*args)
-    return run
 
 
 def jax_leaves(tree) -> dict[str, np.ndarray]:
@@ -133,8 +125,7 @@ def test_dense_builders_match_jax(name):
 def test_n_culling_blocks_matches_jax(nt):
     assert ct.n_culling_blocks(nt) == jct.n_culling_blocks(nt)
     assert ct.n_culling_blocks(nt) % ct.TRI_GROUP == 0
-    assert (ct.TRI_BLOCK, ct.TRI_GROUP, ct.MAX_TRIS_STREAM) == (
-        jct.TRI_BLOCK, jct.TRI_GROUP, jct.MAX_TRIS_STREAM)
+    assert (ct.TRI_BLOCK, ct.TRI_GROUP) == (jct.TRI_BLOCK, jct.TRI_GROUP)
 
 
 def flats(name):
@@ -288,6 +279,63 @@ def test_dense_adjoint_plain_matches_chain_grad_plain(name):
     assert float(ref[2].abs().max()) > 0 and float(ref[3].abs().max()) > 0
     torch.testing.assert_close(go, ref_go, rtol=1e-5, atol=1e-6 * float(ref_go.abs().max()))
     torch.testing.assert_close(gd, ref_gd, rtol=1e-5, atol=1e-6 * float(ref_gd.abs().max()))
+
+
+def _grazing_triangle(angle):
+    """float32 (v0, e1, e2, o, d): a 0.05-sized triangle 15.7 along the ray,
+    whose plane the ray meets at `angle` radians."""
+    f64 = torch.float64
+    d = torch.tensor([0.0154582, 0.14492, 0.989323], dtype=f64)
+    d = d / d.norm()
+    o = torch.tensor([0.0, 0.0, -8.0], dtype=f64)
+    u = torch.linalg.cross(d, torch.tensor([1.0, 0.0, 0.0], dtype=f64))
+    u = u / u.norm()
+    along = d * np.cos(angle) + torch.linalg.cross(u, d) * np.sin(angle)
+    e1, e2 = 0.046 * along, 0.055 * (0.6 * u + 0.8 * along)
+    v0 = o + 15.7 * d - 0.3 * e1 - 0.3 * e2
+    return [x.to(torch.float32) for x in (v0, e1, e2, o, d)]
+
+
+def _expanded_t(v0, e1, e2, o, d):
+    """Moller-Trumbore's t = f (e2 . ((o - v0) x e1)), f = 1 / (e1 . (d x e2))."""
+    f = 1.0 / (e1 * torch.linalg.cross(d, e2)).sum()
+    return f * (e2 * torch.linalg.cross(o - v0, e1)).sum()
+
+
+def _plane_grads(dtype, t0, *cols):
+    leaves = [x.to(dtype).requires_grad_(True) for x in cols]
+    v0, e1, e2, o, d = leaves
+    t = cg._tri_t_plane(torch.tensor(t0, dtype=dtype), tuple(v0), tuple(e1), tuple(e2), *o, *d)
+    assert float(t.detach()) == t0
+    return torch.autograd.grad(t, leaves)
+
+
+@pytest.mark.parametrize("case", ["derivation", "grazing"])
+def test_tri_plane_form_gradient(case):
+    """`_tri_t_plane` (and the kernels' tri_pullback, which computes the same
+    form) keeps the forward's t and differentiates the plane through v0.
+    derivation: in float64 on a ray 0.5 rad off the plane, its gradient in
+    v0, e1, e2, o and d equals autograd of the expanded Moller-Trumbore t
+    (rtol 1e-9). grazing: 1e-3 rad off the plane, where e1 . (d x e2) is a
+    cancellation, float32 stays within 5e-4 of float64 at the same t (the
+    form's one subtraction, s + t d, costs ~|s| / |p - v0| = 300 ulps)."""
+    if case == "derivation":
+        cols = [x.double() for x in _grazing_triangle(0.5)]
+        leaves = [x.clone().requires_grad_(True) for x in cols]
+        t = _expanded_t(*leaves)
+        ref = torch.autograd.grad(t, leaves)
+        ours = _plane_grads(torch.float64, float(t.detach()), *cols)
+        rtol = 1e-9
+    else:
+        cols = _grazing_triangle(1e-3)
+        with torch.no_grad():
+            t0 = float(_expanded_t(*cols))
+        ref = _plane_grads(torch.float64, t0, *cols)
+        ours = _plane_grads(torch.float32, t0, *cols)
+        rtol = 5e-4
+    for name, a, b in zip(("v0", "e1", "e2", "o", "d"), ours, ref):
+        err = float((a.double() - b).abs().max() / b.abs().max())
+        assert err <= rtol, (name, err)
 
 
 #: name -> (port builder, kwargs, max_depth): the scenes of the gradient
@@ -444,46 +492,45 @@ def test_adjoint_routing(monkeypatch, case):
 
 
 def test_adjoint_ceilings_route_by_counts(monkeypatch):
-    """The JAX package's ceilings on the routing decision itself, by counts:
-    past 131,072 primitives or 8,192 non-triangle ones the backward is
-    autograd of integrate_chain (with a warning); sphere and plane tables
-    beyond one block's shared memory raise NotImplementedError."""
-    z = torch.zeros((4, 1))
-
-    def tables(ns=0, np_=0, nt=0, culled=False):
-        return ct.SceneTables(z, z, torch.zeros((13 if culled else 12, 1)), torch.zeros((7, 1)),
-                              torch.zeros((7, 1)), ns, np_, nt, 2,
-                              taabb=torch.zeros((6, 9)) if culled else None)
+    """The routing decision by counts, with no ceiling of the JAX package's
+    TPU kernels: any culled table, or more than 512 primitives, takes the
+    dense adjoint, past 131,072 triangles and 8,192 spheres too. With
+    gradients, chain_trace_fused raises NotImplementedError before the
+    forward wherever the sphere, plane and light cotangents exceed one
+    block's shared memory (11 floats per sphere or plane, 7 per light:
+    5,281 spheres, no plane and one light fit), for every count past that,
+    so the rule is monotone. Culled tables refuse more primitives than float32
+    row 12 indexes exactly."""
+    def tables(ns=0, np_=0, nt=0, culled=False, nl=1):
+        cols = lambda n: max(n, 1)  # noqa: E731 (pack_scene_tables' empty families)
+        return ct.SceneTables(torch.zeros((4, cols(ns))), torch.zeros((4, cols(np_))),
+                              torch.zeros((13 if culled else 12, cols(nt))),
+                              torch.zeros((7, cols(ns + np_ + nt))), torch.zeros((7, nl)),
+                              ns, np_, nt, nl, taabb=torch.zeros((6, 9)) if culled else None)
 
     route = cg.adjoint_route
     assert route(tables(nt=12)) == "chain_grad"
     assert route(tables(ns=5, np_=6, nt=501)) == "chain_grad"
     assert route(tables(ns=5, np_=6, nt=502)) == "chain_grad_dense"
     assert route(tables(nt=129, culled=True)) == "chain_grad_dense"
-    assert route(tables(np_=1, nt=cg.MAX_PRIMS_GRAD - 1, culled=True)) == "chain_grad_dense"
-    assert route(tables(np_=1, nt=cg.MAX_PRIMS_GRAD, culled=True)) == "autograd"
-    assert route(tables(ns=cg.MAX_NON_TRI_GRAD)) == "chain_grad_dense"
-    assert route(tables(ns=cg.MAX_NON_TRI_GRAD, np_=1)) == "autograd"
-    big = ct.SceneTables(torch.zeros((4, 6000)), z, torch.zeros((12, 1)), torch.zeros((7, 6000)),
-                         torch.zeros((7, 1)), 6000, 0, 0, 1)
-    with pytest.raises(NotImplementedError, match="queue 2 item 10"):
-        cg.small_table_shapes(big)
-    # the warned fallback, on a scene whose tables say they are past the ceiling
-    scene, cam = builders.dense_mesh_scene(4, 4, ni=8, nj=24, device="cpu")
+    assert route(tables(ns=8_193)) == "chain_grad_dense"
+    for fits in (tables(np_=1, nt=131_073, culled=True), tables(ns=5_281)):
+        assert route(fits) == "chain_grad_dense"
+        assert cg.small_table_shapes(fits)
+    o = torch.zeros((2, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 2, requires_grad=True)
+    cfg = RenderConfig(shadow_mode="binary")
+    for ns, np_, nl in ((5_282, 0, 1), (5_281, 0, 3), (2_700, 2_600, 1), (8_192, 0, 1),
+                        (8_193, 0, 1), (20_000, 1, 2)):
+        with pytest.raises(NotImplementedError, match="queue 2 item 10"):
+            cg.chain_trace_fused(tables(ns=ns, np_=np_, nl=nl), o, d, cfg)
+    scene, _ = builders.dense_mesh_scene(4, 4, ni=8, nj=24, device="cpu")
     flat = flatten_scene(scene)
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
-    d = d.clone().requires_grad_(True)
-    past = dataclasses.replace(ct.pack_scene_tables(flat), n_spheres=cg.MAX_NON_TRI_GRAD + 1)
-    with pytest.raises(ValueError, match="needs `flat`"):
-        cg.chain_trace_fused(past, o, d, RenderConfig(shadow_mode="binary"))
-    real = ct.pack_scene_tables(flat)
-    cfg = RenderConfig(shadow_mode="binary", max_depth=2)
-    monkeypatch.setattr(cg, "adjoint_route", lambda t: "autograd")
-    with pytest.warns(UserWarning, match="falls back to autograd of integrate_chain"):
-        img = cg.chain_trace_fused(real, o.contiguous(), d, cfg, flat)
-    torch.testing.assert_close(img, ct.chain_trace(real, o.contiguous(), d.detach(), cfg), rtol=0, atol=0)
-    img.sum().backward()
-    assert d.grad is not None and torch.isfinite(d.grad).all() and float(d.grad.abs().max()) > 0
+    monkeypatch.setattr(ct, "MAX_INDEX", flat.n_primitives - 1)
+    with pytest.raises(NotImplementedError, match="float32"):
+        ct.pack_forward_tables_perm(flat)
+    monkeypatch.setattr(ct, "MAX_INDEX", flat.n_primitives)
+    assert ct.pack_forward_tables_perm(flat).culled
 
 
 # ---------------------------------------------------------------------------

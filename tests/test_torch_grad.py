@@ -44,6 +44,7 @@ from raytracingengine_tpu_torch.render.integrator import integrate_chain
 from raytracingengine_tpu_torch.render.pipeline import render_hdr
 from raytracingengine_tpu_torch.scene import SceneBuilder
 from raytracingengine_tpu_torch.scenes import builders
+from jax_refs import jit_o0
 
 torch.set_num_threads(2)
 
@@ -52,15 +53,6 @@ SCENES = {
     "baseline_spheres": ("baseline_sphere_scene", dict(n_lights=2), 16, 4, None),
     "head_box_nudged": ("head_box_scene", {}, 12, 3, (0.013, 0.007, 0.0)),
 }
-
-
-def jit_o0(fn):
-    """jax.jit for a one-shot reference, compiled without XLA's backend
-    optimisations: they cost more compile time than they save on one call."""
-    def run(*args):
-        return jax.jit(fn).lower(*args).compile(
-            compiler_options={"xla_backend_optimization_level": 0})(*args)
-    return run
 
 
 def jax_leaves(tree) -> dict[str, np.ndarray]:

@@ -33,19 +33,11 @@ from raytracingengine_tpu_torch.inverse.checkpoint import restore_checkpoint, sa
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.pipeline import render_hdr
 from raytracingengine_tpu_torch.scenes import builders
+from jax_refs import jit_o0
 
 torch.set_num_threads(2)
 
 CFG = RenderConfig(shadow_mode="binary", use_pallas=True)
-
-
-def jit_o0(fn):
-    """jax.jit for a one-shot reference, compiled without XLA's backend
-    optimisations: they cost more compile time than they save on one call."""
-    def run(*args):
-        return jax.jit(fn).lower(*args).compile(
-            compiler_options={"xla_backend_optimization_level": 0})(*args)
-    return run
 
 
 def spheres(size=8, **kw):

@@ -42,19 +42,11 @@ from raytracingengine_tpu_torch.render.integrator import integrate_chain, integr
 from raytracingengine_tpu_torch.render.shading import transmittance_hard
 from raytracingengine_tpu_torch.scene import SceneBuilder
 from raytracingengine_tpu_torch.scenes import builders
+from jax_refs import jit_o0
 
 torch.set_num_threads(2)
 
 SHADOWS = ["binary", "march"]
-
-
-def jit_o0(fn):
-    """jax.jit for a one-shot reference, compiled without XLA's backend
-    optimisations: they cost more compile time than they save on one call."""
-    def run(*args):
-        return jax.jit(fn).lower(*args).compile(
-            compiler_options={"xla_backend_optimization_level": 0})(*args)
-    return run
 
 
 def jax_leaves(tree) -> dict[str, np.ndarray]:
