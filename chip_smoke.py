@@ -8,6 +8,7 @@ training step at full resolution, and times kernels against plain versions:
 
   1. device     nvidia-smi name and power limit; exits non-zero without CUDA
   2. build      nvcc build of csrc/*.cu (sm_90a), with ptxas' register report
+                and the trace kernels' CTAs per SM (occupancy calculator)
   3. chain      chain_trace vs trace_chain_plain, head box 1920x1080 spp=1 rays
   4. AA         spp_trace vs spp_trace_plain, head box 1920x1080 spp=8, same seed
   5. engine     baseline spheres 256^2 vs refbuild/baseline_spheres_256.hdr64
@@ -19,7 +20,12 @@ training step at full resolution, and times kernels against plain versions:
                 after every step; each step's device time by kernel from the
                 profiler; each kernel's roofline bound from this run's work
                 counts; chain_grad_dense on the head box's tables (not culled)
-                held to chain_grad and timed beside it
+                held to chain_grad and timed beside it; chain_grad under the
+                identity thread-to-ray map beside the main path's 32x4 pixel
+                tiles; the fill probe
+                (50,800 triangles at 1024^2 against 512^2); the adjoints' CTAs
+                per SM; the culled scans' blocks per lane, per warp and per CTA
+                (roofline.py)
   9. grad       chain_grad vs chain_grad_plain, head box 1920x1080 with the main
                 path's camera, g = d mean(img^2) / d img; run-to-run spread;
                 then the same on baseline spheres (2 lights), whose sphere
@@ -176,6 +182,11 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  {line.strip()}")
+    lib = _build.load_library()
+    print("  CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 128 threads): chain_trace "
+          f"linear {lib.rte_chain_trace_occupancy(0)}, culled {lib.rte_chain_trace_occupancy(1)}; "
+          f"spp_trace linear {lib.rte_spp_trace_occupancy(0)}, culled {lib.rte_spp_trace_occupancy(1)}",
+          flush=True)
 
     def cfg_for(width: int, height: int) -> RenderConfig:
         return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
@@ -281,15 +292,15 @@ def main() -> int:
     # 9. the adjoint kernel vs its plain version, at the main path's camera
     plain_call_ms = {}  # label -> CUDA-event ms of check_grad's plain call
 
-    def check_grad(label: str, kernel, plain, tables, o, d, g, cfg, spread_rtol=None):
+    def check_grad(label: str, kernel, plain, tables, o, d, g, cfg, spread_rtol=None, **kw):
         """An adjoint kernel vs its plain version -> (ray-cotangent seam
         reports, max|diff| over every output); prints each table row against
         its bound and the run-to-run spread of two kernel calls, and with
         `spread_rtol` holds each output's spread to that share of its
         largest entry (the tolerance of csrc/chain_grad_dense.cu's global
-        atomics)."""
+        atomics). `kw` goes to the kernel (chain_grad's map width)."""
         name = kernel.__name__
-        ours = kernel(tables, o, d, g, cfg)
+        ours = kernel(tables, o, d, g, cfg, **kw)
         sync()
         t0 = time.perf_counter()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -299,7 +310,7 @@ def main() -> int:
         end.synchronize()
         plain_call_ms[label] = start.elapsed_time(end)
         print(f"  {label}: {plain.__name__} first call {time.perf_counter() - t0:.2f} s", flush=True)
-        rerun = kernel(tables, o, d, g, cfg)
+        rerun = kernel(tables, o, d, g, cfg, **kw)
         sync()
         reports = {}
         for cot, a, b in (("d_o", ours[1], ref[1]), ("d_d", ours[2], ref[2])):
@@ -335,7 +346,8 @@ def main() -> int:
 
     print("[9 grad] head box 1920x1080 spp=1, g = d mean(img^2) / d img", flush=True)
     g = (2.0 * chain_out / chain_out.numel()).contiguous()
-    cot_reports, grad_err = check_grad("head box", cg.chain_grad, cg.chain_grad_plain, tables, o, d, g, cfg)
+    cot_reports, grad_err = check_grad("head box", cg.chain_grad, cg.chain_grad_plain, tables, o, d, g, cfg,
+                                       width=W1080)
     print("[9 grad] baseline spheres (2 lights) 1920x1080 spp=1, g = d mean(img^2) / d img",
           flush=True)
     b_scene, b_cam = baseline_sphere_scene(W1080, H1080, spp=1, n_lights=2, device=dev)
@@ -344,7 +356,7 @@ def main() -> int:
     b_o = b_o.contiguous()
     b_img = ct.chain_trace(b_tables, b_o, b_d, cfg)
     b_reports, b_err = check_grad("spheres", cg.chain_grad, cg.chain_grad_plain, b_tables, b_o, b_d,
-                                  (2.0 * b_img / b_img.numel()).contiguous(), cfg)
+                                  (2.0 * b_img / b_img.numel()).contiguous(), cfg, width=W1080)
     grad_err = max(grad_err, b_err)
     del b_scene, b_cam, b_tables, b_o, b_d, b_img
 
@@ -708,15 +720,18 @@ def main() -> int:
     report("spp_trace kernel, 1080p spp=8", spp_ms, rays1 * 8)
     report("spp_trace_plain, 1080p spp=8", spp_plain_ms, rays1 * 8)
     grad_ms, grad_plain_ms = in_turns(
-        lambda: cg.chain_grad(tables, o, d, g, cfg),
+        lambda: cg.chain_grad(tables, o, d, g, cfg, width=W1080),
         lambda: cg.chain_grad_plain(tables, o, d, g, cfg), 10, 1,
     )
     report("chain_grad kernel, 1080p", grad_ms, rays1)
+    report("chain_grad kernel, identity map (not the main path's), 1080p",
+           time_ms(lambda: cg.chain_grad(tables, o, d, g, cfg), 10), rays1)
     report("chain_grad_plain, 1080p", grad_plain_ms, rays1)
     # The dense adjoint serves the head box's tables too (not culled: a linear
     # scan): it must agree with chain_grad there, and its time beside
     # chain_grad's says whether chain_grad.cu still earns its place.
-    hb_dense, hb_grad = cg.chain_grad_dense(tables, o, d, g, cfg), cg.chain_grad(tables, o, d, g, cfg)
+    hb_dense = cg.chain_grad_dense(tables, o, d, g, cfg)
+    hb_grad = cg.chain_grad(tables, o, d, g, cfg, width=W1080)
     sync()
     hb_bad = [f"{cot}: {r}" for cot, a, b in (("d_o", hb_dense[1], hb_grad[1]), ("d_d", hb_dense[2], hb_grad[2]))
               for r in [ray_cot_seam_budget(a.cpu().numpy(), b.cpu().numpy())] if not r.ok]
@@ -730,7 +745,7 @@ def main() -> int:
         raise AssertionError(f"chain_grad_dense disagrees with chain_grad on the head box: {hb_bad}")
     del hb_dense, hb_grad
     hb_dense_ms, hb_grad_ms = in_turns(lambda: cg.chain_grad_dense(tables, o, d, g, cfg),
-                                       lambda: cg.chain_grad(tables, o, d, g, cfg), 10, 10)
+                                       lambda: cg.chain_grad(tables, o, d, g, cfg, width=W1080), 10, 10)
     report("chain_grad_dense kernel, head box 1080p (in turns with chain_grad)", hb_dense_ms, rays1)
     report("chain_grad kernel, head box 1080p (in turns with chain_grad_dense)", hb_grad_ms, rays1)
 
@@ -792,6 +807,22 @@ def main() -> int:
         dense_ms[label] = time_ms(lambda: ct.chain_trace(tb, to, td, cfg), 10)
         report(f"culled chain_trace kernel, {label} triangles 512x512", dense_ms[label], rays512)
         report(f"trace_chain_plain (one call), {label} triangles 512x512", dense_plain_ms[label], rays512)
+    # The fill probe: the same camera at 4x the pixels, on phase 15's tables.
+    _, f_cam = dense_mesh_scene(2 * W512, 2 * W512, spp=1, device=dev, ni=128, nj=200)
+    f_o, f_d = f_cam.rays_for_pixels(*f_cam.pixel_grid())
+    f_o = f_o.contiguous()
+    f_ms = time_ms(lambda: ct.chain_trace(dense["50800"][0], f_o, f_d, cfg), 10)
+    report("culled chain_trace kernel, 50800 triangles 1024x1024 (phase 15's tables)", f_ms, 4 * rays512)
+    print(f"  fill probe: 1024^2 / 512^2 time {f_ms / dense_ms['50800']:.3f} for 4x the rays [{card}]",
+          flush=True)
+    del f_o, f_d
+    occ = {}
+    for label, tb in (("head box", tables), ("6016", dense["6016"][0]), ("50800", dense["50800"][0])):
+        smem = 4 * sum(a * b for a, b in cg.small_table_shapes(tb))
+        occ[label] = lib.rte_chain_grad_dense_occupancy(int(tb.culled), smem)
+    occ["chain_grad head box"] = lib.rte_chain_grad_occupancy(4 * cg.table_entries(tables, "chain_grad"))
+    print(f"  CTAs per SM of the adjoints (128 threads, their scenes' shared accumulators): "
+          f"chain_grad_dense {occ} [{card}]", flush=True)
     d_spp_ms = time_ms(lambda: st.spp_trace(spp_tables6, d_cam8, dpx, dpy, cfg, seed=1234), 5)
     report("culled spp_trace kernel, 6016 triangles 512x512 spp=8", d_spp_ms, rays512 * 8)
     report("spp_trace_plain (one call), 6016 triangles 512x512 spp=8", d_spp_plain_ms, rays512 * 8)
@@ -898,7 +929,7 @@ def main() -> int:
           f"{g_work8.max_pops} nodes in one sample's tree")
     # The dense kernels' bounds: the culled work of a traversal that knew each
     # scan's answer (roofline.py), on the timed rays.
-    dense_work = {label: chain_work(tb, to, td, cfg) for label, (tb, to, td, _) in dense.items()}
+    dense_work = {label: chain_work(tb, to, td, cfg, widths=(0, W512)) for label, (tb, to, td, _) in dense.items()}
     d_work8 = ChainWork(rays=0)
     d_pids = dpy.to(torch.int64) * W512 + dpx.to(torch.int64)
     for sample in range(d_cam8.spp):
@@ -917,6 +948,16 @@ def main() -> int:
         print(f"  dense work {label}: {w.bounces / w.rays:.3f} bounces/ray, {w.shadow_rays / w.rays:.3f} "
               f"shadow rays/ray, closest-hit {w.closest_ops / w.rays:.0f} + shadow "
               f"{w.shadow_ops / w.rays:.0f} fp32 ops/ray (culled traversal)")
+        # blocks of 128 triangle tests per ray: per lane, and 32 x each warp's union
+        per = lambda x: x / w.rays  # noqa: E731
+        print(f"  dense blocks {label} per ray: oracle per lane {per(w.lane_blocks):.3f} (closest-hit "
+              f"{per(w.closest_lane_blocks):.3f}), kernel traversal per lane {per(w.visit_blocks):.3f} "
+              f"(closest-hit {per(w.closest_visit_blocks):.3f}); a warp of 32 rays of a row that tests "
+              f"a block for each lane while any lane needs it (the per-lane scan) would issue: oracle "
+              f"{per(w.warp_blocks[0]):.3f}, traversal {per(w.warp_visit_blocks[0]):.3f}, so lanes use "
+              f"{w.visit_blocks / w.warp_visit_blocks[0]:.3f} of its tests; blocks staged per CTA of 128 "
+              f"rays {128 * per(w.staged_blocks[0]):.2f} (identity map) and "
+              f"{128 * per(w.staged_blocks[W512]):.2f} (32x4 tiles)")
     for name, (b, by) in bounds.items():
         print(f"  bound {name}: {b:.4f} ms ({by}) [H100 SXM peaks; {card}]")
 

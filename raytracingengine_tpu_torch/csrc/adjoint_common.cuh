@@ -112,15 +112,30 @@ __device__ __forceinline__ void add_column(float* acc, bool mine, int base, int 
   }
 }
 
-// The closest hit with the JAX bounce's sphere-normal guard; returns the
-// unflipped geometric normal in n. t >= kInf is a miss.
-__device__ __forceinline__ rte::Hit closest(const Tables& T, const Ray& r, V3& n) {
-  rte::Hit h = rte::closest_hit(T, r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z);
-  n = {h.nx, h.ny, h.nz};
-  if (h.t < kInf && h.gi < T.ns) {
-    const V3 g = r.o + r.d * h.t - tab3(T.sph, T.sph_cols, 0, h.gi);
-    n = g * rsqrt_where(dot(g, g), 1e-16f);
+// A bounce's closest hit as the checkpoint saves it: t (kInf on a miss), the
+// winner's global index and its tri table column.
+struct Winner {
+  float t;
+  int gi, tc;
+};
+
+// The unflipped geometric normal of a saved winner, as the closest-hit scan
+// gave it, with the JAX bounce's sphere-normal guard; 0 on a miss.
+__device__ __forceinline__ V3 winner_normal(const Tables& T, const Ray& r, const Winner& w) {
+  if (!(w.t < kInf)) return V3{0.0f, 0.0f, 0.0f};
+  if (w.gi < T.ns) {
+    const V3 g = r.o + r.d * w.t - tab3(T.sph, T.sph_cols, 0, w.gi);
+    return g * rsqrt_where(dot(g, g), 1e-16f);
   }
+  if (w.gi < T.ns + T.np) return tab3(T.pl, T.pl_cols, 0, w.gi - T.ns);
+  return tab3(T.tri, T.tri_cols, 9, w.tc);
+}
+
+// The closest hit by the linear scan, with the unflipped normal of
+// winner_normal in n (the glass adjoint's replays).
+__device__ __forceinline__ rte::Hit closest(const Tables& T, const Ray& r, V3& n) {
+  const rte::Hit h = rte::closest_hit(T, r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z);
+  n = winner_normal(T, r, Winner{h.t, h.gi, h.tc});
   return h;
 }
 
@@ -217,17 +232,23 @@ __device__ __forceinline__ void tri_pullback(const Tables& T, int i, const Ray& 
 // The chain adjoint, per ray (chain_grad.cu, chain_grad_dense.cu)
 // ---------------------------------------------------------------------------
 
-constexpr int kChainThreads = 128;  // block size of both chain adjoint kernels
+constexpr int kChainThreads = rte::kCtaThreads;  // block size of both chain adjoint kernels
+// Floats saved per bounce and ray: o, d, w, and the winner's t, gi, tc.
+constexpr int kStateRows = 10;
 
 // State-only bounce (the JAX package's `_make_state_bounce`): the closest hit
-// and the reflection update. Returns whether the ray continues.
-__device__ __forceinline__ bool state_bounce(const Tables& T, Ray& r, float bias,
-                                             float min_weight) {
-  V3 n;
-  const rte::Hit h = closest(T, r, n);
-  if (!(h.t < kInf)) return false;
+// by the scan `tris`, saved into w, and the reflection update. Returns
+// whether the ray continues. Every thread of the CTA calls it; `live` says
+// whether its ray bounces here.
+template <class Tris>
+__device__ __forceinline__ bool state_bounce(const Tables& T, Tris& tris, bool live, Ray& r,
+                                             float bias, float min_weight, Winner& w) {
+  const rte::Hit h = rte::closest_hit(T, tris, live, r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z);
+  w = Winner{h.t, h.gi, h.tc};
+  if (!(live && h.t < kInf)) return false;
   const float spec = tab(T.mat, T.mat_cols, 3, h.gi);
   if (!(spec > bias && r.w * spec >= min_weight)) return false;
+  const V3 n = winner_normal(T, r, w);
   const V3 nf = n * (dot(n, r.d) < 0.0f ? 1.0f : -1.0f);
   const V3 p = r.o + r.d * h.t;
   const V3 rf = r.d - nf * (2.0f * dot(r.d, nf));
@@ -238,24 +259,25 @@ __device__ __forceinline__ bool state_bounce(const Tables& T, Ray& r, float bias
   return true;
 }
 
-// Adjoint of one full bounce from the saved state r. On entry c is the
-// cotangent of the bounce's new state; on exit that of r. g is the rgb
+// Adjoint of one full bounce from the saved state r and its saved winner h
+// (no closest-hit scan: the checkpoint's is the forward's). On entry c is
+// the cotangent of the bounce's new state; on exit that of r. g is the rgb
 // cotangent (the same at every bounce: the radiance is a sum of bounces).
-// All 32 lanes of a warp call it together (the table cotangents are summed
-// across the warp); `act` is false for a lane whose ray has no bounce here.
+// Every thread of the CTA calls it together (the culled shadow scans hold
+// barriers, and the table cotangents are summed across each warp); `act` is
+// false for a lane whose ray has no bounce here.
 // The table cotangents go to `sink`: sink.light(lit, li, cols, v[6]) for
 // each light's position and emission, and sink.hit(T, hit, gi, tc, m[6],
 // p[12]) for the winner's material rows (albedo rgb, specular, shininess,
 // transparency) and its primitive rows (4 of a sphere or plane column, 12
 // of a triangle's, at tri table column tc).
-template <class Sink>
-__device__ __forceinline__ void bounce_adjoint(const Tables& T, Sink& sink, bool act,
-                                               const Ray& r, RayCot& c, float gr, float gg,
-                                               float gb, float bias, float min_weight) {
-  V3 n{0.0f, 0.0f, 0.0f};
-  rte::Hit h{kInf, 0.0f, 0.0f, 0.0f, 0};
-  if (act) h = closest(T, r, n);
+template <class Sink, class Tris>
+__device__ __forceinline__ void bounce_adjoint(const Tables& T, Sink& sink, Tris& tris, bool act,
+                                               const Ray& r, const Winner& h, RayCot& c,
+                                               float gr, float gg, float gb, float bias,
+                                               float min_weight) {
   const bool hit = act && h.t < kInf;
+  const V3 n = hit ? winner_normal(T, r, h) : V3{0.0f, 0.0f, 0.0f};
   if (act && !hit) sky_adjoint(r, c, gr, gg, gb);  // miss: rgb = w sky(d)
 
   const int gi = h.gi, mc = T.mat_cols;
@@ -305,8 +327,9 @@ __device__ __forceinline__ void bounce_adjoint(const Tables& T, Sink& sink, bool
     const float inv_d = d_ok ? 1.0f / dist : 0.0f;
     const V3 ld = v * inv_d;
     const float ndotl = fmaxf(0.0f, dot(nf, ld));
-    if (hit && dist > bias && ndotl > 0.0f)
-      lit = !rte::any_hit(T, so.x, so.y, so.z, ld.x, ld.y, ld.z, bias, dist - bias);
+    const bool ok = hit && dist > bias && ndotl > 0.0f;
+    if (tris.any(ok))
+      lit = !rte::any_hit(T, tris, ok, so.x, so.y, so.z, ld.x, ld.y, ld.z, bias, dist - bias) && ok;
     if (lit) {
       const float inv_d2 = inv_d * inv_d;
       const float contrib = inv_d2 * ndotl;
@@ -381,58 +404,71 @@ __device__ __forceinline__ void bounce_adjoint(const Tables& T, Sink& sink, bool
   sink.hit(T, hit, gi, h.tc, mcot, pc);
 }
 
-// One thread's ray of a chain adjoint kernel (128-thread blocks; every
-// thread of the block runs to the end, since the warp sums need all 32
-// lanes, and a thread past the last ray has no bounces):
+// Ray i of a chain adjoint kernel, -1 for a thread with none (128-thread
+// CTAs; every thread of the CTA runs to the end, since the warp sums need
+// all 32 lanes and the culled scans every thread, and a thread with no ray
+// has no bounces):
 //   1. a state-only forward saves the ray state (o, d, w) before each bounce
-//      into `states` [max_depth][7][R] in device memory, allocated by the
+//      and that bounce's closest hit (t, gi, tc) into `states`
+//      [max_depth][kStateRows][R] in device memory, allocated by the
 //      wrapper. The depth count `nd` is per thread. Device memory rather
-//      than local memory: it has no compile-time depth bound, each thread's
-//      accesses are coalesced with its neighbours', and at 1080p and depth
-//      10 the 580 MB are written once and read once;
+//      than local memory: it has no compile-time depth bound, neighbouring
+//      threads' accesses are coalesced, and at 1080p and depth 10 the 830 MB
+//      are written once and read once. This is the adjoint's only
+//      closest-hit scan;
 //   2. the VJP of the depth-exhaustion sky term seeds the state cotangent;
-//   3. for depth nd-1 down to 0 the full bounce (closest hit, one binary
-//      shadow scan per light, Blinn-Phong, reflection) is re-run from its
-//      saved state and its adjoint applied. The lanes of a warp step through
-//      this loop together, from the warp's deepest ray down; a lane whose
-//      ray has no bounce at a depth idles through it.
-template <class Sink>
+//   3. for depth nd-1 down to 0 the bounce's adjoint (its shading, one
+//      binary shadow scan per light, Blinn-Phong, reflection) is applied at
+//      its saved state and winner. The threads step through this loop
+//      together from the deepest ray of the warp (linear tables) or of the
+//      CTA (culled) down; a lane whose ray has no bounce at a depth idles
+//      through it.
+template <class Sink, class Tris>
 __device__ __forceinline__ void chain_adjoint_ray(
-    const Tables& T, Sink& sink, const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ g, float* __restrict__ go, float* __restrict__ gd, int n_rays,
-    float* __restrict__ states, int max_depth, float bias, float min_weight) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n = n_rays;
-  const bool valid = i < n;
+    const Tables& T, Sink& sink, Tris& tris, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ g, float* __restrict__ go,
+    float* __restrict__ gd, long long n, long long i, float* __restrict__ states, int max_depth,
+    float bias, float min_weight) {
+  const bool valid = i >= 0;
   Ray r{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 1.0f}, 1.0f};
   float gr = 0.0f, gg = 0.0f, gb = 0.0f;
-  int nd = 0;
-  bool live = valid;
   if (valid) {
     r = Ray{{o[3 * i], o[3 * i + 1], o[3 * i + 2]}, {d[3 * i], d[3 * i + 1], d[3 * i + 2]}, 1.0f};
     gr = g[3 * i]; gg = g[3 * i + 1]; gb = g[3 * i + 2];
-    // 1. checkpoint the state before each bounce
-    while (nd < max_depth && live) {
-      float* s = states + (long long)nd * 7 * n + i;
+  }
+  // 1. checkpoint the state and the winner of each bounce
+  int nd = 0;
+  bool live = valid;
+  for (int k = 0; k < max_depth; ++k) {
+    if (!tris.any(live)) break;
+    float* s = states + static_cast<long long>(k) * kStateRows * n + (valid ? i : 0);
+    if (live) {
       s[0] = r.o.x; s[n] = r.o.y; s[2 * n] = r.o.z;
       s[3 * n] = r.d.x; s[4 * n] = r.d.y; s[5 * n] = r.d.z; s[6 * n] = r.w;
-      live = state_bounce(T, r, bias, min_weight);
+    }
+    Winner w;
+    const bool cont = state_bounce(T, tris, live, r, bias, min_weight, w);
+    if (live) {
+      s[7 * n] = w.t; s[8 * n] = __int_as_float(w.gi); s[9 * n] = __int_as_float(w.tc);
       ++nd;
+      live = cont;
     }
   }
   // 2. the sky term of a chain that reached max_depth
   RayCot c{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, 0.0f};
   if (live) sky_adjoint(r, c, gr, gg, gb);
-  // 3. bounces in reverse, the warp's lanes in step
-  const int nd_warp = __reduce_max_sync(kFullWarp, nd);
-  for (int k = nd_warp - 1; k >= 0; --k) {
+  // 3. bounces in reverse, the threads in step
+  const int top = tris.top(nd);
+  for (int k = top - 1; k >= 0; --k) {
     const bool act = k < nd;
     Ray rk = r;
+    Winner wk{kInf, 0, 0};
     if (act) {
-      const float* s = states + (long long)k * 7 * n + i;
+      const float* s = states + static_cast<long long>(k) * kStateRows * n + i;
       rk = Ray{{s[0], s[n], s[2 * n]}, {s[3 * n], s[4 * n], s[5 * n]}, s[6 * n]};
+      wk = Winner{s[7 * n], __float_as_int(s[8 * n]), __float_as_int(s[9 * n])};
     }
-    bounce_adjoint(T, sink, act, rk, c, gr, gg, gb, bias, min_weight);
+    bounce_adjoint(T, sink, tris, act, rk, wk, c, gr, gg, gb, bias, min_weight);
   }
   if (valid) {
     go[3 * i] = c.o.x; go[3 * i + 1] = c.o.y; go[3 * i + 2] = c.o.z;
@@ -448,11 +484,11 @@ __device__ __forceinline__ void write_partials(const float* acc, int total,
     partials[(long long)j * gridDim.x + blockIdx.x] = acc[j];
 }
 
-// Allow `smem` bytes of dynamic shared memory to `kernel` where that is more
-// than the default 48 KB.
+// Allow `smem` bytes of dynamic shared memory to `kernel` where that with
+// the culled scan's static staging (13.4 KB) may pass the default 48 KB.
 template <class K>
 inline cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem <= 32 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }

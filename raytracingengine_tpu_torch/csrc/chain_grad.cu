@@ -14,10 +14,13 @@
 // guards below are its guards, and the transparency clip keeps JAX's
 // subgradient of 0.5 at tau = 0 and tau = 1.
 //
-// Per ray, one thread (128-thread blocks): a state-only forward saving each
-// bounce's state in device memory, the sky term's VJP, then the bounces'
-// adjoints in reverse with the warp's lanes in step (adjoint_common.cuh::
-// chain_adjoint_ray, which chain_grad_dense.cu shares).
+// Per ray, one thread (128-thread blocks; given the ray block's image width,
+// a CTA takes a 32x4 pixel tile, `ray_of_tile_thread`): a state-only
+// forward saving each bounce's state and closest hit in device memory, the
+// sky term's VJP, then the bounces' adjoints in reverse
+// at their saved winners, with the warp's lanes in step (adjoint_common.cuh::
+// chain_adjoint_ray, which chain_grad_dense.cu shares). The tables here are
+// never culled, so the scans are the linear ones (LinearTris).
 // Table cotangents: every table entry has one float of a block-wide
 // accumulator in shared memory (at 512 triangles 19 * 512 floats, 38.9 KB,
 // plus 7 floats per light). Every ray adds to the same light entries, and
@@ -38,9 +41,10 @@
 // (roofline.py's count in chip_smoke.py, on an NVIDIA H100 80GB HBM3 at
 // 700 W; the shading and the adjoint arithmetic are left out, so it is a
 // lower bound): 0.28 ms at 67 TFLOP/s, against 0.04 ms for the 60 bytes per
-// ray at 3.35 TB/s. The fp32 rate is the bound. This design adds to it a
-// second closest-hit scan per bounce (checkpoint, then re-run) and 28 bytes
-// of saved state per bounce each way.
+// ray at 3.35 TB/s. The fp32 rate is the bound. This design runs the
+// function's scans once each (the checkpoint's closest hits, the reverse
+// pass's shadow scans) and adds 40 bytes of saved state and winner per
+// bounce each way.
 //
 // What the design does about it: one thread per ray with per-ray exits (the
 // depth loop, the shadow scan's first blocker), the forward kernel's
@@ -51,6 +55,35 @@
 #include "adjoint_common.cuh"
 
 namespace {
+
+// Thread-to-ray map (kernels/chain_trace.py::thread_rays mirrors it). With
+// the image width of the ray block's rows, warp w of a CTA takes row w of a
+// 32x4 pixel tile, so the lanes that step through the reverse loop together
+// are neighbours in two dimensions, with similar chain depths (faster than
+// the identity on the head box at 1080p on the H100, PERF.md); width 0 is
+// the identity of the other chain kernels.
+constexpr int kTileW = 32, kTileH = kChainThreads / kTileW;
+
+// CTAs of a launch over n rays: one per 128 rays (width 0), else one per
+// pixel tile of the rows of `width` rays that hold them.
+inline long long map_ctas(long long n, int width) {
+  if (width <= 0) return rte::ray_ctas(n);
+  const long long rows = (n + width - 1) / width;
+  return static_cast<long long>((width + kTileW - 1) / kTileW) * ((rows + kTileH - 1) / kTileH);
+}
+
+// This thread's ray, or -1: width 0 is rte::ray_of_thread; else the tiles
+// lie in row-major order, thread t of a CTA takes the pixel (t % 32, t / 32)
+// of its tile, and the ray is row * width + column. A pixel past the width
+// or past the last ray has none.
+__device__ __forceinline__ long long ray_of_tile_thread(long long n, int width) {
+  if (width <= 0) return rte::ray_of_thread(n);
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int x = (blockIdx.x % tiles_x) * kTileW + threadIdx.x % kTileW;
+  const long long y = static_cast<long long>(blockIdx.x / tiles_x) * kTileH + threadIdx.x / kTileW;
+  const long long i = y * width + x;
+  return (x < width && i < n) ? i : -1;
+}
 
 // Every table's cotangents in the block's shared accumulator.
 struct SmemSink {
@@ -80,14 +113,16 @@ struct SmemSink {
 
 __global__ void __launch_bounds__(kChainThreads) chain_grad_kernel(
     Tables T, Offsets off, const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ g, float* __restrict__ go, float* __restrict__ gd, int n_rays,
-    float* __restrict__ states, float* __restrict__ partials, int max_depth, float bias,
-    float min_weight) {
+    const float* __restrict__ g, float* __restrict__ go, float* __restrict__ gd,
+    long long n_rays, int width, float* __restrict__ states, float* __restrict__ partials,
+    int max_depth, float bias, float min_weight) {
   extern __shared__ float acc[];
   for (int j = threadIdx.x; j < off.total; j += blockDim.x) acc[j] = 0.0f;
   __syncthreads();
   SmemSink sink{acc, off};
-  chain_adjoint_ray(T, sink, o, d, g, go, gd, n_rays, states, max_depth, bias, min_weight);
+  rte::LinearTris tris;
+  chain_adjoint_ray(T, sink, tris, o, d, g, go, gd, n_rays, ray_of_tile_thread(n_rays, width),
+                    states, max_depth, bias, min_weight);
   write_partials(acc, off.total, partials);
 }
 
@@ -97,8 +132,8 @@ extern "C" int rte_chain_grad(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* o, const float* d,
-    const float* g, float* go, float* gd, int n_rays, float* states, float* partials,
-    int total, int max_depth, float bias, float min_weight, void* stream) {
+    const float* g, float* go, float* gd, int n_rays, int width, float* states, float* partials,
+    int total, int n_ctas, int max_depth, float bias, float min_weight, void* stream) {
   if (n_rays <= 0) return 0;
   const Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt,
                                     mat, mat_cols, light, light_cols, nl);
@@ -107,10 +142,19 @@ extern "C" int rte_chain_grad(
   const size_t smem = sizeof(float) * static_cast<size_t>(total);
   const cudaError_t e = allow_smem(chain_grad_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (n_rays + kChainThreads - 1) / kChainThreads;
-  chain_grad_kernel<<<blocks, kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      T, off, o, d, g, go, gd, n_rays, states, partials, max_depth, bias, min_weight);
+  // `partials` holds one column per CTA: n_ctas, the wrapper's count of the map's CTAs
+  if (map_ctas(n_rays, width) != n_ctas) return static_cast<int>(cudaErrorInvalidValue);
+  chain_grad_kernel<<<n_ctas, kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      T, off, o, d, g, go, gd, n_rays, width, states, partials, max_depth, bias, min_weight);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rte_chain_grad_occupancy(int smem) {
+  int n = 0;
+  if (allow_smem(chain_grad_kernel, smem) != cudaSuccess) return -1;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, chain_grad_kernel, kChainThreads, smem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 extern "C" int rte_chain_grad_reduce(const float* partials, int total, int n_blocks, float* out,

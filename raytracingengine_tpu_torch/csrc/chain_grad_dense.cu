@@ -11,13 +11,18 @@
 // covers both: the tables stay in device memory at every size.
 //
 // The per-ray work is chain_grad.cu's (adjoint_common.cuh::
-// chain_adjoint_ray): a state-only forward saving each bounce's state in
-// device memory, the sky term's VJP, and the bounces' hand-derived adjoints in
-// reverse with the warp's lanes in step, the hit pulled back onto its one
-// winner. Every closest-hit and any-hit decision is the forward kernel's
-// culled scan (trace_common.cuh) over the same packed tables the forward
-// used (kernels/chain_grad.py keeps them for the backward), so the adjoint's
-// winners are the forward's.
+// chain_adjoint_ray): a state-only forward saving each bounce's state and
+// closest hit (t, winner, tri column) in device memory, the sky term's VJP,
+// and the bounces' hand-derived adjoints in reverse at their saved winners,
+// the hit pulled back onto its one winner. The checkpoint's closest-hit scan
+// is the adjoint's only one: the reverse pass rebuilds (t, n) from the saved
+// winner and scans only for shadows. Every scan is the forward kernel's
+// (trace_common.cuh) over the same packed tables the forward used
+// (kernels/chain_grad.py keeps them for the backward), so the adjoint's
+// winners are the forward's. On culled tables the scans are the
+// CTA-cooperative CtaCulledTris; the checkpoint loop and the reverse loop
+// then run from the CTA's deepest ray down, every thread through every
+// barrier.
 //
 // Table cotangents, two places:
 //   * spheres, planes, lights and the material columns of spheres and planes
@@ -43,9 +48,9 @@
 // What bounds it on the H100: the fp32 work of the intersection tests (the
 // forward's culled scans: one closest hit per bounce, the shadow scans) and
 // divergence; per ray 36 bytes in, 24 out, and the tables read and their
-// cotangents written once. This design adds a second closest-hit scan per
-// bounce (checkpoint, then re-run), 28 bytes of saved state per bounce each
-// way, and one global atomic per warp and winner entry.
+// cotangents written once. This design runs each of those scans once, and
+// adds 40 bytes of saved state and winner per bounce each way and one
+// global atomic per warp and winner entry.
 #include "adjoint_common.cuh"
 
 namespace {
@@ -82,44 +87,81 @@ struct DenseSink {
   }
 };
 
-__global__ void __launch_bounds__(kChainThreads) chain_grad_dense_kernel(
+template <class Tris>
+__global__ void __launch_bounds__(kChainThreads, Tris::kMinCtasAdjoint) chain_grad_dense_kernel(
     Tables T, Offsets off, const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ g, float* __restrict__ go, float* __restrict__ gd, int n_rays,
-    float* __restrict__ states, float* __restrict__ partials, float* gtri, float* gmat,
-    int max_depth, float bias, float min_weight) {
+    const float* __restrict__ g, float* __restrict__ go, float* __restrict__ gd,
+    long long n_rays, float* __restrict__ states, float* __restrict__ partials,
+    float* gtri, float* gmat, int max_depth, float bias, float min_weight) {
   extern __shared__ float acc[];
+  Tris tris = Tris::make();
   for (int j = threadIdx.x; j < off.total; j += blockDim.x) acc[j] = 0.0f;
   __syncthreads();
   DenseSink sink{acc, off, gtri, gmat};
-  chain_adjoint_ray(T, sink, o, d, g, go, gd, n_rays, states, max_depth, bias, min_weight);
+  chain_adjoint_ray(T, sink, tris, o, d, g, go, gd, n_rays, rte::ray_of_thread(n_rays), states,
+                    max_depth, bias, min_weight);
   write_partials(acc, off.total, partials);
+}
+
+template <class Tris>
+cudaError_t launch_dense(const Tables& T, const Offsets& off, size_t smem, cudaStream_t stream,
+                         const float* o, const float* d, const float* g, float* go, float* gd,
+                         long long n_rays, float* states, float* partials, float* gtri,
+                         float* gmat, int max_depth, float bias, float min_weight) {
+  const cudaError_t e = allow_smem(chain_grad_dense_kernel<Tris>, smem);
+  if (e != cudaSuccess) return e;
+  chain_grad_dense_kernel<Tris><<<rte::ray_ctas(n_rays), kChainThreads, smem, stream>>>(
+      T, off, o, d, g, go, gd, n_rays, states, partials, gtri, gmat, max_depth, bias,
+      min_weight);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // `total` is the shared accumulator's size: 4 sph_cols + 4 pl_cols +
 // 7 (ns + np) + 7 light_cols floats (kernels/chain_grad.py::
-// small_table_shapes, which raises where they exceed 227 KB).
+// small_table_shapes, which raises where they and the culled scan's staging
+// exceed 227 KB). `partials` holds one column per 128-ray CTA.
 extern "C" int rte_chain_grad_dense(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
     const float* o, const float* d, const float* g, float* go, float* gd, int n_rays,
-    float* states, float* partials, int total, float* gtri, float* gmat, int max_depth,
-    float bias, float min_weight, void* stream) {
+    float* states, float* partials, int total, float* gtri, float* gmat,
+    int max_depth, float bias, float min_weight, void* stream) {
   if (n_rays <= 0) return 0;
   const Tables T = rte::with_culling(
       rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
                        light, light_cols, nl),
       taabb, n_blocks);
+  if (taabb && !rte::stageable(T)) return static_cast<int>(cudaErrorMisalignedAddress);
   const Offsets off = make_offsets(sph_cols, pl_cols, 0, ns + np, light_cols);
   if (off.total != total) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * static_cast<size_t>(total);
-  const cudaError_t e = allow_smem(chain_grad_dense_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (n_rays + kChainThreads - 1) / kChainThreads;
-  chain_grad_dense_kernel<<<blocks, kChainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      T, off, o, d, g, go, gd, n_rays, states, partials, gtri, gmat, max_depth, bias,
-      min_weight);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = taabb
+      ? launch_dense<rte::CtaCulledTris>(T, off, smem, s, o, d, g, go, gd, n_rays, states,
+                                         partials, gtri, gmat, max_depth, bias, min_weight)
+      : launch_dense<rte::LinearTris>(T, off, smem, s, o, d, g, go, gd, n_rays, states,
+                                      partials, gtri, gmat, max_depth, bias, min_weight);
+  return static_cast<int>(e);
+}
+
+// CTAs per SM that the occupancy calculator gives each instantiation with
+// `smem` bytes of accumulator.
+extern "C" int rte_chain_grad_dense_occupancy(int culled, int smem) {
+  int n = 0;
+  cudaError_t e;
+  if (culled) {
+    e = allow_smem(chain_grad_dense_kernel<rte::CtaCulledTris>, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, chain_grad_dense_kernel<rte::CtaCulledTris>, kChainThreads, smem);
+  } else {
+    e = allow_smem(chain_grad_dense_kernel<rte::LinearTris>, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, chain_grad_dense_kernel<rte::LinearTris>, kChainThreads, smem);
+  }
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }

@@ -10,34 +10,42 @@
 //
 // What bounds it on the H100: fp32 ALU work and warp divergence. A ray
 // reads 24 bytes and writes 12, while it runs up to max_depth closest-hit
-// scans plus one shadow scan per light and bounce; the scene tables are
-// read by every thread of a warp at the same address where the warp's rays
-// visit the same blocks (broadcast loads through the read-only cache).
-// Neighbouring rays follow different paths (miss, short chain, long
-// reflection chain; shadowed or not; other blocks), so the cost of a warp is
-// that of its slowest ray.
+// scans plus one shadow scan per light and bounce. Neighbouring rays follow
+// different paths (miss, short chain, long reflection chain; shadowed or
+// not; other blocks), so the cost of a warp is that of its slowest ray. On
+// culled tables a thread that read each triangle of the blocks it meets
+// from device memory (nine loads from nine rows a column apart) waited on
+// L2 for most of its time, with few warps in flight: 2,048 CTAs at 512^2.
 //
 // What the design does about it: one thread per ray, so per-ray early exits
 // (miss, pruned chain, first shadow blocker) end work that the TPU kernel
-// could only skip when a whole tile agreed. Consecutive rays are
-// neighbouring pixels, which keeps a warp's paths similar. Up to 128
-// triangles the scan is linear in authoring order; above, on culled tables
-// (kernels/chain_trace.py::pack_forward_tables_perm), each ray tests the
-// group and block boxes against its segment and scans only the blocks its
-// segment meets, front to back so that the closest hit's bound shrinks
-// early. The culling is per ray, the simple first version: warp-cooperative
-// traversal, blocks staged in shared memory and a deeper BVH are later work.
+// could only skip when a whole tile agreed; thread t of CTA c takes ray
+// 128 c + t, so a warp's rays are neighbouring pixels of a row. Up to 128
+// triangles the scan is linear in authoring order
+// (trace_common.cuh::LinearTris); above, on culled tables
+// (kernels/chain_trace.py::pack_forward_tables_perm), it is
+// CtaCulledTris: the CTA votes on the group and block boxes its rays'
+// segments meet, copies each voted block into shared memory once with
+// cp.async while the previous one is tested, and each warp tests a block
+// only for the rays of its lanes that still meet it, one ray at a time
+// with its 32 lanes on 4 triangles each, so no lane idles while another
+// runs 128 tests. The depth and light loops are then CTA-uniform, so every
+// thread reaches every barrier.
 #include "trace_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128) chain_trace_kernel(
+template <class Tris>
+__global__ void __launch_bounds__(rte::kCtaThreads, Tris::kMinCtas) chain_trace_kernel(
     rte::Tables T, const float* __restrict__ o, const float* __restrict__ d,
-    float* __restrict__ out, int n_rays, int max_depth, float bias, float min_weight) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float3 c = rte::trace_ray(T, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                                  d[3 * i + 1], d[3 * i + 2], max_depth, bias, min_weight);
+    float* __restrict__ out, long long n_rays, int max_depth, float bias, float min_weight) {
+  Tris tris = Tris::make();
+  const long long i = rte::ray_of_thread(n_rays);
+  const bool valid = i >= 0;
+  const long long k = valid ? i : 0;
+  const float3 c = rte::trace_ray(T, tris, valid, o[3 * k], o[3 * k + 1], o[3 * k + 2], d[3 * k],
+                                  d[3 * k + 1], d[3 * k + 2], max_depth, bias, min_weight);
+  if (!valid) return;
   out[3 * i] = c.x;
   out[3 * i + 1] = c.y;
   out[3 * i + 2] = c.z;
@@ -45,6 +53,7 @@ __global__ void __launch_bounds__(128) chain_trace_kernel(
 
 }  // namespace
 
+// Culled tables take the CTA-cooperative scan.
 extern "C" int rte_chain_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
@@ -56,11 +65,28 @@ extern "C" int rte_chain_trace(
       rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
                        light, light_cols, nl),
       taabb, n_blocks);
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  chain_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T, o, d, out, n_rays, max_depth, bias, min_weight);
+  if (taabb && !rte::stageable(T)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const unsigned blocks = rte::ray_ctas(n_rays);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (taabb) {
+    chain_trace_kernel<rte::CtaCulledTris><<<blocks, rte::kCtaThreads, 0, s>>>(
+        T, o, d, out, n_rays, max_depth, bias, min_weight);
+  } else {
+    chain_trace_kernel<rte::LinearTris><<<blocks, rte::kCtaThreads, 0, s>>>(
+        T, o, d, out, n_rays, max_depth, bias, min_weight);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs per SM that the occupancy calculator gives each instantiation.
+extern "C" int rte_chain_trace_occupancy(int culled) {
+  int n = 0;
+  const cudaError_t e = culled
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, chain_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, chain_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 extern "C" const char* rte_error_string(int err) {

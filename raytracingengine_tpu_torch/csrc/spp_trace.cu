@@ -17,27 +17,32 @@
 // What bounds it on the H100: as chain_trace.cu, fp32 ALU work and warp
 // divergence; a pixel reads 8 bytes and writes 12 for spp whole traces.
 // The sample loop inside the thread keeps the per-sample rays, their
-// jitter and the running sum out of device memory entirely.
+// jitter and the running sum out of device memory entirely. Culled tables
+// take the CTA-cooperative scan of chain_trace.cu; the sample loop is
+// CTA-uniform (every thread runs spp samples).
 #include "trace_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128) spp_trace_kernel(
+template <class Tris>
+__global__ void __launch_bounds__(rte::kCtaThreads, Tris::kMinCtas) spp_trace_kernel(
     rte::Tables T, const float* __restrict__ cam, const int* __restrict__ px,
-    const int* __restrict__ py, float* __restrict__ out, int n_pixels, int width,
+    const int* __restrict__ py, float* __restrict__ out, long long n_pixels, int width,
     int height, int spp, uint32_t seed, int max_depth, float bias, float min_weight) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pixels) return;
-  const int x = px[i], y = py[i];
+  Tris tris = Tris::make();
+  const long long i = rte::ray_of_thread(n_pixels);
+  const bool valid = i >= 0;
+  const int x = valid ? px[i] : 0, y = valid ? py[i] : 0;
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
   for (int s = 0; s < spp; ++s) {
     const float3 d = rte::camera_dir(cam, x, y, width, height, seed, s);
-    const float3 c = rte::trace_ray(T, cam[0], cam[1], cam[2], d.x, d.y, d.z, max_depth, bias,
-                                    min_weight);
+    const float3 c = rte::trace_ray(T, tris, valid, cam[0], cam[1], cam[2], d.x, d.y, d.z,
+                                    max_depth, bias, min_weight);
     ar += c.x;
     ag += c.y;
     ab += c.z;
   }
+  if (!valid) return;
   const float inv_spp = 1.0f / static_cast<float>(spp);
   out[3 * i] = ar * inv_spp;
   out[3 * i + 1] = ag * inv_spp;
@@ -58,9 +63,27 @@ extern "C" int rte_spp_trace(
       rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
                        light, light_cols, nl),
       taabb, n_blocks);
-  const int threads = 128;
-  const int blocks = (n_pixels + threads - 1) / threads;
-  spp_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T, cam, px, py, out, n_pixels, width, height, spp, seed, max_depth, bias, min_weight);
+  if (taabb && !rte::stageable(T)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const unsigned blocks = rte::ray_ctas(n_pixels);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (taabb) {
+    spp_trace_kernel<rte::CtaCulledTris><<<blocks, rte::kCtaThreads, 0, s>>>(
+        T, cam, px, py, out, n_pixels, width, height, spp, seed, max_depth, bias,
+        min_weight);
+  } else {
+    spp_trace_kernel<rte::LinearTris><<<blocks, rte::kCtaThreads, 0, s>>>(
+        T, cam, px, py, out, n_pixels, width, height, spp, seed, max_depth, bias,
+        min_weight);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rte_spp_trace_occupancy(int culled) {
+  int n = 0;
+  const cudaError_t e = culled
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, spp_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, spp_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }

@@ -118,8 +118,10 @@ def load_library() -> ctypes.CDLL:
         + _TRACE_ARGTYPES
     )
     lib.rte_spp_trace.restype = _I
+    # o, d, g, d_o, d_d, n_rays, width (the thread-to-ray map's), states,
+    # partials, total, n_ctas
     lib.rte_chain_grad.argtypes = (
-        _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _I] + _TRACE_ARGTYPES
+        _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I] + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad.restype = _I
     lib.rte_chain_grad_dense.argtypes = (
@@ -127,6 +129,12 @@ def load_library() -> ctypes.CDLL:
         + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad_dense.restype = _I
+    # CTAs per SM of each chain kernel (culled or not; dynamic shared bytes)
+    for name, args in (("rte_chain_trace_occupancy", [_I]), ("rte_spp_trace_occupancy", [_I]),
+                       ("rte_chain_grad_occupancy", [_I]),
+                       ("rte_chain_grad_dense_occupancy", [_I, _I])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = _I
     lib.rte_wavefront_trace.argtypes = _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
     lib.rte_wavefront_trace.restype = _I
     lib.rte_wavefront_spp_trace.argtypes = (

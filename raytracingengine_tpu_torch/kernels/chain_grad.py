@@ -14,7 +14,9 @@ ray's origin and direction. Per ray:
   3. from the last bounce back to the first, the full bounce (closest hit,
      binary shadows, Blinn-Phong, reflection) is re-run from its saved
      state and its VJP taken: the state cotangent moves one bounce back and
-     the table cotangents accumulate.
+     the table cotangents accumulate. (The CUDA kernels save each bounce's
+     winner in step 1 and rebuild the hit from it, so their only
+     closest-hit scan is the checkpoint's.)
 
 Shadow occlusion is a boolean decision, so it carries no cotangent: the
 VJP treats it as a constant, which is the exact adjoint of the bounce.
@@ -70,6 +72,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     _HostTables,
     chain_trace,
     check_tables,
+    map_ctas,
 )
 
 #: Primitive ceiling of `chain_grad` (the JAX package's _MAX_PRIMS_UNROLL):
@@ -78,6 +81,13 @@ MAX_PRIMS = 512
 #: The kernel's block size (csrc/chain_grad.cu) and its shared memory cap.
 THREADS = 128
 MAX_SMEM_BYTES = 227 * 1024
+#: Shared memory of the culled scan's staging (csrc/trace_common.cuh::Stage:
+#: two blocks of 13 rows of 128 floats and two sets of four warp votes),
+#: beside the dense adjoint's accumulator.
+STAGE_BYTES = 2 * 13 * 128 * 4 + 2 * 4 * 8
+#: Floats the adjoint kernels save per bounce and ray: o, d, w and the
+#: closest hit's t, winner and tri column (csrc/adjoint_common.cuh).
+STATE_ROWS = 10
 
 
 def _rsqrt_where(x: torch.Tensor, floor: float) -> torch.Tensor:
@@ -520,15 +530,24 @@ def split_table_cots(flat: torch.Tensor, shapes) -> tuple[torch.Tensor, ...]:
     return tuple(cots)
 
 
+def check_width(width: int) -> None:
+    if not isinstance(width, int) or width < 0:
+        raise ValueError(f"width: expected an int >= 0 (0 for the identity map), got {width!r}")
+
+
 def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
-               gbar: torch.Tensor, cfg):
+               gbar: torch.Tensor, cfg, width: int = 0):
     """Adjoint of `chain_trace` -> (table cotangents in the tables' shapes,
     d_o [R,3], d_d [R,3]).
 
     CPU tensors run `chain_grad_plain`; CUDA tensors launch the CUDA adjoint
     (csrc/chain_grad.cu) and its fixed-order reduction of the per-block
-    table cotangents, on the current stream."""
+    table cotangents, on the current stream. `width` is the image width of
+    the ray block's rows, for the kernel's 32x4 pixel-tile CTAs
+    (kernels/chain_trace.py::thread_rays), or 0 for the identity map; it
+    changes no result."""
     _check_rays(o, d)
+    check_width(width)
     check_gbar(gbar, o)
     _check_scope(tables)
     check_tables(tables, o.device)
@@ -545,17 +564,17 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     lib = _build.load_library()
     flat = torch.empty(total, dtype=torch.float32, device=o.device)
     go, gd = torch.empty_like(o), torch.empty_like(d)
-    n_blocks = max(1, math.ceil(r / THREADS))
-    # Saved ray state, [depth][7][ray]: each thread writes and reads its own
-    # column, neighbouring threads on neighbouring addresses.
-    states = torch.empty((max(cfg.max_depth, 1), 7, r), dtype=torch.float32, device=o.device)
+    n_blocks = map_ctas(r, width)
+    # Saved ray state and winner, [depth][STATE_ROWS][ray]: each thread
+    # writes and reads its own column.
+    states = torch.empty((max(cfg.max_depth, 1), STATE_ROWS, r), dtype=torch.float32, device=o.device)
     partials = torch.empty((total, n_blocks), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_chain_grad(
             *_build.table_args(tables), o.data_ptr(), d.data_ptr(), gbar.data_ptr(),
-            go.data_ptr(), gd.data_ptr(), r, states.data_ptr(), partials.data_ptr(),
-            total, cfg.max_depth, cfg.bias, cfg.min_weight, stream,
+            go.data_ptr(), gd.data_ptr(), r, width, states.data_ptr(), partials.data_ptr(),
+            total, n_blocks, cfg.max_depth, cfg.bias, cfg.min_weight, stream,
         )
         _build.check(lib, err, "chain_grad")
         err = lib.rte_chain_grad_reduce(partials.data_ptr(), total, n_blocks,
@@ -572,15 +591,17 @@ chain_grad.launches = 0
 def small_table_shapes(tables: SceneTables) -> tuple[tuple[int, int], ...]:
     """Shapes of the dense adjoint's shared-memory accumulator: sph, pl,
     the material columns of spheres and planes, light. Raise
-    NotImplementedError where they do not fit one block's shared memory."""
+    NotImplementedError where they do not fit one block's shared memory
+    (beside the culled scan's STAGE_BYTES of staging, for culled tables)."""
     nsp = tables.n_spheres + tables.n_planes
     shapes = ((4, tables.sph.shape[1]), (4, tables.pl.shape[1]), (7, nsp), (7, tables.light.shape[1]))
     total = sum(r * c for r, c in shapes)
-    if 4 * total > MAX_SMEM_BYTES:
+    room = MAX_SMEM_BYTES - (STAGE_BYTES if tables.culled else 0)
+    if 4 * total > room:
         raise NotImplementedError(
             f"not ported yet: the dense adjoint keeps the sphere, plane and light cotangents "
             f"in one block's shared memory, and {4 * total} bytes exceed its "
-            f"{MAX_SMEM_BYTES} (ROADMAP queue 2 item 10)"
+            f"{room} (ROADMAP queue 2 item 10)"
         )
     return shapes
 
@@ -614,7 +635,7 @@ def chain_grad_dense(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     gtri, gmat = torch.zeros_like(tables.tri), torch.zeros_like(tables.mat)
     go, gd = torch.empty_like(o), torch.empty_like(d)
     n_blocks = max(1, math.ceil(r / THREADS))
-    states = torch.empty((max(cfg.max_depth, 1), 7, r), dtype=torch.float32, device=o.device)
+    states = torch.empty((max(cfg.max_depth, 1), STATE_ROWS, r), dtype=torch.float32, device=o.device)
     partials = torch.empty((total, n_blocks), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -646,8 +667,8 @@ class ChainTraceFused(torch.autograd.Function):
     grad."""
 
     @staticmethod
-    def forward(ctx, counts, culling, cfg, o, d, sph, pl, tri, mat, light):
-        ctx.counts, ctx.culling, ctx.cfg = counts, culling, cfg
+    def forward(ctx, counts, culling, cfg, width, o, d, sph, pl, tri, mat, light):
+        ctx.counts, ctx.culling, ctx.cfg, ctx.width = counts, culling, cfg, width
         ctx.save_for_backward(o, d, sph, pl, tri, mat, light)
         tables = SceneTables(sph.detach(), pl.detach(), tri.detach(), mat.detach(),
                              light.detach(), *counts, *culling)
@@ -657,17 +678,21 @@ class ChainTraceFused(torch.autograd.Function):
     def backward(ctx, g):
         o, d, *tabs = ctx.saved_tensors
         tables = SceneTables(*(t.detach() for t in tabs), *ctx.counts, *ctx.culling)
-        adjoint = chain_grad if adjoint_route(tables) == "chain_grad" else chain_grad_dense
-        table_cots, go, gd = adjoint(
-            tables, o.detach().contiguous(), d.detach().contiguous(), g.contiguous(), ctx.cfg
-        )
-        return (None, None, None, go, gd, *table_cots)
+        rays = (o.detach().contiguous(), d.detach().contiguous(), g.contiguous())
+        if adjoint_route(tables) == "chain_grad":
+            table_cots, go, gd = chain_grad(tables, *rays, ctx.cfg, ctx.width)
+        else:
+            table_cots, go, gd = chain_grad_dense(tables, *rays, ctx.cfg)
+        return (None, None, None, None, go, gd, *table_cots)
 
 
-def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
+def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg,
+                      width: int = 0) -> torch.Tensor:
     """[R,3] origins/directions -> [R,3] HDR radiance, differentiable in the
     rays and the table tensors (so, through the packing and flatten_scene,
-    in every float scene leaf and the camera).
+    in every float scene leaf and the camera). `width` is the image width of
+    the rays' rows, or 0: the head-box adjoint `chain_grad` takes it
+    (its pixel-tile CTAs); the other kernels ignore it.
 
     Without gradients it is `chain_trace`. With them the backward is the
     adjoint `adjoint_route` picks; a dense one whose sphere, plane and light
@@ -680,4 +705,5 @@ def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg
     if adjoint_route(tables) == "chain_grad_dense":
         small_table_shapes(tables)
     counts = (tables.n_spheres, tables.n_planes, tables.n_triangles, tables.n_lights)
-    return ChainTraceFused.apply(counts, (tables.taabb, tables.perm), cfg, o, d, *tables.tensors())
+    return ChainTraceFused.apply(counts, (tables.taabb, tables.perm), cfg, width, o, d,
+                                 *tables.tensors())

@@ -26,9 +26,13 @@ chain (opaque: reflectiveness = specular) to `max_depth`, pruned by
     strict < (Scene.h:218-257), whatever the visit order.
   * `chain_trace` is the wrapper: for CPU tensors it calls the plain
     version; for CUDA tensors it launches csrc/chain_trace.cu and counts
-    the launch in `chain_trace.launches`. On culled tables the kernel skips
-    every group and block whose box the ray's segment misses
-    (csrc/trace_common.cuh), which changes no result.
+    the launch in `chain_trace.launches`. On culled tables the kernel's
+    CTAs traverse the boxes together and stage the blocks their rays meet
+    in shared memory; each ray skips every group and block whose box its
+    segment misses (csrc/trace_common.cuh), which changes no result.
+  * `thread_rays` mirrors the chain kernels' thread-to-ray map: the
+    identity (width 0), or, for the head-box adjoint given the ray block's
+    image width, 32x4 pixel tiles, one row of 32 per warp.
 
 It replaces raytracingengine_tpu/kernels/chain_trace.py::chain_trace_pallas
 (its per-ray body `_trace_tile`, `_closest_hit` and `_any_hit`, culled above
@@ -62,6 +66,10 @@ MAX_INDEX = 2**24
 _FAR = 2.0e38
 #: Row 12 of a padded triangle column: loses every tie.
 _PAD_INDEX = float(2**30)
+#: Threads of a chain kernel's CTA, and a CTA's pixel tile (width x height)
+#: under the tile map (`thread_rays`; csrc/chain_grad.cu kTileW, kTileH).
+CTA_THREADS = 128
+CTA_TILE = (32, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,6 +385,44 @@ def pack_forward_tables_perm(flat: FlatScene, dmean: torch.Tensor | None = None)
         tri = tri[:, blk]
     tri = torch.cat([tri, gi[None]], 0)
     return dataclasses.replace(tables, tri=tri, taabb=taabb, perm=perm)
+
+
+# ---------------------------------------------------------------------------
+# The chain kernels' thread-to-ray map
+# ---------------------------------------------------------------------------
+
+
+def map_ctas(n_rays: int, width: int) -> int:
+    """CTAs of a chain kernel's launch over n_rays rays (csrc/chain_grad.cu::
+    map_ctas): one per CTA_THREADS rays for width 0, else one per CTA_TILE
+    tile of the rows of `width` rays that hold them."""
+    if width <= 0:
+        return -(-n_rays // CTA_THREADS)
+    rows = -(-n_rays // width)
+    return -(-width // CTA_TILE[0]) * -(-rows // CTA_TILE[1])
+
+
+def thread_rays(n_rays: int, width: int, device=None) -> torch.Tensor:
+    """int64 [map_ctas * CTA_THREADS]: the ray each thread of a chain kernel
+    traces, in (CTA, thread) order, -1 for a thread with none. Width 0
+    (every chain kernel; csrc/trace_common.cuh::ray_of_thread): thread t of
+    CTA c takes ray CTA_THREADS c + t. Else (the head-box adjoint;
+    csrc/chain_grad.cu::ray_of_tile_thread) the rays are rows of `width`
+    pixels, cut into CTA_TILE tiles in row-major order; thread t of a CTA
+    takes the pixel (t % CTA_TILE[0], t // CTA_TILE[0]) of its tile, and
+    the ray is row * width + column; a pixel past the width or past the
+    last ray has none. Each ray is taken by exactly one thread, so warps of
+    32 consecutive entries are the kernel's warps."""
+    n_ctas = map_ctas(n_rays, width)
+    t = torch.arange(n_ctas * CTA_THREADS, dtype=torch.int64, device=device)
+    if width <= 0:
+        return torch.where(t < n_rays, t, -1)
+    c, k = t // CTA_THREADS, t % CTA_THREADS
+    tiles_x = -(-width // CTA_TILE[0])
+    x = (c % tiles_x) * CTA_TILE[0] + k % CTA_TILE[0]
+    y = (c // tiles_x) * CTA_TILE[1] + k // CTA_TILE[0]
+    i = y * width + x
+    return torch.where((x < width) & (i < n_rays), i, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -747,12 +793,17 @@ def pallas_applicable(cfg, mode: str) -> bool:
     chosen for, the march is binary; a caller forcing chain mode on a
     transparent scene keeps the march on the integrator). Wavefront mode:
     the wavefront kernels (kernels/wavefront_trace.py), with binary or
-    march shadows. The JAX package's primitive ceiling is its TPU's SMEM
-    size; these kernels read the tables from device memory and have none."""
+    march shadows and a stack of max_depth + 2 nodes within the MAX_CAP
+    they compile; deeper trees go to the integrator, as the JAX package
+    routes past its own ceilings. The JAX package's primitive ceiling is
+    its TPU's SMEM size; these kernels read the tables from device memory
+    and have none."""
     if mode == "chain":
         return cfg.shadow_mode == "binary"
     if mode == "wavefront":
-        return cfg.shadow_mode in ("binary", "march")
+        from raytracingengine_tpu_torch.kernels.wavefront_trace import MAX_CAP
+
+        return cfg.shadow_mode in ("binary", "march") and cfg.max_depth + 2 <= MAX_CAP
     return False
 
 
@@ -771,6 +822,11 @@ def _check_rays(o: torch.Tensor, d: torch.Tensor) -> None:
             raise ValueError(f"{name}: expected float32 [R, 3], got {t.dtype} {tuple(t.shape)}")
     if o.shape != d.shape or o.device != d.device:
         raise ValueError(f"o {tuple(o.shape)} on {o.device} vs d {tuple(d.shape)} on {d.device}")
+
+
+def check_width(width: int) -> None:
+    if not isinstance(width, int) or width < 0:
+        raise ValueError(f"width: expected an int >= 0 (0 for the identity map), got {width!r}")
 
 
 def chain_trace(

@@ -346,7 +346,7 @@ def wavefront_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     _check_rays(o, d)
     check_gbar(gbar, o)
     check_tables(tables, o.device)
-    _check_cfg(cfg)
+    _check_cfg(cfg, o.device)
     _check_scope(tables)
     if o.device.type == "cpu":
         return wavefront_grad_plain(tables, o, d, gbar, cfg)

@@ -322,10 +322,14 @@ def check_no_grad(*tensors: torch.Tensor) -> None:
         )
 
 
-def _check_cfg(cfg) -> None:
+def _check_cfg(cfg, device: torch.device) -> None:
+    """Raise for a config the wrappers do not take on `device`: shadows
+    other than binary or march anywhere; on a CUDA device a stack past the
+    kernels' MAX_CAP (the plain versions size theirs as max_depth + 2 and
+    take any depth)."""
     if cfg.shadow_mode not in ("binary", "march"):
         raise ValueError(f"wavefront trace: shadow_mode {cfg.shadow_mode!r} is not binary or march")
-    if not 0 <= cfg.max_depth <= MAX_CAP - 2:
+    if cfg.max_depth < 0 or (device.type == "cuda" and cfg.max_depth > MAX_CAP - 2):
         raise ValueError(
             f"wavefront trace: max_depth {cfg.max_depth} outside [0, {MAX_CAP - 2}] "
             f"(the kernels compile a stack of {MAX_CAP} nodes)"
@@ -365,7 +369,7 @@ def wavefront_trace(
     kernel (csrc/wavefront_trace.cu) on the current stream."""
     _check_rays(o, d)
     check_tables(tables, o.device)
-    _check_cfg(cfg)
+    _check_cfg(cfg, o.device)
     check_no_grad(o, d, *tables.tensors())
     if o.device.type == "cpu":
         return trace_wavefront_plain(tables, o, d, cfg)
@@ -401,7 +405,7 @@ def wavefront_spp_trace(
     CPU tensors run `wavefront_spp_trace_plain`; CUDA tensors launch the
     CUDA kernel (csrc/wavefront_spp_trace.cu) on the current stream."""
     check_pixels(tables, camera, px, py)
-    _check_cfg(cfg)
+    _check_cfg(cfg, px.device)
     check_no_grad(camera.position, camera.focal, *tables.tensors())
     if px.device.type == "cpu":
         return wavefront_spp_trace_plain(tables, camera, px, py, cfg, seed=seed)

@@ -25,10 +25,11 @@ package's spp kernel);
     backward;
   * wavefront, spp > 1: pixel coordinates -> wavefront_spp_trace.
 
-Otherwise (`use_pallas=False`, or chain mode with march shadows) camera
-rays go to render.integrator.integrate_chain or integrate_wavefront, the
-all-pairs integrators that autograd differentiates: no kernel covers that
-case in either package. The AA loops key their jitter by (seed, pixel id,
+Otherwise (`use_pallas=False`, chain mode with march shadows, or a glass
+tree deeper than the wavefront kernels' stack) camera rays go to
+render.integrator.integrate_chain or integrate_wavefront, the all-pairs
+integrators that autograd differentiates: no kernel covers that case in
+either package. The AA loops key their jitter by (seed, pixel id,
 sample), so a render does not depend on how the frame is chunked; they are
 forward-only, so spp > 1 with gradients raises.
 
@@ -120,14 +121,16 @@ def _tables(flat: FlatScene, mode: str, cfg: RenderConfig, d=None) -> SceneTable
     return pack_scene_tables(flat)
 
 
-def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg) -> torch.Tensor:
-    """Camera or arbitrary rays [R,3] -> HDR [R,3] by the mode's route."""
+def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg,
+           width: int = 0) -> torch.Tensor:
+    """Camera or arbitrary rays [R,3] -> HDR [R,3] by the mode's route;
+    `width` is the image width of the rays' rows, or 0 (chain_trace_fused)."""
     if tables is None:
         integrate = integrate_wavefront if mode == "wavefront" else integrate_chain
         return integrate(flat, o, d, cfg)
     if mode == "wavefront":
         return wavefront_trace_fused(tables, o, d, cfg)
-    return chain_trace_fused(tables, o, d, cfg)
+    return chain_trace_fused(tables, o, d, cfg, width)
 
 
 def render_rays(
@@ -171,6 +174,9 @@ def render_hdr(
     aa = wavefront_spp_trace if mode == "wavefront" else spp_trace
     r = camera.num_pixels
     chunk = max(1, min(cfg.chunk_size, r))
+    # Chunks of whole rows start at a row: the chain adjoint can then map its
+    # CTAs to pixel tiles (kernels/chain_trace.py::thread_rays).
+    width = camera.width if chunk % camera.width == 0 else 0
     parts = []
     for start in range(0, r, chunk):
         pid = torch.arange(start, min(start + chunk, r), dtype=torch.int32, device=device)
@@ -180,5 +186,5 @@ def render_hdr(
             continue
         o, d = camera.rays_for_pixels(px, py)
         chunk_tables = _tables(flat, mode, cfg, d) if per_chunk else tables
-        parts.append(_trace(flat, chunk_tables, mode, o, d, cfg))
+        parts.append(_trace(flat, chunk_tables, mode, o, d, cfg, width))
     return torch.cat(parts).reshape(camera.height, camera.width, 3)

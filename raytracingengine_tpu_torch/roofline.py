@@ -24,7 +24,25 @@ on a miss) for a closest-hit scan and [0, hi] for a shadow ray, the bounds
 the kernel's box tests use. Any traversal of this hierarchy must do at
 least that much, so it is a lower bound for the culled kernels; counting
 every triangle, as a linear scan does, would put the bound far above what
-they need.
+they need. (For a shadow ray it counts every block its segment meets, where
+a scan that stops at the first blocker may test fewer.)
+
+Beside the operations, `chain_work` counts the culled scans' blocks, each
+128 triangle tests:
+  * per lane, the blocks of the oracle's segments above (`lane_blocks`);
+  * per lane, the blocks the kernels' own traversal visits
+    (`visit_blocks`): windows of 64 blocks in table order, each tested
+    against the best t at the window's start, each block re-tested against
+    the running best t (csrc/trace_common.cuh::CtaCulledTris); a shadow
+    ray stops after the block of its first blocker;
+  * per warp of a thread-to-ray map (kernels/chain_trace.py::thread_rays),
+    32 lanes times the union of the blocks its lanes meet
+    (`warp_blocks[width]`, `warp_visit_blocks[width]`): the tests a warp
+    issues where each lane tests its own ray against a block while any lane
+    needs it. Their ratio to the per-lane count is the share of issued
+    tests that a lane uses;
+  * per CTA of the map, the union of its rays' visited blocks
+    (`staged_blocks[width]`): the blocks the CTA copies into shared memory.
 """
 
 from __future__ import annotations
@@ -37,6 +55,7 @@ from raytracingengine_tpu_torch.geometry.intersect import EPS
 from raytracingengine_tpu_torch.kernels.chain_grad import state_bounce_dense
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
+    CTA_THREADS,
     TRI_GROUP,
     SceneTables,
     _block_rows,
@@ -45,6 +64,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     _plane_t,
     _sphere_t,
     _tri_t,
+    thread_rays,
 )
 from raytracingengine_tpu_torch.kernels.wavefront_trace import trace_wavefront_plain
 
@@ -65,6 +85,9 @@ TRI_PARALLEL, TRI_FULL = 14, 45
 #: make_slab: three reciprocals, once per culled scan; box_hit: 6 sub, 6 mul,
 #: 6 min/max of the slabs, 4 min/max for tmin and tmax
 SLAB_SETUP, SLAB_TEST = 3, 22
+#: Blocks of culled tables per vote of the kernels' traversal
+#: (csrc/trace_common.cuh::kWindow).
+WINDOW = 64
 
 
 @dataclasses.dataclass
@@ -76,10 +99,24 @@ class ChainWork:
     shadow_rays: int = 0
     closest_ops: float = 0.0  # closest-hit scans, all bounces
     shadow_ops: float = 0.0  # any-hit scans to the first blocker
+    # culled tables only, in blocks of TRI_BLOCK triangle tests, all scans:
+    lane_blocks: float = 0.0  # per lane, the oracle's segments
+    visit_blocks: float = 0.0  # per lane, the kernels' traversal
+    closest_lane_blocks: float = 0.0  # the closest-hit scans' share of each
+    closest_visit_blocks: float = 0.0
+    # width of the thread-to-ray map -> 32 x the union over each warp
+    warp_blocks: dict = dataclasses.field(default_factory=dict)
+    warp_visit_blocks: dict = dataclasses.field(default_factory=dict)
+    # width -> the blocks staged: the union over each CTA, summed
+    staged_blocks: dict = dataclasses.field(default_factory=dict)
 
     def __iadd__(self, other: "ChainWork") -> "ChainWork":
         for f in dataclasses.fields(self):
-            setattr(self, f.name, getattr(self, f.name) + getattr(other, f.name))
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if isinstance(a, dict):
+                setattr(self, f.name, {k: a.get(k, 0.0) + b.get(k, 0.0) for k in {*a, *b}})
+            else:
+                setattr(self, f.name, a + b)
         return self
 
 
@@ -152,6 +189,103 @@ def _culled_ops(T: _HostTables, taabb, ox, oy, oz, dx, dy, dz, active, t_hi) -> 
     return ops
 
 
+def _oracle_blocks(taabb, nb: int, rays, t_hi) -> torch.Tensor:
+    """[n, nb] bool: the blocks whose box and group box each ray's segment
+    [0, t_hi] meets."""
+    meets = _box_meets(taabb, *rays, t_hi)
+    return meets[:, :nb] & meets[:, nb:].repeat_interleave(TRI_GROUP, 1)
+
+
+def _visit_blocks(T: _HostTables, taabb, rays, t0, lo=None, hi=None) -> torch.Tensor:
+    """[n, nb] bool: the blocks the kernels' culled traversal tests for each
+    ray (csrc/trace_common.cuh::CtaCulledTris): windows of WINDOW blocks,
+    each block voted against the best t at the window's start (group box,
+    then block box) and re-tested against the running best t. A closest-hit
+    scan starts at t0 (the spheres' and planes' best) and lowers its bound
+    at every block's nearest hit; an any-hit scan (lo, hi) keeps [0, hi]
+    and stops after the block of its first blocker."""
+    nb = T.n_blocks
+    n = rays[0].shape[0]
+    seen = torch.zeros((n, nb), dtype=torch.bool, device=rays[0].device)
+    t = (t0 if lo is None else hi).clone()  # the bound of the box tests
+    scanning = torch.ones(n, dtype=torch.bool, device=t.device)
+    col = lambda x: x[:, None] if torch.is_tensor(x) and x.dim() else x  # noqa: E731
+    for w0 in range(0, nb, WINDOW):
+        w1 = min(w0 + WINDOW, nb)
+        boxes = torch.cat([taabb[:, w0:w1], taabb[:, nb + w0 // TRI_GROUP:nb + w1 // TRI_GROUP]], 1)
+        meets = _box_meets(boxes, *rays, t)
+        wm = meets[:, :w1 - w0] & meets[:, w1 - w0:].repeat_interleave(TRI_GROUP, 1) & scanning[:, None]
+        for b in range(w0, w1):
+            k = wm[:, b - w0]
+            if lo is None:
+                k = k & _box_meets(taabb[:, b:b + 1], *rays, t)[:, 0]
+            k = k.nonzero().squeeze(1)
+            if k.numel() == 0:
+                continue
+            seen[k, b] = True
+            r = _block_rows(T, b)
+            ro = [x[k] for x in rays]
+            t_new, hit = _tri_t(r, slice(None), *(col(x) for x in ro))
+            if lo is None:
+                t[k] = torch.minimum(t[k], torch.where(hit, t_new, _INF).amin(1))
+            else:
+                blocked = (hit & (t_new > col(lo[k])) & (t_new < col(hi[k]))).any(1)
+                scanning[k[blocked]] = False
+    return seen
+
+
+def _union(sets: torch.Tensor, group: torch.Tensor, n_groups: int) -> float:
+    """The number of blocks in the union of each group's rows of `sets`
+    ([n, nb] bool; `group` [n], each row's warp or CTA), summed over
+    groups."""
+    acc = torch.zeros((n_groups, sets.shape[1]), dtype=torch.int32, device=sets.device)
+    acc.index_add_(0, group, sets.to(torch.int32))
+    return float((acc > 0).sum())
+
+
+def _block_counts(work: "ChainWork", T: _HostTables, taabb, rays, active, warps: dict,
+                  t_hi=None, t0=None, lo=None, hi=None) -> None:
+    """Add one culled scan's block counts to `work`: a closest-hit scan
+    (t_hi: the final hit's t, t0: the spheres' and planes' best) or an
+    any-hit one (lo, hi). `warps`: map width -> (warp of each ray, warps)."""
+    idx = active.nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return
+    ra = tuple(x[idx] for x in rays)
+    closest = lo is None
+    oracle = _oracle_blocks(taabb, T.n_blocks, ra, (t_hi if closest else hi)[idx])
+    visit = (_visit_blocks(T, taabb, ra, t0[idx]) if closest
+             else _visit_blocks(T, taabb, ra, None, lo[idx], hi[idx]))
+    n_o, n_v = float(oracle.sum()), float(visit.sum())
+    work.lane_blocks += n_o
+    work.visit_blocks += n_v
+    if closest:
+        work.closest_lane_blocks += n_o
+        work.closest_visit_blocks += n_v
+    for width, (warp, n_warps) in warps.items():
+        w, c = warp[idx], warp[idx] // (CTA_THREADS // 32)
+        add = lambda d, v: d.__setitem__(width, d.get(width, 0.0) + v)  # noqa: E731
+        add(work.warp_blocks, 32.0 * _union(oracle, w, n_warps))
+        add(work.warp_visit_blocks, 32.0 * _union(visit, w, n_warps))
+        add(work.staged_blocks, _union(visit, c, n_warps // (CTA_THREADS // 32)))
+
+
+def _sphere_plane(T: _HostTables, ox, oy, oz, dx, dy, dz, lo=None, hi=None):
+    """The spheres' and planes' part of a scan: their best t (closest hit),
+    or whether one blocks (lo, hi)."""
+    a_coef = dx * dx + dy * dy + dz * dz
+    best = torch.full_like(ox, _INF)
+    occ = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
+    tests = [(_sphere_t, (T.sph, i, a_coef)) for i in range(T.ns)] + [(_plane_t, (T.pl, i)) for i in range(T.np)]
+    for fn, args in tests:
+        t_new, hit = fn(*args, ox, oy, oz, dx, dy, dz)
+        if lo is None:
+            best = torch.where(hit & (t_new < best), t_new, best)
+        else:
+            occ = occ | (hit & (t_new > lo) & (t_new < hi))
+    return best if lo is None else occ
+
+
 def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None,
               taabb=None, t_hit=None):
     """fp32 operations of one scan for each ray of `active` [R] bool, with the
@@ -182,17 +316,30 @@ def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None,
     return float(ops.to(torch.float64).sum())
 
 
+def warps_of_rays(n_rays: int, width: int, device=None) -> tuple[torch.Tensor, int]:
+    """-> (the warp of each ray under the thread-to-ray map of `width`, the
+    number of warps)."""
+    threads = thread_rays(n_rays, width, device)
+    warp = torch.empty(n_rays, dtype=torch.int64, device=device)
+    valid = threads >= 0
+    warp[threads[valid]] = valid.nonzero().squeeze(1) // 32
+    return warp, threads.shape[0] // 32
+
+
 @torch.no_grad()
-def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> ChainWork:
+def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg,
+               widths: tuple[int, ...] = ()) -> ChainWork:
     """Replay the opaque chain (the kernels' per-ray control flow) on these
     rays and count its scans and their operations, culled or linear as the
-    tables are."""
+    tables are; on culled tables also the blocks per lane and, for each
+    thread-to-ray map width in `widths`, per warp."""
     T = _HostTables(tables)
     one = torch.ones_like(o[:, 0])
     state = (*o.unbind(-1), *d.unbind(-1), one, one)
     work = ChainWork(rays=o.shape[0])
     bias = cfg.bias
     taabb = tables.taabb
+    warps = {w: warps_of_rays(o.shape[0], w, o.device) for w in widths}
     for _ in range(cfg.max_depth):
         live = state[7] > 0.0
         if not bool(live.any()):
@@ -201,6 +348,9 @@ def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> Ch
         work.bounces += int(live.sum())
         t, nx, ny, nz = _closest_hit(T, ox, oy, oz, dx, dy, dz, live)[:4]
         work.closest_ops += _test_ops(T, ox, oy, oz, dx, dy, dz, live, taabb=taabb, t_hit=t)
+        if taabb is not None:
+            _block_counts(work, T, taabb, state[:6], live, warps, t_hi=t,
+                          t0=_sphere_plane(T, *state[:6]))
         shade = live & (t < _INF)
         flip = torch.where(nx * dx + ny * dy + nz * dz < 0.0, 1.0, -1.0)
         nx, ny, nz = nx * flip, ny * flip, nz * flip
@@ -212,10 +362,13 @@ def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> Ch
             ldx, ldy, ldz = vx / dist, vy / dist, vz / dist
             ok = shade & (dist > bias) & (nx * ldx + ny * ldy + nz * ldz > 0.0)
             work.shadow_rays += int(ok.sum())
-            work.shadow_ops += _test_ops(
-                T, px + nx * bias, py + ny * bias, pz + nz * bias, ldx, ldy, ldz, ok,
-                lo=bias, hi=dist - bias, taabb=taabb,
-            )
+            so = (px + nx * bias, py + ny * bias, pz + nz * bias, ldx, ldy, ldz)
+            work.shadow_ops += _test_ops(T, *so, ok, lo=bias, hi=dist - bias, taabb=taabb)
+            if taabb is not None:
+                lo = torch.full_like(dist, bias)
+                hi = dist - bias
+                blocked = _sphere_plane(T, *so, lo=lo, hi=hi)
+                _block_counts(work, T, taabb, so, ok & ~blocked, warps, lo=lo, hi=hi)
         state = state_bounce_dense(state, T, cfg)
     return work
 

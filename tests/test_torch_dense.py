@@ -603,3 +603,74 @@ def test_cuda_chain_grad_dense_matches_plain(cuda_device):
         rows = table_cot_rows(name, a, b)
         print("\n".join(map(str, rows)))
         assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["culled_ragged", "chunked", "culled_spp8", "linear_tiles_ragged"])
+def test_cuda_ragged_blocks_match_plain(cuda_device, case):
+    """The chain kernels on ray blocks that do not fill their last CTA or
+    pixel tile, against their plain versions at 37x29: culled_ragged,
+    chain_trace and chain_grad_dense on dense_mesh_scene's rays but the
+    last 5 (a CTA's threads without a ray still take part in its votes);
+    chunked, render_hdr of dense_mesh_scene in chunks of 300 rays against
+    the CPU render; culled_spp8, spp_trace at spp=8; linear_tiles_ragged,
+    chain_trace and chain_grad on the head box's rays but the last 5, the
+    adjoint with the 32x4 pixel-tile map (width 37: tiles do not divide the
+    rows, and the last row is short). Seam budget; the adjoints' ray
+    cotangents and table rows as in test_cuda_chain_grad_dense_matches_plain."""
+    w, h = 37, 29
+    cfg = RenderConfig(shadow_mode="binary", use_pallas=True)
+    if case == "chunked":
+        cfg = dataclasses.replace(cfg, chunk_size=300)
+        ours = render_hdr(*builders.dense_mesh_scene(w, h, device=cuda_device), cfg)
+        ref = render_hdr(*builders.dense_mesh_scene(w, h, device="cpu"), cfg)
+        report = seam_budget(ours.cpu().numpy(), ref.numpy())
+        print(report)
+        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+        return
+    spp = 8 if case == "culled_spp8" else 1
+    build = builders.head_box_scene if case == "linear_tiles_ragged" else builders.dense_mesh_scene
+    scene, cam = build(w, h, spp=spp, device=cuda_device)
+    flat = flatten_scene(scene)
+    px, py = cam.pixel_grid()
+    if spp == 8:
+        tables = ct.pack_forward_tables_perm(flat)
+        ours = st.spp_trace(tables, cam, px, py, cfg, seed=3)
+        ref = st.spp_trace_plain(tables, cam, px, py, cfg, seed=3)
+    else:
+        r = w * h - 5
+        o, d = (x[:r].contiguous() for x in cam.rays_for_pixels(px, py))
+        if case == "linear_tiles_ragged":
+            tables = ct.pack_scene_tables(flat)
+            assert not tables.culled
+        else:
+            tables = ct.pack_forward_tables_perm(flat, mean_direction(d))
+        ours = ct.chain_trace(tables, o, d, cfg)
+        ref = ct.trace_chain_plain(tables, o, d, cfg)
+    torch.cuda.synchronize()
+    report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+    print(report)
+    assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+    if spp == 8:
+        return
+    g = (2.0 * ours / ours.numel()).contiguous()
+    if case == "linear_tiles_ragged":
+        before = cg.chain_grad.launches
+        cots, go, gd = cg.chain_grad(tables, o, d, g, cfg, width=w)
+        assert cg.chain_grad.launches == before + 1
+        ref_cots, ref_go, ref_gd = cg.chain_grad_plain(tables, o, d, g, cfg)
+    else:
+        cots, go, gd = cg.chain_grad_dense(tables, o, d, g, cfg)
+        ref_cots, ref_go, ref_gd = cg.chain_grad_dense_plain(tables, o, d, g, cfg)
+    torch.cuda.synchronize()
+    for name, a, b in (("d_o", go, ref_go), ("d_d", gd, ref_gd)):
+        report = ray_cot_seam_budget(a.cpu().numpy(), b.cpu().numpy())
+        print(f"{name}: {report}")
+        assert np.isfinite(a.cpu().numpy()).all() and report.ok, (name, report)
+    for name, a, b in zip(TABLE_ROWS, cots, ref_cots):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if name == "tri" and tables.culled:
+            assert (a[12] == 0).all()
+            a, b = a[:12], b[:12]
+        rows = table_cot_rows(name, a, b)
+        assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]

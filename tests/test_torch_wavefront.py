@@ -332,3 +332,40 @@ def test_integrate_wavefront_grads_match_jax():
     assert not errors, errors
     glass = ours["spheres.materials.transparency"][0], ours["spheres.materials.refractive_index"][0]
     assert all(abs(g) > 0 for g in glass)  # the glass sphere's refraction is differentiated
+
+
+# ---------------------------------------------------------------------------
+# Trees deeper than the CUDA kernels' stack
+# ---------------------------------------------------------------------------
+
+
+def test_glass_past_kernel_stack_renders_and_matches_jax():
+    """max_depth 31 needs a stack of 33 nodes, past the kernels' MAX_CAP:
+    render_hdr with use_pallas=True routes the glass scene to
+    integrate_wavefront (as the JAX package routes past its ceilings) and
+    matches the JAX render_hdr under the seam budget."""
+    cfg = RenderConfig(max_depth=31, use_pallas=True)
+    assert cfg.max_depth + 2 > wt.MAX_CAP
+    scene, cam = glass_scene(8, device="cpu")
+    ours = pipeline.render_hdr(scene, cam, cfg).numpy()
+    j_scene, j_cam = glass_scene(8, pkg=jax_builders)
+    ref = np.asarray(jit_o0(lambda s, c: jax_render_hdr(s, c, JaxConfig(max_depth=31)))(j_scene, j_cam))
+    report = seam_budget(ours, ref)
+    print(report)
+    assert np.isfinite(ours).all() and report.ok, report
+
+
+def test_kernel_stack_ceiling_routes_and_refuses():
+    """pallas_applicable sends a tree past MAX_CAP to the integrator; the
+    wrappers' check refuses it on a CUDA device and lets the plain
+    versions (CPU) take it."""
+    from raytracingengine_tpu_torch.kernels.chain_trace import pallas_applicable
+
+    deep, ok = RenderConfig(max_depth=wt.MAX_CAP - 1), RenderConfig(max_depth=wt.MAX_CAP - 2)
+    assert not pallas_applicable(deep, "wavefront") and pallas_applicable(ok, "wavefront")
+    wt._check_cfg(deep, torch.device("cpu"))
+    wt._check_cfg(ok, torch.device("cuda"))
+    with pytest.raises(ValueError, match="max_depth"):
+        wt._check_cfg(deep, torch.device("cuda"))
+    with pytest.raises(ValueError, match="max_depth"):
+        wt._check_cfg(RenderConfig(max_depth=-1), torch.device("cpu"))
