@@ -9,9 +9,14 @@ card, as render_hdr and the training step call them:
   512x512, 6,016 and   ordered along the mean ray), culled spp_trace at
   50,800 triangles     spp=8 (tables in no order)
 
-It also prints ptxas' register report of the build and the SASS instruction
-count of each kernel function (cuobjdump), so that two versions' code can be
-told apart beside their times.
+It also prints ptxas' register report of the build and, for each trace
+kernel function, its SASS instruction count and opcode mix (cuobjdump): the
+loads (LDG, LDS, LDC, ULDC), the fp32 arithmetic (FMUL, FADD, FFMA), MUFU
+and branches, over the function and over each innermost loop of at least
+30 fp32 instructions (the triangle tests' loops), so that two versions'
+code can be told apart beside their times. Beside each head-box time it
+prints a hash of the kernel's output, so that two versions' outputs can be
+seen to be bit-identical.
 
 The script uses only the package's public wrappers, so it runs the same in
 two checkouts: copy it into each (unpacked from `git archive`) and run them
@@ -19,12 +24,15 @@ in turns on one card, parent, change, change, parent, to compare two
 versions. CUDA events around repeated calls after one warm-up call; the last
 line is one JSON object of ms per kernel and shape.
 
-Run with no arguments on a machine with one CUDA card:
-    python3 chip_kernel_times.py
+Run on a machine with one CUDA card:
+    python3 chip_kernel_times.py              # every kernel above
+    python3 chip_kernel_times.py --head-box   # the head-box kernels only
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import inspect
 import json
 import re
@@ -38,26 +46,66 @@ ROOT = Path(__file__).resolve().parent
 W1080, H1080, SIZE = 1920, 1080, 512
 
 
-def sass_counts(lib: Path) -> dict[str, int]:
-    """SASS instructions per kernel function of the built library, by
-    `cuobjdump -sass` (an empty dict where cuobjdump is missing)."""
+#: SASS opcodes counted, by class (the opcode before its first '.').
+SASS_CLASSES = {
+    "loads": ("LDG", "LDS", "LDC", "ULDC"),
+    "fp32": ("FMUL", "FADD", "FFMA"),
+    "other": ("MUFU", "BRA"),
+}
+SASS_OPS = tuple(op for ops in SASS_CLASSES.values() for op in ops)
+
+
+def sass_functions(lib: Path) -> dict[str, list[tuple[int, str, int | None]]]:
+    """Kernel function -> its SASS as (address, opcode, branch target or
+    None), by `cuobjdump -sass` (an empty dict where cuobjdump is missing)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300, check=True).stdout
-    counts: Counter = Counter()
+    funcs: dict[str, list] = {}
     name = None
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-        elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
-            counts[name] += 1
-    return dict(counts)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if name and m:
+            op = m.group(2).split(".")[0]
+            t = re.search(r"0x([0-9a-f]+)", m.group(3)) if op == "BRA" else None
+            funcs[name].append((int(m.group(1), 16), op, int(t.group(1), 16) if t else None))
+    return funcs
+
+
+def opcode_mix(instrs) -> str:
+    c = Counter(op for _, op, _ in instrs)
+    return f"{len(instrs)} instructions, " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS)
+
+
+def hot_loops(instrs, min_fp32: int = 30):
+    """The innermost loops (a backward branch's span holding no other) with
+    at least `min_fp32` fp32 instructions -> [(start, end, instructions)]."""
+    spans = [(t, a) for a, op, t in instrs if op == "BRA" and t is not None and t <= a]
+    inner = [(s, e) for s, e in spans
+             if not any((s2, e2) != (s, e) and s <= s2 and e2 <= e for s2, e2 in spans)]
+    loops = []
+    for s, e in sorted(set(inner)):
+        body = [x for x in instrs if s <= x[0] <= e]
+        if sum(op in SASS_CLASSES["fp32"] for _, op, _ in body) >= min_fp32:
+            loops.append((s, e, body))
+    return loops
+
+
+def out_hash(t) -> str:
+    return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()[:12]
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--head-box", action="store_true", help="time the head-box kernels only")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -79,9 +127,12 @@ def main() -> int:
     for line in log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "stack frame" in line:
             print("  ptxas " + line.strip())
-    for fn, n in sorted(sass_counts(lib_path).items()):
-        if "chain" in fn or "spp_trace" in fn:
-            print(f"  sass {fn}: {n} instructions")
+    for fn, instrs in sorted(sass_functions(lib_path).items()):
+        if "chain_trace" in fn or "spp_trace" in fn or "chain_grad" in fn:
+            print(f"  sass {fn}: {opcode_mix(instrs)}")
+            if "trace" in fn:
+                for start, end, body in hot_loops(instrs):
+                    print(f"    loop {start:#x}-{end:#x}: {opcode_mix(body)}")
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
 
@@ -98,9 +149,10 @@ def main() -> int:
 
     times = {}
 
-    def show(name: str, ms: float) -> None:
+    def show(name: str, ms: float, out=None) -> None:
         times[name] = ms
-        print(f"  {name}: {ms:.3f} ms [{card}]", flush=True)
+        digest = f", output sha1 {out_hash(out)}" if out is not None else ""
+        print(f"  {name}: {ms:.3f} ms{digest} [{card}]", flush=True)
 
     # the head box, linear tables
     cfg = RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=W1080 * H1080)
@@ -115,14 +167,20 @@ def main() -> int:
     _, cam8 = head_box_scene(width=W1080, height=H1080, spp=8, device=dev)
     _, cam32 = head_box_scene(width=1000, height=1000, spp=32, device=dev)
     px32, py32 = cam32.pixel_grid()
-    show("chain_trace head box 1080p", time_ms(lambda: ct.chain_trace(tables, o, d, cfg), 20))
+    show("chain_trace head box 1080p", time_ms(lambda: ct.chain_trace(tables, o, d, cfg), 20), img)
     show("chain_grad head box 1080p",
          time_ms(lambda: cg.chain_grad(tables, o, d, g, cfg, **grad_kw), 10))
     show("spp_trace head box 1080p spp=8",
-         time_ms(lambda: st.spp_trace(tables, cam8, px, py, cfg, seed=1234), 10))
+         time_ms(lambda: st.spp_trace(tables, cam8, px, py, cfg, seed=1234), 10),
+         st.spp_trace(tables, cam8, px, py, cfg, seed=1234))
     show("spp_trace head box 1000x1000 spp=32",
-         time_ms(lambda: st.spp_trace(tables, cam32, px32, py32, cfg, seed=7), 5))
+         time_ms(lambda: st.spp_trace(tables, cam32, px32, py32, cfg, seed=7), 5),
+         st.spp_trace(tables, cam32, px32, py32, cfg, seed=7))
     del o, d, img, g
+    if args.head_box:
+        print(card)
+        print(json.dumps({"ms": times, "card": card}))
+        return 0
 
     # dense meshes, culled tables
     cfg = RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=SIZE * SIZE)

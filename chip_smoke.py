@@ -8,13 +8,17 @@ training step at full resolution, and times kernels against plain versions:
 
   1. device     nvidia-smi name and power limit; exits non-zero without CUDA
   2. build      nvcc build of csrc/*.cu (sm_90a), with ptxas' register report
-                and the trace kernels' CTAs per SM (occupancy calculator)
+                and the trace kernels' CTAs per SM on each route (occupancy
+                calculator)
   3. chain      chain_trace vs trace_chain_plain, head box 1920x1080 spp=1 rays
+                (the staged route: linear tables in shared memory, packets of
+                rays)
   4. AA         spp_trace vs spp_trace_plain, head box 1920x1080 spp=8, same seed
   5. engine     baseline spheres 256^2 vs refbuild/baseline_spheres_256.hdr64
   6. goldens    head box 128^2 -> aces/simple -> uint8 vs goldens/*.ppm
   7. main path  render_hdr at 1080p spp=1, 1080p spp=8 and 1000^2 spp=32, with
-                the launch counters reset before and read after; PNGs to out/
+                the launch counters (in all and per route) reset before and
+                read after; PNGs to out/
   8. timing     CUDA events after warm-up, kernel and plain version in turns;
                 the training steps with the host running ahead and synchronised
                 after every step; each step's device time by kernel from the
@@ -69,6 +73,14 @@ training step at full resolution, and times kernels against plain versions:
                 steps per size, the launch counters reset before and read
                 after each size: 8 launches each of chain_trace and
                 chain_grad_dense, none of chain_grad
+ 18. routes     the linear tables' two routes (kernels/chain_trace.py::
+                trace_route) at 320x180: chain_trace and spp_trace (spp=5) vs
+                their plain versions on stress_scene with 337 spheres, one
+                short of the stage limit (staged), and 338, past it (in
+                place), the route counters read after each; the frames of
+                the head box padded to 128 slots per family (in place)
+                against the head box's (staged): padded slots never hit and
+                their lights emit 0
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -159,6 +171,7 @@ def main() -> int:
         glass_sphere_scene,
         head_box_scene,
         mixed_dense_scene,
+        stress_scene,
     )
     from raytracingengine_tpu_torch.tonemap import to_uint8, tonemap
 
@@ -184,9 +197,14 @@ def main() -> int:
             print(f"  {line.strip()}")
     lib = _build.load_library()
     print("  CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 128 threads): chain_trace "
-          f"linear {lib.rte_chain_trace_occupancy(0)}, culled {lib.rte_chain_trace_occupancy(1)}; "
-          f"spp_trace linear {lib.rte_spp_trace_occupancy(0)}, culled {lib.rte_spp_trace_occupancy(1)}",
+          f"in place {lib.rte_chain_trace_occupancy(0)}, culled {lib.rte_chain_trace_occupancy(1)}, "
+          f"staged {lib.rte_chain_trace_occupancy(2)}; spp_trace in place "
+          f"{lib.rte_spp_trace_occupancy(0)}, culled {lib.rte_spp_trace_occupancy(1)}, staged "
+          f"{lib.rte_spp_trace_occupancy(2)} (staged: at the largest stage, {ct.STAGE_MAX_BYTES} bytes)",
           flush=True)
+    if lib.rte_chain_trace_packet() != ct.CHAIN_PACKET:
+        raise AssertionError(f"chain_trace's packet {lib.rte_chain_trace_packet()} is not the map's "
+                             f"mirror's, kernels/chain_trace.py::CHAIN_PACKET {ct.CHAIN_PACKET}")
 
     def cfg_for(width: int, height: int) -> RenderConfig:
         return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
@@ -210,7 +228,8 @@ def main() -> int:
     sync()
     chain_ref = ct.trace_chain_plain(tables, o, d, cfg)
     sync()
-    print("[3 chain] head box 1920x1080 spp=1", flush=True)
+    print(f"[3 chain] head box 1920x1080 spp=1, route {ct.trace_route(tables)} "
+          f"({ct.stage_bytes(tables)} bytes staged)", flush=True)
     chain_report = budget("chain_trace vs trace_chain_plain", chain_out, chain_ref)
     del chain_ref
 
@@ -258,6 +277,8 @@ def main() -> int:
     sync()
     ct.chain_trace.launches = 0
     st.spp_trace.launches = 0
+    ct.chain_trace.routes = ct.new_route_counts()
+    st.spp_trace.routes = ct.new_route_counts()
     frames = {}
     for w, h, spp in main_cells:
         m_scene, m_cam = head_box_scene(width=w, height=h, spp=spp, device=dev)
@@ -266,9 +287,12 @@ def main() -> int:
         sync()
         frames[(w, h, spp)] = (hdr, time.perf_counter() - t0)
     launches = {"chain_trace": ct.chain_trace.launches, "spp_trace": st.spp_trace.launches}
-    print(f"[7 main path] launches {launches}", flush=True)
+    main_routes = {"chain_trace": dict(ct.chain_trace.routes), "spp_trace": dict(st.spp_trace.routes)}
+    print(f"[7 main path] launches {launches}, per route {main_routes}", flush=True)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if any(r["staged"] != launches[k] for k, r in main_routes.items()):
+        raise AssertionError(f"the head box left the staged route: {main_routes}")
     for (w, h, spp), (hdr, secs) in frames.items():
         ldr = to_uint8(tonemap(hdr, "aces")).cpu().numpy()
         # The box fills the center (blue); the top edge's center is the white
@@ -371,6 +395,7 @@ def main() -> int:
     train_step = make_train_step(t_cam, cfg, opt, loss_fn=mean_sq)
     sync()
     ct.chain_trace.launches = 0
+    ct.chain_trace.routes = ct.new_route_counts()
     cg.chain_grad.launches = 0
     losses, grads = [], {}
     for _ in range(8):
@@ -392,10 +417,12 @@ def main() -> int:
     }
     nonzero = {name: any(grads.get(k) is not None and bool((grads[k] != 0).any()) for k in keys)
                for name, keys in groups.items()}
-    print(f"  launches {train_launches} (8 each); losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
-          f"finite={finite}; non-zero grads {nonzero}", flush=True)
-    if train_launches != {"chain_trace": 8, "chain_grad": 8}:
-        raise AssertionError(f"the training step did not run through both kernels: {train_launches}")
+    print(f"  launches {train_launches} (8 each; chain_trace per route {ct.chain_trace.routes}); "
+          f"losses {losses[0]:.6f} -> {losses[-1]:.6f}; finite={finite}; non-zero grads {nonzero}",
+          flush=True)
+    if train_launches != {"chain_trace": 8, "chain_grad": 8} or ct.chain_trace.routes["staged"] != 8:
+        raise AssertionError(f"the training step did not run through both kernels: {train_launches}, "
+                             f"{ct.chain_trace.routes}")
     if not finite or not all(nonzero.values()):
         raise AssertionError(f"training step: finite={finite}, non-zero gradients {nonzero}")
 
@@ -691,6 +718,53 @@ def main() -> int:
         dense_steps[label] = (dstep, dp, dst)
         dense_train_launches[label] = launches_d
 
+    # 18. the linear tables' two routes, each side of the stage limit
+    W320, H180 = 320, 180
+    print(f"[18 routes] {W320}x{H180}, stage limit {ct.STAGE_MAX_BYTES} bytes", flush=True)
+    route_reports, route_frames = {}, {}
+    for label, make in (
+        ("stress_scene, 337 spheres", lambda spp: stress_scene(
+            337, width=W320, height=H180, spp=spp, pad_multiple=None, device=dev)),
+        ("stress_scene, 338 spheres", lambda spp: stress_scene(
+            338, width=W320, height=H180, spp=spp, pad_multiple=None, device=dev)),
+        ("head box padded to 128", lambda spp: head_box_scene(width=W320, height=H180, spp=spp,
+                                                              pad_multiple=128, device=dev)),
+        ("head box", lambda spp: head_box_scene(width=W320, height=H180, spp=spp, device=dev)),
+    ):
+        r_scene, r_cam = make(1)
+        r_tables = ct.pack_scene_tables(flatten_scene(r_scene))
+        route = ct.trace_route(r_tables)
+        r_o, r_d = r_cam.rays_for_pixels(*r_cam.pixel_grid())
+        r_o = r_o.contiguous()
+        _, r_cam5 = make(5)
+        r_px, r_py = r_cam5.pixel_grid()
+        ct.chain_trace.routes = ct.new_route_counts()
+        st.spp_trace.routes = ct.new_route_counts()
+        route_frames[label] = (ct.chain_trace(r_tables, r_o, r_d, cfg),
+                               st.spp_trace(r_tables, r_cam5, r_px, r_py, cfg, seed=5))
+        counted = (ct.chain_trace.routes[route], st.spp_trace.routes[route])
+        print(f"  {label}: {ct.stage_bytes(r_tables)} bytes of stage -> route {route}; launches on "
+              f"it (chain_trace, spp_trace) {counted}", flush=True)
+        if counted != (1, 1):
+            raise AssertionError(f"{label}: the kernels did not launch on route {route}: {counted}")
+        if label.startswith("head box"):  # their plain versions: below, the kernels' frames
+            continue
+        route_reports[label] = (
+            route,
+            budget(f"{label} chain_trace vs trace_chain_plain ({route})", route_frames[label][0],
+                   ct.trace_chain_plain(r_tables, r_o, r_d, cfg)),
+            budget(f"{label} spp_trace vs spp_trace_plain, spp=5 ({route})", route_frames[label][1],
+                   st.spp_trace_plain(r_tables, r_cam5, r_px, r_py, cfg, seed=5)),
+        )
+    routes_seen = {v[0] for v in route_reports.values()}
+    if routes_seen != {"staged", "in_place"}:
+        raise AssertionError(f"phase 18 did not run both routes: {routes_seen}")
+    for name, a, b in zip(("chain_trace", "spp_trace spp=5"), route_frames["head box"],
+                          route_frames["head box padded to 128"]):
+        same = bool(torch.equal(a, b))
+        budget(f"head box (staged) vs head box padded to 128 (in place), {name}; bit-identical {same}", a, b)
+    del route_frames
+
     # 8. timing: CUDA events around `iters` calls after one warm-up call
 
     def in_turns(kernel, plain, k_iters: int, p_iters: int):
@@ -935,7 +1009,26 @@ def main() -> int:
     for sample in range(d_cam8.spp):
         o8, d8 = d_cam8.rays_for_pixels(dpx, dpy, st.pixel_jitter(1234, d_pids, sample))
         d_work8 += chain_work(spp_tables6, o8.contiguous(), d8.contiguous(), cfg)
+    # spp_trace's other timed shapes: 50,800 triangles at 512^2 spp=8 (tables
+    # in no order, as chip_kernel_times.py times it) and the head box at
+    # 1000^2 spp=32 with seed 7, as timed above.
+    s_scene50, s_cam50 = dense_mesh_scene(W512, W512, spp=8, device=dev, ni=128, nj=200)
+    spp_tables50 = ct.pack_forward_tables_perm(flatten_scene(s_scene50))
+    d50_work8 = ChainWork(rays=0)
+    for sample in range(s_cam50.spp):
+        o8, d8 = s_cam50.rays_for_pixels(dpx, dpy, st.pixel_jitter(1234, d_pids, sample))
+        d50_work8 += chain_work(spp_tables50, o8.contiguous(), d8.contiguous(), cfg)
+    work32 = ChainWork(rays=0)
+    pids32 = py32.to(torch.int64) * 1000 + px32.to(torch.int64)
+    for sample in range(cam32.spp):
+        o32, d32 = cam32.rays_for_pixels(px32, py32, st.pixel_jitter(7, pids32, sample))
+        work32 += chain_work(tables, o32.contiguous(), d32.contiguous(), cfg)
+    del s_scene50, spp_tables50
     bounds.update({
+        "spp_trace, 1000x1000 spp=32": bound_ms(work_ops(work32),
+                                                trace_bytes(1000 * 1000, tables, in_per_ray=8)),
+        "spp_trace, 50800 triangles": bound_ms(work_ops(d50_work8),
+                                               trace_bytes(rays512, dense["50800"][0], in_per_ray=8)),
         "chain_trace, 6016 triangles": bound_ms(work_ops(dense_work["6016"]), trace_bytes(rays512, tables6)),
         "chain_trace_streamed": bound_ms(work_ops(dense_work["50800"]),
                                          trace_bytes(rays512, dense["50800"][0])),
@@ -1034,7 +1127,11 @@ def main() -> int:
               f"{k} {r.flips}/{r.pixels}" for k, r in dense_reports.items())
           + f", culled spp_trace {d_spp_report.flips}/{d_spp_report.pixels}, chain_grad_dense "
           + ", ".join(f"{k} {v[4]['d_d'].flips}/{v[4]['d_d'].pixels}" for k, v in dense_grad.items())
-          + f"; training-path launches {train_launches}; glass-path launches {glass_launches}; "
+          + "; routes (chain_trace, spp_trace): " + ", ".join(
+              f"{k} {v[0]} {v[1].flips}/{v[1].pixels}, {v[2].flips}/{v[2].pixels}"
+              for k, v in route_reports.items())
+          + f"; training-path launches {train_launches}; main-path launches per route {main_routes}; "
+          f"glass-path launches {glass_launches}; "
           f"glass training launches {glass_train_launches[(W1080, H1080)]} at 1080p; dense training "
           f"launches {dense_train_launches}; the dense kernels' plain_ms is one call's; no PyTorch "
           "call traces rays, so library_ms is null")

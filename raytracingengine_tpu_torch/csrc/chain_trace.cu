@@ -31,9 +31,37 @@
 // with its 32 lanes on 4 triangles each, so no lane idles while another
 // runs 128 tests. The depth and light loops are then CTA-uniform, so every
 // thread reaches every barrier.
+//
+// Linear tables (the head box of the main path: 12 triangles, 5 planes, 2
+// lights). What bounds them is the fp32 work of the tests, and the floor
+// sits at twice roofline.py's bound: the bound counts each add and multiply
+// as one operation against 67 TFLOP/s, a peak that counts an FMA as two,
+// and the tests round every product on its own (trace_common.cuh::
+// tri_test), so no FMA can pair them. An in-place scan (LinearTris, one
+// thread per ray) also issues, beside that arithmetic, the tables' loads:
+// nine 32-bit loads nine rows apart per triangle test, four per plane, six
+// per light and five per material, each with its own address, every thread
+// reloading the same entries for every ray. The staged route
+// (trace_common.cuh::StagedScan) copies the tables once per CTA into shared
+// memory as 16-byte entries, so a triangle test reads three 16-byte
+// broadcast entries and a plane one, and each thread traces kChainPacket
+// neighbouring rays as one packet, so each entry loaded serves that many
+// tests. Per ray the arithmetic, the test order and the exits are the
+// in-place scan's. Tables whose stage passes kStageMaxBytes take the
+// in-place scan: the route is chosen by size in kernels/chain_trace.py::
+// trace_route and counted there.
 #include "trace_common.cuh"
 
 namespace {
+
+// The staged route: kChainPacket neighbouring rays per thread (thread t of
+// CTA c takes rays K (128 c + t) + k, k < K; kernels/chain_trace.py::
+// thread_rays), and the CTAs per SM asked of the register allocator (7: 72
+// registers a thread). On the head box at 1080p on the H100 one ray a thread
+// ran about as fast, but its frames differed from the in-place scan's in the
+// last bits; 4 rays, and 4, 5, 6 or 8 CTAs per SM, ran slower (PERF.md §6).
+constexpr int kChainPacket = 2;
+constexpr int kChainStagedMinCtas = 7;
 
 template <class Tris>
 __global__ void __launch_bounds__(rte::kCtaThreads, Tris::kMinCtas) chain_trace_kernel(
@@ -51,41 +79,86 @@ __global__ void __launch_bounds__(rte::kCtaThreads, Tris::kMinCtas) chain_trace_
   out[3 * i + 2] = c.z;
 }
 
+template <int K>
+__global__ void __launch_bounds__(rte::kCtaThreads, kChainStagedMinCtas) chain_trace_staged_kernel(
+    rte::Tables T, const float* __restrict__ o, const float* __restrict__ d,
+    float* __restrict__ out, long long n_rays, int max_depth, float bias, float min_weight) {
+  const rte::StagedScan<K> sc = rte::StagedScan<K>::make(T);
+  const long long i0 = K * (static_cast<long long>(blockIdx.x) * rte::kCtaThreads + threadIdx.x);
+  if (i0 >= n_rays) return;  // no barrier follows the stage
+  bool live[K];
+  rte::Rays<K> r;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    live[k] = i0 + k < n_rays;
+    const long long j = 3 * (live[k] ? i0 + k : i0);
+    r.ox[k] = o[j];
+    r.oy[k] = o[j + 1];
+    r.oz[k] = o[j + 2];
+    r.dx[k] = d[j];
+    r.dy[k] = d[j + 1];
+    r.dz[k] = d[j + 2];
+  }
+  float3 c[K];
+  rte::trace_packet<K>(sc, live, r, max_depth, bias, min_weight, c);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (i0 + k >= n_rays) break;
+    out[3 * (i0 + k)] = c[k].x;
+    out[3 * (i0 + k) + 1] = c[k].y;
+    out[3 * (i0 + k) + 2] = c[k].z;
+  }
+}
+
 }  // namespace
 
-// Culled tables take the CTA-cooperative scan.
+// The route: culled tables (taabb) take the CTA-cooperative scan; linear
+// tables the staged scan where `staged` (the caller has checked that the
+// stage fits kStageMaxBytes; a larger one is refused), else the in-place one.
 extern "C" int rte_chain_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
-    const float* o, const float* d, float* out, int n_rays, int max_depth, float bias,
-    float min_weight, void* stream) {
+    const float* o, const float* d, float* out, int n_rays, int staged, int max_depth,
+    float bias, float min_weight, void* stream) {
   if (n_rays <= 0) return 0;
   const rte::Tables T = rte::with_culling(
       rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
                        light, light_cols, nl),
       taabb, n_blocks);
   if (taabb && !rte::stageable(T)) return static_cast<int>(cudaErrorMisalignedAddress);
-  const unsigned blocks = rte::ray_ctas(n_rays);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (taabb) {
-    chain_trace_kernel<rte::CtaCulledTris><<<blocks, rte::kCtaThreads, 0, s>>>(
+  if (staged) {
+    const int bytes = 16 * rte::stage_layout(T).n;
+    if (taabb || bytes > rte::kStageMaxBytes) return static_cast<int>(cudaErrorInvalidValue);
+    chain_trace_staged_kernel<kChainPacket>
+        <<<rte::ray_ctas(n_rays, kChainPacket), rte::kCtaThreads, bytes, s>>>(
+            T, o, d, out, n_rays, max_depth, bias, min_weight);
+  } else if (taabb) {
+    chain_trace_kernel<rte::CtaCulledTris><<<rte::ray_ctas(n_rays), rte::kCtaThreads, 0, s>>>(
         T, o, d, out, n_rays, max_depth, bias, min_weight);
   } else {
-    chain_trace_kernel<rte::LinearTris><<<blocks, rte::kCtaThreads, 0, s>>>(
+    chain_trace_kernel<rte::LinearTris><<<rte::ray_ctas(n_rays), rte::kCtaThreads, 0, s>>>(
         T, o, d, out, n_rays, max_depth, bias, min_weight);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs per SM that the occupancy calculator gives each instantiation.
-extern "C" int rte_chain_trace_occupancy(int culled) {
+// The staged route's rays per thread (kernels/chain_trace.py checks it).
+extern "C" int rte_chain_trace_packet() { return kChainPacket; }
+
+// CTAs per SM that the occupancy calculator gives each route: 0 in place,
+// 1 culled, 2 staged (at the largest stage).
+extern "C" int rte_chain_trace_occupancy(int route) {
   int n = 0;
-  const cudaError_t e = culled
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, chain_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, chain_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
+  const cudaError_t e =
+      route == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &n, chain_trace_staged_kernel<kChainPacket>, rte::kCtaThreads,
+                       rte::kStageMaxBytes)
+      : route == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &n, chain_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &n, chain_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

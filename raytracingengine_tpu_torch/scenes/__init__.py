@@ -5,9 +5,11 @@ from raytracingengine_tpu_torch.scenes.builders import (
     glass_sphere_scene,
     head_box_scene,
     mixed_dense_scene,
+    stress_scene,
 )
 
 __all__ = [
     "bumpy_sphere_mesh", "cube_mesh", "head_box_scene", "baseline_sphere_scene",
     "glass_sphere_scene", "dense_mesh_scene", "mixed_dense_scene",
+    "stress_scene",
 ]

@@ -1,5 +1,5 @@
 """Standard scenes: the reference's HEAD scene, the baseline spheres, the
-glass sphere and the dense-mesh scenes.
+glass sphere, the 64-sphere stress scene and the dense-mesh scenes.
 
 `head_box_scene` rebuilds main() (RaytracingEngine.cpp:216-290): camera at
 (0,0,-25) with focal 500 px and near/far 0/200, a box mesh at (0,0,10)
@@ -135,6 +135,40 @@ def glass_sphere_scene(
     camera = Camera.create(
         (0, 0, -8), focal=float(width), width=width, height=height,
         near=0.0, far=100.0, spp=spp, dtype=dtype, device=device,
+    )
+    return scene, camera
+
+
+def stress_scene(
+    n_spheres: int = 64,
+    n_lights: int = 4,
+    width: int = 3840,
+    height: int = 2160,
+    spp: int = 1,
+    seed: int = 7,
+    dtype=torch.float32,
+    pad_multiple: int | None = 128,
+    device: torch.device | str = "cuda",
+) -> tuple[Scene, Camera]:
+    """BASELINE config #5: 64 random spheres over a floor with 4 point lights
+    at 4K, every family padded to 128 slots: the largest linear tables of
+    the repo's scenes."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    for _ in range(n_spheres):
+        center = rng.uniform([-12, -4, 4], [12, 8, 40])
+        radius = float(rng.uniform(0.5, 2.0))
+        color = tuple(rng.uniform(0.1, 1.0, 3))
+        spec = float(rng.uniform(0.0, 0.4))
+        b.add_sphere(center, radius, Material(color=color, specular=spec, shininess=64.0))
+    b.add_plane((0.0, -5.0, 0.0), (0.0, 1.0, 0.0), Material(color=(0.85, 0.85, 0.85)))
+    light_pos = [(-10, 15, -5), (10, 15, -5), (0, 20, 20), (0, 5, -15)]
+    for i in range(n_lights):
+        b.add_light(light_pos[i % 4], (1, 1, 1), 200.0)
+    scene = b.build(dtype=dtype, pad_multiple=pad_multiple, device=device)
+    camera = Camera.create(
+        (0, 1, -25), focal=float(width) / 2.0, width=width, height=height,
+        near=0.0, far=200.0, spp=spp, dtype=dtype, device=device,
     )
     return scene, camera
 

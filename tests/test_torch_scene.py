@@ -41,6 +41,7 @@ SCENES = {
         fn="baseline_sphere_scene", kw=dict(width=16, height=12, n_lights=2, pad_multiple=8)
     ),
     "glass_sphere": dict(fn="glass_sphere_scene", kw=dict(width=16, height=12, spp=1)),
+    "stress": dict(fn="stress_scene", kw=dict(width=16, height=12)),
 }
 
 

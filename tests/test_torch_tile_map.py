@@ -2,7 +2,8 @@
 on the CPU.
 
 `kernels/chain_trace.py::thread_rays` mirrors the kernels' maps
-(csrc/trace_common.cuh::ray_of_thread, the identity; csrc/chain_grad.cu::
+(csrc/trace_common.cuh::ray_of_thread, the identity; chain_trace's staged
+route, a packet of consecutive rays per thread; csrc/chain_grad.cu::
 ray_of_tile_thread, CTAs of 32x4 pixels, a row of 32 per warp, where the
 ray block's image width is given): it must take every ray exactly once,
 and be the identity for width 0. `roofline.chain_work` counts the blocks a culled scan
@@ -48,6 +49,24 @@ def test_thread_rays_width_zero_is_identity(n):
     t = ct.thread_rays(n, 0)
     assert t.shape[0] == ct.map_ctas(n, 0) * ct.CTA_THREADS
     assert torch.equal(t[:n], torch.arange(n)) and bool((t[n:] == -1).all())
+
+
+@pytest.mark.parametrize("n,packet", [(1, 2), (255, 2), (256, 2), (300, 2), (517, 4), (300, 1)])
+def test_thread_rays_packet_map(n, packet):
+    """The staged route's map (csrc/chain_trace.cu::chain_trace_staged_kernel):
+    thread g takes the `packet` consecutive rays packet * g + k; every ray
+    is taken exactly once, the last CTA's ragged end holds -1, and a warp
+    covers 32 * packet consecutive rays."""
+    t = ct.thread_rays(n, 0, packet=packet)
+    assert t.shape[0] == ct.map_ctas(n, 0, packet) * ct.CTA_THREADS * packet
+    assert ct.map_ctas(n, 0, packet) == -(-n // (ct.CTA_THREADS * packet))
+    assert torch.equal(t[t >= 0], torch.arange(n)) and bool((t[n:] == -1).all())
+    per_thread = t.view(-1, packet)
+    for g, rays in enumerate(per_thread):
+        ok = rays >= 0
+        assert torch.equal(rays[ok], packet * g + torch.arange(packet)[ok])
+    with pytest.raises(ValueError):
+        ct.thread_rays(n, 32, packet=2)
 
 
 def _mesh_rays(size=8):
