@@ -55,13 +55,12 @@ def scene_tables(name, width, height, spp, device):
     return cam, ct.pack_scene_tables(flatten_scene(scene))
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
-def test_stage_size_and_route(name):
-    _, _, size, route = SCENES[name]
-    _, tables = scene_tables(name, 8, 6, 1, "cpu")
-    assert ct.stage_bytes(tables) == size
-    assert ct.trace_route(tables) == route
-    assert (size <= ct.STAGE_MAX_BYTES) == (route == "staged")
+def test_stage_size_and_route():
+    for name, (_, _, size, route) in SCENES.items():
+        _, tables = scene_tables(name, 8, 6, 1, "cpu")
+        assert ct.stage_bytes(tables) == size, name
+        assert ct.trace_route(tables) == route, name
+        assert (size <= ct.STAGE_MAX_BYTES) == (route == "staged"), name
 
 
 def test_culled_tables_take_the_culled_route():
@@ -109,26 +108,29 @@ def run_route(name, spp, device, width=64, height=48, plain=True):
     return ours, ref
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("name,spp", [("head_box", 1), ("head_box", 3), ("head_box", 8),
-                                      ("spheres", 1), ("spheres", 3), ("stress_337", 1),
-                                      ("stress_337", 3), ("stress_338", 1), ("stress_338", 3)])
-def test_cuda_route_matches_plain(cuda_device, name, spp):
-    ours, ref = run_route(name, spp, cuda_device)
-    report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-    print(f"{name} spp={spp}: {report}")
-    assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+#: (scene, spp) of the gpu checks against the plain versions
+ROUTE_CASES = [("head_box", 1), ("head_box", 3), ("head_box", 8), ("spheres", 1), ("spheres", 3),
+               ("stress_337", 1), ("stress_337", 3), ("stress_338", 1), ("stress_338", 3)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("spp", [1, 3])
-def test_cuda_routes_agree_on_padded_tables(cuda_device, spp):
+def test_cuda_route_matches_plain(cuda_device):
+    for name, spp in ROUTE_CASES:
+        ours, ref = run_route(name, spp, cuda_device)
+        report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+        print(f"{name} spp={spp}: {report}")
+        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, spp, report)
+
+
+@pytest.mark.gpu
+def test_cuda_routes_agree_on_padded_tables(cuda_device):
     """The head box on the staged route and padded past the stage limit on
-    the in-place one: padded slots never hit and their lights emit 0, so
-    the two frames agree under the seam budget; a ragged pixel count
-    (37x11) leaves a packet part empty."""
-    staged, _ = run_route("head_box", spp, cuda_device, 37, 11, plain=False)
-    in_place, _ = run_route("head_box_pad128", spp, cuda_device, 37, 11, plain=False)
-    report = seam_budget(staged.cpu().numpy(), in_place.cpu().numpy())
-    print(f"spp={spp}: staged vs in place {report}, bit-identical {torch.equal(staged, in_place)}")
-    assert report.ok, report
+    the in-place one, at spp 1 and 3: padded slots never hit and their
+    lights emit 0, so the two frames agree under the seam budget; a ragged
+    pixel count (37x11) leaves a packet part empty."""
+    for spp in (1, 3):
+        staged, _ = run_route("head_box", spp, cuda_device, 37, 11, plain=False)
+        in_place, _ = run_route("head_box_pad128", spp, cuda_device, 37, 11, plain=False)
+        report = seam_budget(staged.cpu().numpy(), in_place.cpu().numpy())
+        print(f"spp={spp}: staged vs in place {report}, bit-identical {torch.equal(staged, in_place)}")
+        assert report.ok, (spp, report)

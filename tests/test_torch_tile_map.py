@@ -51,22 +51,22 @@ def test_thread_rays_width_zero_is_identity(n):
     assert torch.equal(t[:n], torch.arange(n)) and bool((t[n:] == -1).all())
 
 
-@pytest.mark.parametrize("n,packet", [(1, 2), (255, 2), (256, 2), (300, 2), (517, 4), (300, 1)])
-def test_thread_rays_packet_map(n, packet):
+def test_thread_rays_packet_map():
     """The staged route's map (csrc/chain_trace.cu::chain_trace_staged_kernel):
     thread g takes the `packet` consecutive rays packet * g + k; every ray
     is taken exactly once, the last CTA's ragged end holds -1, and a warp
-    covers 32 * packet consecutive rays."""
-    t = ct.thread_rays(n, 0, packet=packet)
-    assert t.shape[0] == ct.map_ctas(n, 0, packet) * ct.CTA_THREADS * packet
-    assert ct.map_ctas(n, 0, packet) == -(-n // (ct.CTA_THREADS * packet))
-    assert torch.equal(t[t >= 0], torch.arange(n)) and bool((t[n:] == -1).all())
-    per_thread = t.view(-1, packet)
-    for g, rays in enumerate(per_thread):
-        ok = rays >= 0
-        assert torch.equal(rays[ok], packet * g + torch.arange(packet)[ok])
+    covers 32 * packet consecutive rays. Ray counts: one, ragged, whole
+    CTAs of packets."""
+    for n, packet in ((1, 2), (255, 2), (256, 2), (300, 2), (517, 4), (300, 1)):
+        t = ct.thread_rays(n, 0, packet=packet)
+        assert t.shape[0] == ct.map_ctas(n, 0, packet) * ct.CTA_THREADS * packet
+        assert ct.map_ctas(n, 0, packet) == -(-n // (ct.CTA_THREADS * packet))
+        assert torch.equal(t[t >= 0], torch.arange(n)) and bool((t[n:] == -1).all())
+        for g, rays in enumerate(t.view(-1, packet)):
+            ok = rays >= 0
+            assert torch.equal(rays[ok], packet * g + torch.arange(packet)[ok]), (n, packet, g)
     with pytest.raises(ValueError):
-        ct.thread_rays(n, 32, packet=2)
+        ct.thread_rays(300, 32, packet=2)
 
 
 def _mesh_rays(size=8):
