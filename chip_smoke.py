@@ -73,14 +73,15 @@ training step at full resolution, and times kernels against plain versions:
                 steps per size, the launch counters reset before and read
                 after each size: 8 launches each of chain_trace and
                 chain_grad_dense, none of chain_grad
- 18. routes     the linear tables' two routes (kernels/chain_trace.py::
+ 18. routes     the linear tables' two routes (csrc/trace_common.cuh::
                 trace_route) at 320x180: chain_trace and spp_trace (spp=5) vs
                 their plain versions on stress_scene with 337 spheres, one
                 short of the stage limit (staged), and 338, past it (in
                 place), the route counters read after each; the frames of
-                the head box padded to 128 slots per family (in place)
-                against the head box's (staged): padded slots never hit and
-                their lights emit 0
+                the head box padded to 128 slots per family (in place) must
+                equal the head box's (staged), at the default depth and at
+                max_depth 1: padded slots never hit, their lights emit 0, and
+                each ray's arithmetic is the same on both routes
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -200,11 +201,8 @@ def main() -> int:
           f"in place {lib.rte_chain_trace_occupancy(0)}, culled {lib.rte_chain_trace_occupancy(1)}, "
           f"staged {lib.rte_chain_trace_occupancy(2)}; spp_trace in place "
           f"{lib.rte_spp_trace_occupancy(0)}, culled {lib.rte_spp_trace_occupancy(1)}, staged "
-          f"{lib.rte_spp_trace_occupancy(2)} (staged: at the largest stage, {ct.STAGE_MAX_BYTES} bytes)",
-          flush=True)
-    if lib.rte_chain_trace_packet() != ct.CHAIN_PACKET:
-        raise AssertionError(f"chain_trace's packet {lib.rte_chain_trace_packet()} is not the map's "
-                             f"mirror's, kernels/chain_trace.py::CHAIN_PACKET {ct.CHAIN_PACKET}")
+          f"{lib.rte_spp_trace_occupancy(2)} (staged: at the largest stage, "
+          "csrc/trace_common.cuh::kStageMaxBytes)", flush=True)
 
     def cfg_for(width: int, height: int) -> RenderConfig:
         return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
@@ -224,12 +222,13 @@ def main() -> int:
     px, py = cam.pixel_grid()
     o, d = cam.rays_for_pixels(px, py)
     o = o.contiguous()
+    ct.chain_trace.routes = ct.new_route_counts()
     chain_out = ct.chain_trace(tables, o, d, cfg)
     sync()
     chain_ref = ct.trace_chain_plain(tables, o, d, cfg)
     sync()
-    print(f"[3 chain] head box 1920x1080 spp=1, route {ct.trace_route(tables)} "
-          f"({ct.stage_bytes(tables)} bytes staged)", flush=True)
+    print(f"[3 chain] head box 1920x1080 spp=1, launches per route {ct.chain_trace.routes}",
+          flush=True)
     chain_report = budget("chain_trace vs trace_chain_plain", chain_out, chain_ref)
     del chain_ref
 
@@ -720,49 +719,60 @@ def main() -> int:
 
     # 18. the linear tables' two routes, each side of the stage limit
     W320, H180 = 320, 180
-    print(f"[18 routes] {W320}x{H180}, stage limit {ct.STAGE_MAX_BYTES} bytes", flush=True)
+    depth1 = dataclasses.replace(cfg, max_depth=1)
+    print(f"[18 routes] {W320}x{H180}, each side of the staged route's limit "
+          "(csrc/trace_common.cuh::trace_route)", flush=True)
     route_reports, route_frames = {}, {}
-    for label, make in (
-        ("stress_scene, 337 spheres", lambda spp: stress_scene(
+    for label, route, make in (
+        ("stress_scene, 337 spheres", "staged", lambda spp: stress_scene(
             337, width=W320, height=H180, spp=spp, pad_multiple=None, device=dev)),
-        ("stress_scene, 338 spheres", lambda spp: stress_scene(
+        ("stress_scene, 338 spheres", "in_place", lambda spp: stress_scene(
             338, width=W320, height=H180, spp=spp, pad_multiple=None, device=dev)),
-        ("head box padded to 128", lambda spp: head_box_scene(width=W320, height=H180, spp=spp,
-                                                              pad_multiple=128, device=dev)),
-        ("head box", lambda spp: head_box_scene(width=W320, height=H180, spp=spp, device=dev)),
+        ("head box padded to 128", "in_place", lambda spp: head_box_scene(
+            width=W320, height=H180, spp=spp, pad_multiple=128, device=dev)),
+        ("head box", "staged", lambda spp: head_box_scene(
+            width=W320, height=H180, spp=spp, device=dev)),
     ):
         r_scene, r_cam = make(1)
         r_tables = ct.pack_scene_tables(flatten_scene(r_scene))
-        route = ct.trace_route(r_tables)
         r_o, r_d = r_cam.rays_for_pixels(*r_cam.pixel_grid())
         r_o = r_o.contiguous()
         _, r_cam5 = make(5)
         r_px, r_py = r_cam5.pixel_grid()
         ct.chain_trace.routes = ct.new_route_counts()
         st.spp_trace.routes = ct.new_route_counts()
-        route_frames[label] = (ct.chain_trace(r_tables, r_o, r_d, cfg),
-                               st.spp_trace(r_tables, r_cam5, r_px, r_py, cfg, seed=5))
-        counted = (ct.chain_trace.routes[route], st.spp_trace.routes[route])
-        print(f"  {label}: {ct.stage_bytes(r_tables)} bytes of stage -> route {route}; launches on "
-              f"it (chain_trace, spp_trace) {counted}", flush=True)
-        if counted != (1, 1):
+        # default depth, then max_depth 1 (every live ray of a packet ends
+        # on the depth limit's sky after one bounce)
+        route_frames[label] = [(ct.chain_trace(r_tables, r_o, r_d, c),
+                                st.spp_trace(r_tables, r_cam5, r_px, r_py, c, seed=5))
+                               for c in (cfg, depth1)]
+        counted = (dict(ct.chain_trace.routes), dict(st.spp_trace.routes))
+        print(f"  {label} ({r_tables.n_spheres} spheres, {r_tables.n_planes} planes, "
+              f"{r_tables.n_triangles} triangles, {r_tables.n_lights} lights): launches per route "
+              f"(chain_trace, spp_trace) {counted}", flush=True)
+        if counted[0][route] != 2 or counted[1][route] != 2:
             raise AssertionError(f"{label}: the kernels did not launch on route {route}: {counted}")
         if label.startswith("head box"):  # their plain versions: below, the kernels' frames
             continue
         route_reports[label] = (
             route,
-            budget(f"{label} chain_trace vs trace_chain_plain ({route})", route_frames[label][0],
+            budget(f"{label} chain_trace vs trace_chain_plain ({route})", route_frames[label][0][0],
                    ct.trace_chain_plain(r_tables, r_o, r_d, cfg)),
-            budget(f"{label} spp_trace vs spp_trace_plain, spp=5 ({route})", route_frames[label][1],
+            budget(f"{label} spp_trace vs spp_trace_plain, spp=5 ({route})",
+                   route_frames[label][0][1],
                    st.spp_trace_plain(r_tables, r_cam5, r_px, r_py, cfg, seed=5)),
         )
-    routes_seen = {v[0] for v in route_reports.values()}
-    if routes_seen != {"staged", "in_place"}:
-        raise AssertionError(f"phase 18 did not run both routes: {routes_seen}")
-    for name, a, b in zip(("chain_trace", "spp_trace spp=5"), route_frames["head box"],
-                          route_frames["head box padded to 128"]):
-        same = bool(torch.equal(a, b))
-        budget(f"head box (staged) vs head box padded to 128 (in place), {name}; bit-identical {same}", a, b)
+    # Padded slots never hit and their lights emit 0, and each ray's
+    # arithmetic is the same on both routes: the frames must be equal.
+    for (depth, frames_s), frames_p in zip(((cfg.max_depth, route_frames["head box"][0]),
+                                            (1, route_frames["head box"][1])),
+                                           route_frames["head box padded to 128"]):
+        for name, a, b in zip(("chain_trace", "spp_trace spp=5"), frames_s, frames_p):
+            same = bool(torch.equal(a, b))
+            what = f"head box (staged) vs head box padded to 128 (in place), {name}, max_depth {depth}"
+            budget(f"{what}; bit-identical {same}", a, b)
+            if not same:
+                raise AssertionError(f"{what}: the two routes' frames differ")
     del route_frames
 
     # 8. timing: CUDA events around `iters` calls after one warm-up call

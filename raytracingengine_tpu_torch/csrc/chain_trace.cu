@@ -48,18 +48,18 @@
 // neighbouring rays as one packet, so each entry loaded serves that many
 // tests. Per ray the arithmetic, the test order and the exits are the
 // in-place scan's. Tables whose stage passes kStageMaxBytes take the
-// in-place scan: the route is chosen by size in kernels/chain_trace.py::
-// trace_route and counted there.
+// in-place scan: trace_common.cuh::trace_route chooses by size, and the
+// wrapper (kernels/chain_trace.py) names and counts the route reported.
 #include "trace_common.cuh"
 
 namespace {
 
 // The staged route: kChainPacket neighbouring rays per thread (thread t of
-// CTA c takes rays K (128 c + t) + k, k < K; kernels/chain_trace.py::
-// thread_rays), and the CTAs per SM asked of the register allocator (7: 72
-// registers a thread). On the head box at 1080p on the H100 one ray a thread
-// ran about as fast, but its frames differed from the in-place scan's in the
-// last bits; 4 rays, and 4, 5, 6 or 8 CTAs per SM, ran slower (PERF.md §6).
+// CTA c takes rays K (128 c + t) + k, k < K), and the CTAs per SM asked of
+// the register allocator (7: 72 registers a thread). On the head box at
+// 1080p on the H100 one ray a thread ran about as fast, but its frames
+// differed from the in-place scan's in the last bits; 4 rays, and 4, 5, 6
+// or 8 CTAs per SM, ran slower (PERF.md §6).
 constexpr int kChainPacket = 2;
 constexpr int kChainStagedMinCtas = 7;
 
@@ -112,29 +112,28 @@ __global__ void __launch_bounds__(rte::kCtaThreads, kChainStagedMinCtas) chain_t
 
 }  // namespace
 
-// The route: culled tables (taabb) take the CTA-cooperative scan; linear
-// tables the staged scan where `staged` (the caller has checked that the
-// stage fits kStageMaxBytes; a larger one is refused), else the in-place one.
+// The scan is rte::trace_route's (culled, staged or in place), written to
+// *route for the wrapper to name and count.
 extern "C" int rte_chain_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
-    const float* o, const float* d, float* out, int n_rays, int staged, int max_depth,
+    const float* o, const float* d, float* out, int n_rays, int* route, int max_depth,
     float bias, float min_weight, void* stream) {
-  if (n_rays <= 0) return 0;
   const rte::Tables T = rte::with_culling(
       rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
                        light, light_cols, nl),
       taabb, n_blocks);
+  const rte::Route r = rte::trace_route(T);
+  *route = r;
+  if (n_rays <= 0) return 0;
   if (taabb && !rte::stageable(T)) return static_cast<int>(cudaErrorMisalignedAddress);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (staged) {
-    const int bytes = 16 * rte::stage_layout(T).n;
-    if (taabb || bytes > rte::kStageMaxBytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (r == rte::kStaged) {
     chain_trace_staged_kernel<kChainPacket>
-        <<<rte::ray_ctas(n_rays, kChainPacket), rte::kCtaThreads, bytes, s>>>(
+        <<<rte::ray_ctas(n_rays, kChainPacket), rte::kCtaThreads, rte::stage_bytes(T), s>>>(
             T, o, d, out, n_rays, max_depth, bias, min_weight);
-  } else if (taabb) {
+  } else if (r == rte::kCulled) {
     chain_trace_kernel<rte::CtaCulledTris><<<rte::ray_ctas(n_rays), rte::kCtaThreads, 0, s>>>(
         T, o, d, out, n_rays, max_depth, bias, min_weight);
   } else {
@@ -144,21 +143,18 @@ extern "C" int rte_chain_trace(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The staged route's rays per thread (kernels/chain_trace.py checks it).
-extern "C" int rte_chain_trace_packet() { return kChainPacket; }
-
-// CTAs per SM that the occupancy calculator gives each route: 0 in place,
-// 1 culled, 2 staged (at the largest stage).
+// CTAs per SM that the occupancy calculator gives each route (rte::Route;
+// the staged one at the largest stage).
 extern "C" int rte_chain_trace_occupancy(int route) {
   int n = 0;
   const cudaError_t e =
-      route == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &n, chain_trace_staged_kernel<kChainPacket>, rte::kCtaThreads,
-                       rte::kStageMaxBytes)
-      : route == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &n, chain_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &n, chain_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
+      route == rte::kStaged ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                  &n, chain_trace_staged_kernel<kChainPacket>, rte::kCtaThreads,
+                                  rte::kStageMaxBytes)
+      : route == rte::kCulled ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                    &n, chain_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
+                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                    &n, chain_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

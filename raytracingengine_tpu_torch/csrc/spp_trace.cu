@@ -107,28 +107,28 @@ __global__ void __launch_bounds__(rte::kCtaThreads, kSppStagedMinCtas) spp_trace
 
 }  // namespace
 
-// The route, as rte_chain_trace's.
+// The scan and *route as in rte_chain_trace.
 extern "C" int rte_spp_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
     const float* cam, const int* px, const int* py, float* out, int n_pixels, int width,
-    int height, int spp, uint32_t seed, int staged, int max_depth, float bias,
+    int height, int spp, uint32_t seed, int* route, int max_depth, float bias,
     float min_weight, void* stream) {
-  if (n_pixels <= 0) return 0;
   const rte::Tables T = rte::with_culling(
       rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
                        light, light_cols, nl),
       taabb, n_blocks);
+  const rte::Route r = rte::trace_route(T);
+  *route = r;
+  if (n_pixels <= 0) return 0;
   if (taabb && !rte::stageable(T)) return static_cast<int>(cudaErrorMisalignedAddress);
   const unsigned blocks = rte::ray_ctas(n_pixels);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (staged) {
-    const int bytes = 16 * rte::stage_layout(T).n;
-    if (taabb || bytes > rte::kStageMaxBytes) return static_cast<int>(cudaErrorInvalidValue);
-    spp_trace_staged_kernel<kSppPacket><<<blocks, rte::kCtaThreads, bytes, s>>>(
+  if (r == rte::kStaged) {
+    spp_trace_staged_kernel<kSppPacket><<<blocks, rte::kCtaThreads, rte::stage_bytes(T), s>>>(
         T, cam, px, py, out, n_pixels, width, height, spp, seed, max_depth, bias, min_weight);
-  } else if (taabb) {
+  } else if (r == rte::kCulled) {
     spp_trace_kernel<rte::CtaCulledTris><<<blocks, rte::kCtaThreads, 0, s>>>(
         T, cam, px, py, out, n_pixels, width, height, spp, seed, max_depth, bias,
         min_weight);
@@ -144,12 +144,12 @@ extern "C" int rte_spp_trace(
 extern "C" int rte_spp_trace_occupancy(int route) {
   int n = 0;
   const cudaError_t e =
-      route == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &n, spp_trace_staged_kernel<kSppPacket>, rte::kCtaThreads,
-                       rte::kStageMaxBytes)
-      : route == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &n, spp_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &n, spp_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
+      route == rte::kStaged ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                  &n, spp_trace_staged_kernel<kSppPacket>, rte::kCtaThreads,
+                                  rte::kStageMaxBytes)
+      : route == rte::kCulled ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                    &n, spp_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
+                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                    &n, spp_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

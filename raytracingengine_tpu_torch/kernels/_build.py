@@ -38,6 +38,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracingengine_tpu_torch"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 #: Per table: pointer, column count, primitive count (light: pointer,
 #: columns, count; mat: pointer, columns).
 _TABLE_ARGTYPES = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I]
@@ -109,15 +110,15 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's types."""
     path, _log = build()
     lib = ctypes.CDLL(str(path))
-    # o, d, out, n_rays, staged (kernels/chain_trace.py::trace_route)
+    # o, d, out, n_rays, route (out: the scan taken, kernels/chain_trace.py::ROUTES)
     lib.rte_chain_trace.argtypes = (
-        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _I, _I] + _TRACE_ARGTYPES
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _I, _IP] + _TRACE_ARGTYPES
     )
     lib.rte_chain_trace.restype = _I
-    # cam, px, py, out, n_pixels, width, height, spp, seed, staged
+    # cam, px, py, out, n_pixels, width, height, spp, seed, route (out)
     lib.rte_spp_trace.argtypes = (
         _TABLE_ARGTYPES + _CULL_ARGTYPES
-        + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I] + _TRACE_ARGTYPES
+        + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _IP] + _TRACE_ARGTYPES
     )
     lib.rte_spp_trace.restype = _I
     # o, d, g, d_o, d_d, n_rays, width (the thread-to-ray map's), states,
@@ -131,10 +132,9 @@ def load_library() -> ctypes.CDLL:
         + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad_dense.restype = _I
-    # CTAs per SM of each chain kernel (the trace kernels: route 0 in place,
-    # 1 culled, 2 staged; chain_grad_dense: culled or not, dynamic shared bytes)
-    lib.rte_chain_trace_packet.argtypes = []
-    lib.rte_chain_trace_packet.restype = _I
+    # CTAs per SM of each chain kernel (the trace kernels: by route code,
+    # kernels/chain_trace.py::ROUTES; chain_grad_dense: culled or not,
+    # dynamic shared bytes)
     for name, args in (("rte_chain_trace_occupancy", [_I]), ("rte_spp_trace_occupancy", [_I]),
                        ("rte_chain_grad_occupancy", [_I]),
                        ("rte_chain_grad_dense_occupancy", [_I, _I])):

@@ -30,18 +30,17 @@ chain (opaque: reflectiveness = specular) to `max_depth`, pruned by
     CTAs traverse the boxes together and stage the blocks their rays meet
     in shared memory; each ray skips every group and block whose box its
     segment misses (csrc/trace_common.cuh), which changes no result.
-  * `trace_route` names the scan a trace kernel takes for the tables:
-    "culled" for culled tables; for linear ones "staged" where their
-    16-byte stage (`stage_bytes`) fits STAGE_MAX_BYTES, the CTA copying
-    them into shared memory once and each thread tracing a packet of rays
-    (CHAIN_PACKET neighbouring rays in chain_trace, as many samples of a
-    pixel in spp_trace: csrc/spp_trace.cu::kSppPacket), else "in_place",
-    one ray per thread reading the tables where they lie. The wrappers
-    count launches per route in `routes`.
+  * The trace kernels choose their scan by the tables
+    (csrc/trace_common.cuh::trace_route) and report it: "culled" for
+    culled tables; for linear ones "staged" where their 16-byte stage fits
+    the kernels' limit, the CTA copying them into shared memory once and
+    each thread tracing a packet of rays (neighbouring rays in
+    chain_trace, samples of one pixel in spp_trace), else "in_place", one
+    ray per thread reading the tables where they lie. The wrappers count
+    launches per route in `routes` (names: ROUTES).
   * `thread_rays` mirrors the chain kernels' thread-to-ray map: the
-    identity (width 0), K rays a thread on the staged route, or, for the
-    head-box adjoint given the ray block's image width, 32x4 pixel tiles,
-    one row of 32 per warp.
+    identity (width 0), or, for the head-box adjoint given the ray block's
+    image width, 32x4 pixel tiles, one row of 32 per warp.
 
 It replaces raytracingengine_tpu/kernels/chain_trace.py::chain_trace_pallas
 (its per-ray body `_trace_tile`, `_closest_hit` and `_any_hit`, culled above
@@ -52,6 +51,7 @@ from device memory at every size, so one kernel does both.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -79,11 +79,9 @@ _PAD_INDEX = float(2**30)
 #: under the tile map (`thread_rays`; csrc/chain_grad.cu kTileW, kTileH).
 CTA_THREADS = 128
 CTA_TILE = (32, 4)
-#: The largest stage of linear tables (csrc/trace_common.cuh::kStageMaxBytes),
-#: and the staged route's rays per thread in chain_trace (csrc/chain_trace.cu::
-#: kChainPacket; `thread_rays`).
-STAGE_MAX_BYTES = 16384
-CHAIN_PACKET = 2
+#: The trace kernels' scans by the code their entry points report
+#: (csrc/trace_common.cuh::Route).
+ROUTES = ("in_place", "culled", "staged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,55 +400,35 @@ def pack_forward_tables_perm(flat: FlatScene, dmean: torch.Tensor | None = None)
 
 
 # ---------------------------------------------------------------------------
-# The trace kernels' routes and the chain kernels' thread-to-ray map
+# The chain kernels' thread-to-ray map
 # ---------------------------------------------------------------------------
 
 
-def stage_bytes(tables: SceneTables) -> int:
-    """Bytes of the staged route's copy of linear tables in shared memory
-    (csrc/trace_common.cuh::stage_layout): 16 per sphere and plane, 48 per
-    triangle, 32 per light and per material."""
-    prims = tables.n_primitives
-    return 16 * (tables.n_spheres + tables.n_planes + 3 * tables.n_triangles
-                 + 2 * tables.n_lights + 2 * prims)
-
-
-def trace_route(tables: SceneTables) -> str:
-    """The scan chain_trace and spp_trace take: "culled" for culled
-    tables; "staged" for linear tables whose stage fits STAGE_MAX_BYTES;
-    "in_place" for larger linear tables."""
-    if tables.culled:
-        return "culled"
-    return "staged" if stage_bytes(tables) <= STAGE_MAX_BYTES else "in_place"
-
-
-def map_ctas(n_rays: int, width: int, packet: int = 1) -> int:
+def map_ctas(n_rays: int, width: int) -> int:
     """CTAs of a chain kernel's launch over n_rays rays (csrc/chain_grad.cu::
-    map_ctas): one per CTA_THREADS * packet rays for width 0, else one per
-    CTA_TILE tile of the rows of `width` rays that hold them."""
+    map_ctas): one per CTA_THREADS rays for width 0, else one per CTA_TILE
+    tile of the rows of `width` rays that hold them."""
     if width <= 0:
-        return -(-n_rays // (CTA_THREADS * packet))
+        return -(-n_rays // CTA_THREADS)
     rows = -(-n_rays // width)
     return -(-width // CTA_TILE[0]) * -(-rows // CTA_TILE[1])
 
 
-def thread_rays(n_rays: int, width: int, device=None, packet: int = 1) -> torch.Tensor:
-    """int64 [map_ctas * CTA_THREADS * packet]: the rays each thread of a
-    chain kernel traces, in (CTA, thread, ray of the packet) order, -1 for
-    a slot with none. Width 0 (every chain kernel; csrc/trace_common.cuh::
-    ray_of_thread, and chain_trace's staged route with packet =
-    CHAIN_PACKET): thread t of CTA c takes rays packet (CTA_THREADS c + t)
-    + k, k < packet. Else (the head-box adjoint, packet 1;
+def thread_rays(n_rays: int, width: int, device=None) -> torch.Tensor:
+    """int64 [map_ctas * CTA_THREADS]: the ray each thread of a chain kernel
+    traces, in (CTA, thread) order, -1 for a thread with none. Width 0
+    (every chain kernel; csrc/trace_common.cuh::ray_of_thread): thread t of
+    CTA c takes ray CTA_THREADS c + t; on chain_trace's staged route each
+    thread takes the next rays in the same order, as a packet
+    (csrc/chain_trace.cu::kChainPacket). Else (the head-box adjoint;
     csrc/chain_grad.cu::ray_of_tile_thread) the rays are rows of `width`
     pixels, cut into CTA_TILE tiles in row-major order; thread t of a CTA
     takes the pixel (t % CTA_TILE[0], t // CTA_TILE[0]) of its tile, and
     the ray is row * width + column; a pixel past the width or past the
     last ray has none. Each ray is taken by exactly one thread, so warps of
-    32 * packet consecutive entries are the kernel's warps."""
-    if width > 0 and packet != 1:
-        raise ValueError(f"the tile map takes one ray a thread, got packet={packet}")
-    n_ctas = map_ctas(n_rays, width, packet)
-    t = torch.arange(n_ctas * CTA_THREADS * packet, dtype=torch.int64, device=device)
+    32 consecutive entries are the kernel's warps."""
+    n_ctas = map_ctas(n_rays, width)
+    t = torch.arange(n_ctas * CTA_THREADS, dtype=torch.int64, device=device)
     if width <= 0:
         return torch.where(t < n_rays, t, -1)
     c, k = t // CTA_THREADS, t % CTA_THREADS
@@ -871,8 +849,8 @@ def chain_trace(
     """[R,3] origins/directions -> [R,3] HDR radiance.
 
     CPU tensors run `trace_chain_plain`; CUDA tensors launch the CUDA
-    kernel (csrc/chain_trace.cu) on the current stream, by the scan of
-    `trace_route`, counted in `chain_trace.routes`."""
+    kernel (csrc/chain_trace.cu) on the current stream and counts the scan
+    it reports in `chain_trace.routes`."""
     _check_rays(o, d)
     check_tables(tables, o.device, culled_ok=True)
     if o.device.type == "cpu":
@@ -884,23 +862,23 @@ def chain_trace(
         raise ValueError("chain_trace: o and d must be contiguous")
     lib = _build.load_library()
     out = torch.empty_like(o)
-    route = trace_route(tables)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_chain_trace(
             *_build.table_args(tables), *_build.culling_args(tables),
-            o.data_ptr(), d.data_ptr(), out.data_ptr(), o.shape[0], int(route == "staged"),
+            o.data_ptr(), d.data_ptr(), out.data_ptr(), o.shape[0], ctypes.byref(route),
             cfg.max_depth, cfg.bias, cfg.min_weight, stream,
         )
     _build.check(lib, err, "chain_trace")
     chain_trace.launches += 1
-    chain_trace.routes[route] += 1
+    chain_trace.routes[ROUTES[route.value]] += 1
     return out
 
 
 def new_route_counts() -> dict[str, int]:
-    """Launches per `trace_route`, all 0."""
-    return {"staged": 0, "in_place": 0, "culled": 0}
+    """Launches per route (ROUTES), all 0."""
+    return dict.fromkeys(ROUTES, 0)
 
 
 #: Kernel launches since the last reset (the CPU path does not count), in

@@ -19,16 +19,18 @@ and the jitter of a pixel does not depend on how the frame is chunked.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from raytracingengine_tpu_torch.kernels import _build
 from raytracingengine_tpu_torch.kernels.chain_trace import (
+    ROUTES,
     SceneTables,
     check_no_grad,
     check_tables,
     new_route_counts,
     trace_chain_plain,
-    trace_route,
 )
 
 _MASK = 0xFFFFFFFF
@@ -148,8 +150,8 @@ def spp_trace(
     """Pixels px/py (int32 [R]) -> mean HDR [R, 3] over `camera.spp`.
 
     CPU tensors run `spp_trace_plain`; CUDA tensors launch the CUDA
-    kernel (csrc/spp_trace.cu) on the current stream, by the scan of
-    `trace_route`, counted in `spp_trace.routes`. Culled tables
+    kernel (csrc/spp_trace.cu) on the current stream and counts the scan
+    it reports in `spp_trace.routes`. Culled tables
     (`pack_forward_tables_perm`) are scanned with culling by the kernel and
     without by the plain version."""
     check_pixels(tables, camera, px, py, culled_ok=True)
@@ -162,22 +164,22 @@ def spp_trace(
     cam = torch.stack([camera.position[0], camera.position[1], camera.position[2],
                        camera.focal]).to(torch.float32).contiguous()
     out = torch.empty((px.shape[0], 3), dtype=torch.float32, device=px.device)
-    route = trace_route(tables)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_spp_trace(
             *_build.table_args(tables), *_build.culling_args(tables),
             cam.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(),
             px.shape[0], camera.width, camera.height, camera.spp, seed & _MASK,
-            int(route == "staged"), cfg.max_depth, cfg.bias, cfg.min_weight, stream,
+            ctypes.byref(route), cfg.max_depth, cfg.bias, cfg.min_weight, stream,
         )
     _build.check(lib, err, "spp_trace")
     spp_trace.launches += 1
-    spp_trace.routes[route] += 1
+    spp_trace.routes[ROUTES[route.value]] += 1
     return out
 
 
 #: Kernel launches since the last reset (the CPU path does not count), in
-#: all and per route (kernels/chain_trace.py::trace_route).
+#: all and per route (kernels/chain_trace.py::ROUTES).
 spp_trace.launches = 0
 spp_trace.routes = new_route_counts()

@@ -42,6 +42,8 @@ SCENES = {
     ),
     "glass_sphere": dict(fn="glass_sphere_scene", kw=dict(width=16, height=12, spp=1)),
     "stress": dict(fn="stress_scene", kw=dict(width=16, height=12)),
+    # unpadded, past the staged route's limit (tests/test_torch_staged.py)
+    "stress_338": dict(fn="stress_scene", kw=dict(n_spheres=338, pad_multiple=None, width=16, height=12)),
 }
 
 

@@ -1,19 +1,24 @@
 """PyTorch port, the trace kernels' routes on linear tables.
 
-chain_trace and spp_trace take linear tables whose 16-byte stage fits
-STAGE_MAX_BYTES through the staged scan (the CTA copies the tables into
+chain_trace and spp_trace take linear tables whose 16-byte stage fits the
+kernels' limit through the staged scan (the CTA copies the tables into
 shared memory once, each thread traces a packet of rays), and larger ones
-through the in-place scan (kernels/chain_trace.py::trace_route). On the
-CPU: the stage's size and the route of each scene, and that a CPU tensor
-counts no launch on any route. The tests marked `gpu` need a CUDA card:
-they hold each route's kernels to their plain versions under the seam
-budget (the head box at 64x48 with spp 1, 3 and 8, so that spp is not
-always a multiple of the packet; baseline spheres; the stress scene with
-337 spheres, one short of the limit, and with 338, past it), check which
-route each launch took, and hold the head box's staged frames to those of
-the head box padded past the limit (in place). They skip on a host without
-one.
+through the in-place scan; the entry points choose
+(csrc/trace_common.cuh::trace_route) and report the route, and the
+wrappers count it. On the CPU: a CPU tensor counts no launch on any route,
+and the plain versions' frames do not change when the tables are padded
+(padded slots never hit, their lights emit 0), which the route check on the
+card relies on. The tests marked `gpu` need a CUDA card: they hold each
+route's kernels to their plain versions under the seam budget (the head box
+at 64x48 with spp 1, 3 and 8, so that spp is not always a multiple of the
+packet, and at max_depth 1; baseline spheres; the stress scene with 337
+spheres, one short of the limit, and with 338, past it), check which route
+each launch took, and require the head box's staged frames to equal those
+of the head box padded past the limit (in place). They skip on a host
+without one.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,53 +34,54 @@ from raytracingengine_tpu_torch.scenes import builders
 torch.set_num_threads(2)
 
 CFG = RenderConfig(shadow_mode="binary", use_pallas=True)
+DEPTH1 = dataclasses.replace(CFG, max_depth=1)
 
-#: name -> (builder, keyword arguments, stage bytes, route)
+#: name -> (builder, keyword arguments, the route its kernels take)
 SCENES = {
-    "head_box": (builders.head_box_scene, {}, 16 * (5 + 3 * 12 + 2 * 2 + 2 * 17), "staged"),
-    "spheres": (builders.baseline_sphere_scene, dict(n_lights=2), 16 * (3 + 1 + 2 * 2 + 2 * 4),
-                "staged"),
-    # 128 slots of spheres, planes and lights: the largest linear tables of
-    # the repo's scenes, exactly at the limit
-    "stress": (builders.stress_scene, {}, 16 * (128 + 128 + 2 * 128 + 2 * 256), "staged"),
-    # unpadded, with one sphere less and one more than the limit holds
-    "stress_337": (builders.stress_scene, dict(n_spheres=337, pad_multiple=None),
-                   16 * (337 + 1 + 2 * 4 + 2 * 338), "staged"),
-    "stress_338": (builders.stress_scene, dict(n_spheres=338, pad_multiple=None),
-                   16 * (338 + 1 + 2 * 4 + 2 * 339), "in_place"),
-    # planes, triangles and lights padded to 128 slots: past the limit
-    "head_box_pad128": (builders.head_box_scene, dict(pad_multiple=128),
-                        16 * (128 + 3 * 128 + 2 * 128 + 2 * 256), "in_place"),
+    "head_box": (builders.head_box_scene, {}, "staged"),
+    "spheres": (builders.baseline_sphere_scene, dict(n_lights=2), "staged"),
+    # unpadded, with one sphere less and one more than the stage holds
+    # (16 bytes per sphere and plane, 32 per light and per material)
+    "stress_337": (builders.stress_scene, dict(n_spheres=337, pad_multiple=None), "staged"),
+    "stress_338": (builders.stress_scene, dict(n_spheres=338, pad_multiple=None), "in_place"),
+    # planes, triangles and lights padded to 16 and to 128 slots (past the limit)
+    "head_box_pad16": (builders.head_box_scene, dict(pad_multiple=16), "staged"),
+    "head_box_pad128": (builders.head_box_scene, dict(pad_multiple=128), "in_place"),
 }
 
 
 def scene_tables(name, width, height, spp, device):
-    fn, kw, _, _ = SCENES[name]
+    fn, kw, _ = SCENES[name]
     scene, cam = fn(width=width, height=height, spp=spp, device=device, **kw)
     return cam, ct.pack_scene_tables(flatten_scene(scene))
 
 
-def test_stage_size_and_route():
-    for name, (_, _, size, route) in SCENES.items():
-        _, tables = scene_tables(name, 8, 6, 1, "cpu")
-        assert ct.stage_bytes(tables) == size, name
-        assert ct.trace_route(tables) == route, name
-        assert (size <= ct.STAGE_MAX_BYTES) == (route == "staged"), name
-
-
-def test_culled_tables_take_the_culled_route():
-    scene, cam = builders.dense_mesh_scene(8, 8, ni=12, nj=16, device="cpu")
-    tables = ct.pack_forward_tables_perm(flatten_scene(scene))
-    assert ct.trace_route(tables) == "culled"
+def trace_pair(tables, cam, cfg, spp_seed=11):
+    """(chain_trace of the camera's pixel rays, spp_trace of its pixels)."""
+    px, py = cam.pixel_grid()
+    o, d = cam.rays_for_pixels(px, py)
+    return (ct.chain_trace(tables, o.contiguous(), d, cfg),
+            st.spp_trace(tables, cam, px, py, cfg, seed=spp_seed))
 
 
 def test_cpu_tensors_count_no_route():
     cam, tables = scene_tables("head_box", 8, 6, 3, "cpu")
     routes = (dict(ct.chain_trace.routes), dict(st.spp_trace.routes))
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
-    ct.chain_trace(tables, o.contiguous(), d, CFG)
-    st.spp_trace(tables, cam, *cam.pixel_grid(), CFG, seed=3)
+    trace_pair(tables, cam, CFG)
     assert (ct.chain_trace.routes, st.spp_trace.routes) == routes
+
+
+def test_plain_frames_ignore_padded_slots():
+    """The head box and the head box padded to 16 slots per family give
+    equal frames through the plain versions (chain_trace's and spp_trace's
+    at spp 3, on a ragged 13x7 image, at the default depth and at
+    max_depth 1): the premise of the card's staged-vs-in-place check."""
+    for cfg in (CFG, DEPTH1):
+        frames = [trace_pair(tables, cam, cfg) for cam, tables in (
+            scene_tables("head_box", 13, 7, 3, "cpu"),
+            scene_tables("head_box_pad16", 13, 7, 3, "cpu"))]
+        for name, a, b in zip(("chain_trace", "spp_trace"), *frames):
+            assert torch.equal(a, b), (name, cfg.max_depth)
 
 
 @pytest.fixture
@@ -85,52 +91,58 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def run_route(name, spp, device, width=64, height=48, plain=True):
+def run_route(name, spp, device, cfg=CFG, width=64, height=48, plain=True):
     """The kernel of `name` at spp (chain_trace at 1, else spp_trace) and,
     with `plain`, its plain version -> (kernel output, plain output or
     None); asserts one launch on the scene's route."""
     cam, tables = scene_tables(name, width, height, spp, device)
-    route = SCENES[name][3]
+    route = SCENES[name][2]
+    case = (name, spp, cfg.max_depth)
     if spp == 1:
         o, d = cam.rays_for_pixels(*cam.pixel_grid())
         o = o.contiguous()
         before = ct.chain_trace.routes[route]
-        ours = ct.chain_trace(tables, o, d, CFG)
-        assert ct.chain_trace.routes[route] == before + 1
-        ref = ct.trace_chain_plain(tables, o, d, CFG) if plain else None
+        ours = ct.chain_trace(tables, o, d, cfg)
+        assert ct.chain_trace.routes[route] == before + 1, (case, ct.chain_trace.routes)
+        ref = ct.trace_chain_plain(tables, o, d, cfg) if plain else None
     else:
         px, py = cam.pixel_grid()
         before = st.spp_trace.routes[route]
-        ours = st.spp_trace(tables, cam, px, py, CFG, seed=11)
-        assert st.spp_trace.routes[route] == before + 1
-        ref = st.spp_trace_plain(tables, cam, px, py, CFG, seed=11) if plain else None
+        ours = st.spp_trace(tables, cam, px, py, cfg, seed=11)
+        assert st.spp_trace.routes[route] == before + 1, (case, st.spp_trace.routes)
+        ref = st.spp_trace_plain(tables, cam, px, py, cfg, seed=11) if plain else None
     torch.cuda.synchronize()
     return ours, ref
 
 
-#: (scene, spp) of the gpu checks against the plain versions
-ROUTE_CASES = [("head_box", 1), ("head_box", 3), ("head_box", 8), ("spheres", 1), ("spheres", 3),
-               ("stress_337", 1), ("stress_337", 3), ("stress_338", 1), ("stress_338", 3)]
+#: (scene, spp, config) of the gpu checks against the plain versions
+ROUTE_CASES = [("head_box", 1, CFG), ("head_box", 3, CFG), ("head_box", 8, CFG),
+               ("head_box", 1, DEPTH1), ("head_box", 3, DEPTH1),
+               ("spheres", 1, CFG), ("spheres", 3, CFG),
+               ("stress_337", 1, CFG), ("stress_337", 3, CFG),
+               ("stress_338", 1, CFG), ("stress_338", 3, CFG)]
 
 
 @pytest.mark.gpu
 def test_cuda_route_matches_plain(cuda_device):
-    for name, spp in ROUTE_CASES:
-        ours, ref = run_route(name, spp, cuda_device)
+    for name, spp, cfg in ROUTE_CASES:
+        ours, ref = run_route(name, spp, cuda_device, cfg)
         report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-        print(f"{name} spp={spp}: {report}")
-        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, spp, report)
+        print(f"{name} spp={spp} max_depth={cfg.max_depth}: {report}")
+        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, spp, cfg.max_depth, report)
 
 
 @pytest.mark.gpu
 def test_cuda_routes_agree_on_padded_tables(cuda_device):
     """The head box on the staged route and padded past the stage limit on
-    the in-place one, at spp 1 and 3: padded slots never hit and their
-    lights emit 0, so the two frames agree under the seam budget; a ragged
+    the in-place one, at spp 1 and 3, at the default depth and at max_depth
+    1: padded slots never hit, their lights emit 0, and each ray's
+    arithmetic is the same on both routes, so the frames are equal; a ragged
     pixel count (37x11) leaves a packet part empty."""
-    for spp in (1, 3):
-        staged, _ = run_route("head_box", spp, cuda_device, 37, 11, plain=False)
-        in_place, _ = run_route("head_box_pad128", spp, cuda_device, 37, 11, plain=False)
-        report = seam_budget(staged.cpu().numpy(), in_place.cpu().numpy())
-        print(f"spp={spp}: staged vs in place {report}, bit-identical {torch.equal(staged, in_place)}")
-        assert report.ok, (spp, report)
+    for cfg in (CFG, DEPTH1):
+        for spp in (1, 3):
+            staged, _ = run_route("head_box", spp, cuda_device, cfg, 37, 11, plain=False)
+            in_place, _ = run_route("head_box_pad128", spp, cuda_device, cfg, 37, 11, plain=False)
+            report = seam_budget(staged.cpu().numpy(), in_place.cpu().numpy())
+            print(f"spp={spp} max_depth={cfg.max_depth}: staged vs in place {report}")
+            assert torch.equal(staged, in_place), (spp, cfg.max_depth, report)

@@ -2,8 +2,7 @@
 on the CPU.
 
 `kernels/chain_trace.py::thread_rays` mirrors the kernels' maps
-(csrc/trace_common.cuh::ray_of_thread, the identity; chain_trace's staged
-route, a packet of consecutive rays per thread; csrc/chain_grad.cu::
+(csrc/trace_common.cuh::ray_of_thread, the identity; csrc/chain_grad.cu::
 ray_of_tile_thread, CTAs of 32x4 pixels, a row of 32 per warp, where the
 ray block's image width is given): it must take every ray exactly once,
 and be the identity for width 0. `roofline.chain_work` counts the blocks a culled scan
@@ -49,24 +48,6 @@ def test_thread_rays_width_zero_is_identity(n):
     t = ct.thread_rays(n, 0)
     assert t.shape[0] == ct.map_ctas(n, 0) * ct.CTA_THREADS
     assert torch.equal(t[:n], torch.arange(n)) and bool((t[n:] == -1).all())
-
-
-def test_thread_rays_packet_map():
-    """The staged route's map (csrc/chain_trace.cu::chain_trace_staged_kernel):
-    thread g takes the `packet` consecutive rays packet * g + k; every ray
-    is taken exactly once, the last CTA's ragged end holds -1, and a warp
-    covers 32 * packet consecutive rays. Ray counts: one, ragged, whole
-    CTAs of packets."""
-    for n, packet in ((1, 2), (255, 2), (256, 2), (300, 2), (517, 4), (300, 1)):
-        t = ct.thread_rays(n, 0, packet=packet)
-        assert t.shape[0] == ct.map_ctas(n, 0, packet) * ct.CTA_THREADS * packet
-        assert ct.map_ctas(n, 0, packet) == -(-n // (ct.CTA_THREADS * packet))
-        assert torch.equal(t[t >= 0], torch.arange(n)) and bool((t[n:] == -1).all())
-        for g, rays in enumerate(t.view(-1, packet)):
-            ok = rays >= 0
-            assert torch.equal(rays[ok], packet * g + torch.arange(packet)[ok]), (n, packet, g)
-    with pytest.raises(ValueError):
-        ct.thread_rays(300, 32, packet=2)
 
 
 def _mesh_rays(size=8):
