@@ -1,10 +1,21 @@
 #!/usr/bin/env python3
-"""Time the chain kernels of the checkout this script sits in, on one CUDA
-card, as render_hdr and the training step call them:
+"""Time the kernels of the checkout this script sits in, on one CUDA card,
+as render_hdr and the training steps call them:
 
   head box 1920x1080   chain_trace, chain_grad (with the frame width where
                        its wrapper takes one), spp_trace at spp=8; spp_trace
                        at 1000x1000 spp=32
+  adjoints (head box   chain_trace without and with its tape, chain_grad
+  and glass sphere,    fed by the taping forward where the checkout has one,
+  1920x1080)           chain_grad_dense on the head box's tables;
+                       wavefront_trace without and with its counts and
+                       wavefront_grad (march and binary shadows); the
+                       head-box and glass training steps (8-step warm-up;
+                       the head box's at the whole frame and at
+                       render_hdr's default chunk_size):
+                       wall time with the host running ahead and with a
+                       synchronise after every step, device time under
+                       torch.profiler, and peak device memory
   dense_mesh_scene     culled chain_trace and chain_grad_dense (tables
   512x512, 6,016 and   ordered along the mean ray), culled spp_trace at
   50,800 triangles     spp=8 (tables in no order)
@@ -15,8 +26,8 @@ loads (LDG, LDS, LDC, ULDC), the fp32 arithmetic (FMUL, FADD, FFMA), MUFU
 and branches, over the function and over each innermost loop of at least
 30 fp32 instructions (the triangle tests' loops), so that two versions'
 code can be told apart beside their times. Beside each head-box time it
-prints a hash of the kernel's output, so that two versions' outputs can be
-seen to be bit-identical.
+prints a hash of the kernel's output (the adjoints: of d_o and d_d), so
+that two versions' outputs can be seen to be bit-identical.
 
 The script uses only the package's public wrappers, so it runs the same in
 two checkouts: copy it into each (unpacked from `git archive`) and run them
@@ -27,6 +38,9 @@ line is one JSON object of ms per kernel and shape.
 Run on a machine with one CUDA card:
     python3 chip_kernel_times.py              # every kernel above
     python3 chip_kernel_times.py --head-box   # the head-box kernels only
+    python3 chip_kernel_times.py --adjoints   # the adjoints, their forwards, the steps
+    python3 chip_kernel_times.py --chain-grad # chain_trace and chain_grad only, no reports
+    python3 chip_kernel_times.py --glass-step # the glass training step only, no reports
 """
 
 from __future__ import annotations
@@ -102,9 +116,180 @@ def out_hash(t) -> str:
     return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()[:12]
 
 
+def takes(fn, name: str) -> bool:
+    """Does the wrapper `fn` take the keyword `name` (this checkout's API)?"""
+    return name in inspect.signature(fn).parameters
+
+
+def time_adjoints(dev, show, time_ms, glass_step_only: bool = False) -> None:
+    """The adjoints and their forwards at 1080p, then the two training steps
+    (see the module docstring); with `glass_step_only`, the glass training
+    step alone. A checkout whose chain_trace takes `tape` (wavefront_trace
+    `count`) feeds its adjoint from the taping (counting) forward; an older
+    one calls the adjoint on the rays alone."""
+    import dataclasses
+
+    import torch
+
+    from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+    from raytracingengine_tpu_torch.kernels import chain_grad as cg
+    from raytracingengine_tpu_torch.kernels import chain_trace as ct
+    from raytracingengine_tpu_torch.kernels import wavefront_grad as wg
+    from raytracingengine_tpu_torch.kernels import wavefront_trace as wt
+    from raytracingengine_tpu_torch.parity import ray_cot_seam_budget
+    from raytracingengine_tpu_torch.render.config import RenderConfig
+    from raytracingengine_tpu_torch.scenes import (
+        baseline_sphere_scene,
+        glass_sphere_scene,
+        head_box_scene,
+    )
+
+    def flips(label: str, out, ref) -> None:
+        """The ray cotangents' seam-flip pixels against the plain version
+        (chip_smoke.py's PARENT_FLIPS take these of a parent checkout)."""
+        reports = [ray_cot_seam_budget(a.cpu().numpy(), b.cpu().numpy())
+                   for a, b in ((out[1], ref[1]), (out[2], ref[2]))]
+        print(f"  {label}: seam-flip pixels against the plain version d_o {reports[0].flips}, "
+              f"d_d {reports[1].flips} (in budget: {all(r.ok for r in reports)})", flush=True)
+
+    sync = torch.cuda.synchronize
+    mean_sq = lambda img, _target: (img * img).mean()  # noqa: E731
+    steps = (
+        ("head-box training step 1080p", head_box_scene,
+         RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=W1080 * H1080)),
+        ("glass training step 1080p", glass_sphere_scene,
+         RenderConfig(use_pallas=True, chunk_size=W1080 * H1080)),
+        # render_hdr's default chunk: 127 chunks of 16,384 rays, each chunk's
+        # tape (where there is one) held until the backward
+        (f"head-box training step 1080p, chunk_size {RenderConfig().chunk_size}", head_box_scene,
+         RenderConfig(shadow_mode="binary", use_pallas=True)),
+    )
+    if glass_step_only:
+        time_steps(dev, show, time_ms, mean_sq, steps[1:2])
+        return
+    rays = lambda cam: [x.contiguous() for x in cam.rays_for_pixels(*cam.pixel_grid())]  # noqa: E731
+    cfg = RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=W1080 * H1080)
+    scene, cam = head_box_scene(width=W1080, height=H1080, spp=1, device=dev)
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    o, d = rays(cam)
+    img = ct.chain_trace(tables, o, d, cfg)
+    g = (2.0 * img / img.numel()).contiguous()
+    show("chain_trace head box 1080p", time_ms(lambda: ct.chain_trace(tables, o, d, cfg), 20), img)
+    kw = {"width": W1080} if takes(cg.chain_grad, "width") else {}
+    if takes(ct.chain_trace, "tape"):
+        img_t, kw["tape"] = ct.chain_trace(tables, o, d, cfg, tape=True)
+        show("chain_trace taping head box 1080p",
+             time_ms(lambda: ct.chain_trace(tables, o, d, cfg, tape=True), 20), img_t)
+    out = cg.chain_grad(tables, o, d, g, cfg, **kw)
+    show("chain_grad head box 1080p", time_ms(lambda: cg.chain_grad(tables, o, d, g, cfg, **kw), 10),
+         out[1], out[2])
+    flips("chain_grad head box 1080p", out, cg.chain_grad_plain(tables, o, d, g, cfg))
+    out = cg.chain_grad_dense(tables, o, d, g, cfg)
+    show("chain_grad_dense head box 1080p",
+         time_ms(lambda: cg.chain_grad_dense(tables, o, d, g, cfg), 10), out[1], out[2])
+    # baseline spheres (2 lights): the sphere pullback, flips only
+    b_scene, b_cam = baseline_sphere_scene(W1080, H1080, spp=1, n_lights=2, device=dev)
+    b_tables = ct.pack_scene_tables(flatten_scene(b_scene))
+    b_o, b_d = rays(b_cam)
+    b_img = ct.chain_trace(b_tables, b_o, b_d, cfg)
+    b_g = (2.0 * b_img / b_img.numel()).contiguous()
+    if "tape" in kw:
+        kw["tape"] = ct.chain_trace(b_tables, b_o, b_d, cfg, tape=True)[1]
+    flips("chain_grad spheres 1080p", cg.chain_grad(b_tables, b_o, b_d, b_g, cfg, **kw),
+          cg.chain_grad_plain(b_tables, b_o, b_d, b_g, cfg))
+    del out, kw, img, g, o, d, b_o, b_d, b_img, b_g
+
+    glass, gcam = glass_sphere_scene(W1080, H1080, spp=1, device=dev)
+    g_tables = ct.pack_scene_tables(flatten_scene(glass))
+    go, gd = rays(gcam)
+    glass_cfg = RenderConfig(use_pallas=True, chunk_size=W1080 * H1080)
+    for mode, gcfg in (("march", glass_cfg),
+                       ("binary", dataclasses.replace(glass_cfg, shadow_mode="binary")),
+                       # the JAX package's deep-TIR adjoint test's config
+                       ("deep TIR", dataclasses.replace(glass_cfg, max_depth=6, wavefront_budget=100))):
+        img = wt.wavefront_trace(g_tables, go, gd, gcfg)
+        show(f"wavefront_trace glass 1080p {mode}",
+             time_ms(lambda: wt.wavefront_trace(g_tables, go, gd, gcfg), 20), img)
+        kw = {}
+        if takes(wt.wavefront_trace, "count"):
+            img_c, kw["warp_pops"] = wt.wavefront_trace(g_tables, go, gd, gcfg, count=True)
+            show(f"wavefront_trace counting glass 1080p {mode}",
+                 time_ms(lambda: wt.wavefront_trace(g_tables, go, gd, gcfg, count=True), 20), img_c)
+        gg = (2.0 * img / img.numel()).contiguous()
+        out = wg.wavefront_grad(g_tables, go, gd, gg, gcfg, **kw)
+        show(f"wavefront_grad glass 1080p {mode}",
+             time_ms(lambda: wg.wavefront_grad(g_tables, go, gd, gg, gcfg, **kw), 10), out[1], out[2])
+        flips(f"wavefront_grad glass 1080p {mode}", out,
+              wg.wavefront_grad_plain(g_tables, go, gd, gg, gcfg))
+    del out, img, gg, kw, go, gd
+
+    time_steps(dev, show, time_ms, mean_sq, steps)
+
+
+def time_steps(dev, show, time_ms, loss_fn, steps) -> None:
+    """Each training step of `steps` ((label, scene builder, config)) at
+    1080p after an 8-step warm-up: wall time with the host running ahead
+    and synchronised after every step, device time under the profiler,
+    and peak device memory."""
+    import dataclasses
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracingengine_tpu_torch.inverse import make_train_step, partition
+
+    sync = torch.cuda.synchronize
+    for label, make, step_cfg in steps:
+        s_scene, s_cam = make(width=W1080, height=H1080, spp=1, device=dev)
+        params, static = partition(s_scene)
+        focal = s_cam.focal.clone().requires_grad_(True)
+        s_cam = dataclasses.replace(s_cam, focal=focal)
+        opt = torch.optim.SGD([*params.values(), focal], lr=1e-6)
+        train = make_train_step(s_cam, step_cfg, opt, loss_fn=loss_fn)
+        step = lambda: train(params, static, None)  # noqa: E731
+        for _ in range(8):  # the glass trees grow over the first steps
+            step()
+        show(f"{label}, host running ahead (CUDA events)", time_ms(step, 10))
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+            sync()
+        show(f"{label}, synchronised after every step (host clock)",
+             (time.perf_counter() - t0) * 1e3 / 10)
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            sync()
+        kernel_ms = {e.key: getattr(e, "device_time_total", 0.0) / 3e3 for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")}
+        show(f"{label}, device time under the profiler", sum(kernel_ms.values()))
+        ours = {}  # the repo's kernels by name (a template's instantiations together)
+        for k, v in kernel_ms.items():
+            m = re.search(r"(chain|wavefront|partials)_\w*kernel", k)
+            if m:
+                ours[m.group(0)] = ours.get(m.group(0), 0.0) + v
+        print(f"  {label}: device ms per step by kernel " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(ours.items())), flush=True)
+        print(f"  {label}: peak device memory {peak:.1f} MiB", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--head-box", action="store_true", help="time the head-box kernels only")
+    parser.add_argument("--adjoints", action="store_true",
+                        help="time the adjoints, their forwards and the training steps only")
+    parser.add_argument("--glass-step", action="store_true",
+                        help="time the glass training step only, without the build and SASS "
+                             "reports (for many runs in turns)")
+    parser.add_argument("--chain-grad", action="store_true",
+                        help="time chain_trace and chain_grad on the head box only, without the "
+                             "build and SASS reports (for many runs in turns)")
     args = parser.parse_args()
     import torch
 
@@ -124,11 +309,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     lib_path, log = _build.build()
-    for line in log.splitlines():
+    quiet = args.chain_grad or args.glass_step
+    for line in log.splitlines() if not quiet else ():
         if "Compiling entry function" in line or "registers" in line or "stack frame" in line:
             print("  ptxas " + line.strip())
-    for fn, instrs in sorted(sass_functions(lib_path).items()):
-        if "chain_trace" in fn or "spp_trace" in fn or "chain_grad" in fn:
+    for fn, instrs in sorted(sass_functions(lib_path).items()) if not quiet else ():
+        if any(k in fn for k in ("chain_trace", "spp_trace", "chain_grad", "wavefront")):
             print(f"  sass {fn}: {opcode_mix(instrs)}")
             if "trace" in fn:
                 for start, end, body in hot_loops(instrs):
@@ -149,10 +335,16 @@ def main() -> int:
 
     times = {}
 
-    def show(name: str, ms: float, out=None) -> None:
+    def show(name: str, ms: float, *outs) -> None:
         times[name] = ms
-        digest = f", output sha1 {out_hash(out)}" if out is not None else ""
+        digest = f", output sha1 {' '.join(out_hash(x) for x in outs)}" if outs else ""
         print(f"  {name}: {ms:.3f} ms{digest} [{card}]", flush=True)
+
+    if args.adjoints or args.glass_step:
+        time_adjoints(dev, show, time_ms, glass_step_only=args.glass_step)
+        print(card)
+        print(json.dumps({"ms": times, "card": card}))
+        return 0
 
     # the head box, linear tables
     cfg = RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=W1080 * H1080)
@@ -163,20 +355,27 @@ def main() -> int:
     o = o.contiguous()
     img = ct.chain_trace(tables, o, d, cfg)
     g = (2.0 * img / img.numel()).contiguous()
-    grad_kw = {"width": W1080} if "width" in inspect.signature(cg.chain_grad).parameters else {}
+    grad_kw = {"width": W1080} if takes(cg.chain_grad, "width") else {}
+    if takes(ct.chain_trace, "tape"):
+        grad_kw["tape"] = ct.chain_trace(tables, o, d, cfg, tape=True)[1]
     _, cam8 = head_box_scene(width=W1080, height=H1080, spp=8, device=dev)
     _, cam32 = head_box_scene(width=1000, height=1000, spp=32, device=dev)
     px32, py32 = cam32.pixel_grid()
     show("chain_trace head box 1080p", time_ms(lambda: ct.chain_trace(tables, o, d, cfg), 20), img)
     show("chain_grad head box 1080p",
-         time_ms(lambda: cg.chain_grad(tables, o, d, g, cfg, **grad_kw), 10))
+         time_ms(lambda: cg.chain_grad(tables, o, d, g, cfg, **grad_kw), 10),
+         *cg.chain_grad(tables, o, d, g, cfg, **grad_kw)[1:])
+    if args.chain_grad:
+        print(card)
+        print(json.dumps({"ms": times, "card": card}))
+        return 0
     show("spp_trace head box 1080p spp=8",
          time_ms(lambda: st.spp_trace(tables, cam8, px, py, cfg, seed=1234), 10),
          st.spp_trace(tables, cam8, px, py, cfg, seed=1234))
     show("spp_trace head box 1000x1000 spp=32",
          time_ms(lambda: st.spp_trace(tables, cam32, px32, py32, cfg, seed=7), 5),
          st.spp_trace(tables, cam32, px32, py32, cfg, seed=7))
-    del o, d, img, g
+    del o, d, img, g, grad_kw
     if args.head_box:
         print(card)
         print(json.dumps({"ms": times, "card": card}))

@@ -8,8 +8,9 @@ training step at full resolution, and times kernels against plain versions:
 
   1. device     nvidia-smi name and power limit; exits non-zero without CUDA
   2. build      nvcc build of csrc/*.cu (sm_90a), with ptxas' register report
-                and the trace kernels' CTAs per SM on each route (occupancy
-                calculator)
+                and the trace kernels' CTAs per SM on each route, the taping
+                chain_trace's and the counting wavefront_trace's too
+                (occupancy calculator)
   3. chain      chain_trace vs trace_chain_plain, head box 1920x1080 spp=1 rays
                 (the staged route: linear tables in shared memory, packets of
                 rays)
@@ -20,24 +21,33 @@ training step at full resolution, and times kernels against plain versions:
                 the launch counters (in all and per route) reset before and
                 read after; PNGs to out/
   8. timing     CUDA events after warm-up, kernel and plain version in turns;
-                the training steps with the host running ahead and synchronised
-                after every step; each step's device time by kernel from the
-                profiler; each kernel's roofline bound from this run's work
-                counts; chain_grad_dense on the head box's tables (not culled)
-                held to chain_grad and timed beside it; chain_grad under the
-                identity thread-to-ray map beside the main path's 32x4 pixel
-                tiles; the fill probe
+                the taping chain_trace and the counting wavefront_trace; the
+                training steps with the host running ahead and synchronised
+                after every step, and their peak device memory; each step's
+                device time by kernel from the profiler (the glass step runs
+                no counting kernel of its own); each kernel's roofline bound
+                from this run's work counts; chain_grad_dense on the head
+                box's tables (not culled) held to chain_grad and timed beside
+                it; chain_grad under the identity thread-to-ray map beside the
+                main path's 32x4 pixel tiles; the fill probe
                 (50,800 triangles at 1024^2 against 512^2); the adjoints' CTAs
                 per SM; the culled scans' blocks per lane, per warp and per CTA
                 (roofline.py)
-  9. grad       chain_grad vs chain_grad_plain, head box 1920x1080 with the main
-                path's camera, g = d mean(img^2) / d img; run-to-run spread;
-                then the same on baseline spheres (2 lights), whose sphere
-                rows the head box has none of
+  9. grad       chain_grad, fed from the taping chain_trace (whose frame must
+                equal chain_trace's), vs chain_grad_plain, head box 1920x1080
+                with the main path's camera, g = d mean(img^2) / d img;
+                run-to-run spread (<= 1e-4 of each output's largest entry);
+                the ray cotangents' flips beside the parent's; under the
+                main path's 32x4 pixel-tile map and the identity map (width
+                0, render_hdr's where a chunk is not whole rows); its shadow
+                scans on the staged route; then the same on baseline spheres
+                (2 lights), whose sphere rows the head box has none of
  10. train      the training step of bench.py:95-124 through the entry points:
                 head box 1920x1080, partition -> make_train_step with
                 torch.optim.SGD(lr=1e-6) on mean(img^2), 8 steps, the launch
-                counters reset before and read after; then its time per step
+                counters reset before and read after: 8 taping chain_trace
+                launches and 8 of chain_grad on the staged route; then its
+                time per step
  11. glass      wavefront_trace vs trace_wavefront_plain (march and binary
                 shadows) and wavefront_spp_trace vs its plain version (spp=8,
                 same seed) on glass_sphere_scene 1920x1080 with the main path's
@@ -46,15 +56,22 @@ training step at full resolution, and times kernels against plain versions:
                 RenderConfig(use_pallas=True, chunk_size=whole frame), as
                 bench.py:160-193 calls it, the launch counters reset before and
                 read after; the spp=1 frame equals phase 11's kernel output
- 13. glass grad wavefront_grad vs wavefront_grad_plain on glass_sphere_scene
-                1920x1080 with the main path's camera, g = d mean(img^2) / d img,
-                march and binary shadows: ray cotangents, table rows, run-to-run
-                spread, flips beside phase 11's, dropped pushes
+ 13. glass grad wavefront_grad, fed from the counting wavefront_trace (whose
+                frame must equal wavefront_trace's), vs wavefront_grad_plain
+                on glass_sphere_scene 1920x1080 with the main path's camera,
+                g = d mean(img^2) / d img, march and binary shadows and the
+                deep-TIR config (max_depth 6, budget 100): ray cotangents,
+                table rows, run-to-run spread (<= 1e-4), flips beside phase
+                11's and the parent's, dropped pushes; a tape overrun raises
+                in the call that made it, or in the backward pass that made
+                it (counts one short in one warp must raise, both ways)
  14. glass train the glass training step of bench.py:195-231 through the entry
                 points: glass sphere at 256x256 and 1920x1080, partition ->
                 make_train_step with SGD(lr=1e-6) on mean(img^2), the camera
                 focal trained too, 8 steps per size, the launch counters reset
-                before and read after each size
+                before and read after each size: 8 counting wavefront_trace
+                launches and 8 of wavefront_grad, none of them raising on a
+                tape overrun on the trained scene
  15. dense      the culled chain_trace vs trace_chain_plain on the culled tables
                 (which scans without culling) on dense_mesh_scene at 512x512,
                 6,016 and 50,800 triangles; the culled spp_trace vs its plain
@@ -81,7 +98,16 @@ training step at full resolution, and times kernels against plain versions:
                 the head box padded to 128 slots per family (in place) must
                 equal the head box's (staged), at the default depth and at
                 max_depth 1: padded slots never hit, their lights emit 0, and
-                each ray's arithmetic is the same on both routes
+                each ray's arithmetic is the same on both routes. Then the
+                head-box adjoint's two routes (csrc/trace_common.cuh::
+                grad_route), chain_grad fed from the taping chain_trace: the
+                staged one vs chain_grad_plain on stress_scene with 337
+                spheres (the ray cotangents and every table row but the
+                spheres', whose gap it prints with a witness: the same rows
+                with g zeroed on the seam-flip rays); the head box's and the
+                padded head box's d_o and d_d (staged, in place), and the
+                stress scene's and its padded copy's, must be equal bit for
+                bit, at the default depth and at max_depth 1
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -118,6 +144,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 W1080, H1080 = 1920, 1080
+#: The ray-cotangent seam-flip pixels (d_o, d_d) of the adjoints against
+#: their plain versions at phases 9 and 13's shapes, as the tree before the
+#: adjoints took the forward's tape and counts measured them
+#: (chip_kernel_times.py --adjoints on that tree, NVIDIA H100 80GB HBM3,
+#: 700 W; PERF.md §6).
+PARENT_FLIPS = {"head box": (12, 12), "spheres": (0, 0), "glass march": (0, 0),
+                "glass binary": (0, 0), "glass deep TIR": (0, 0)}
 
 
 def card_line() -> str:
@@ -161,8 +194,10 @@ def main() -> int:
         WavefrontWork,
         adjoint_bytes,
         bound_ms,
+        chain_tape_bytes,
         chain_work,
         trace_bytes,
+        taped_adjoint_bytes,
         wavefront_work,
         work_ops,
     )
@@ -198,11 +233,14 @@ def main() -> int:
             print(f"  {line.strip()}")
     lib = _build.load_library()
     print("  CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 128 threads): chain_trace "
-          f"in place {lib.rte_chain_trace_occupancy(0)}, culled {lib.rte_chain_trace_occupancy(1)}, "
-          f"staged {lib.rte_chain_trace_occupancy(2)}; spp_trace in place "
-          f"{lib.rte_spp_trace_occupancy(0)}, culled {lib.rte_spp_trace_occupancy(1)}, staged "
-          f"{lib.rte_spp_trace_occupancy(2)} (staged: at the largest stage, "
-          "csrc/trace_common.cuh::kStageMaxBytes)", flush=True)
+          f"in place {lib.rte_chain_trace_occupancy(0, 0)}, culled {lib.rte_chain_trace_occupancy(1, 0)}, "
+          f"staged {lib.rte_chain_trace_occupancy(2, 0)}; its taping kernels in place "
+          f"{lib.rte_chain_trace_occupancy(0, 1)}, staged {lib.rte_chain_trace_occupancy(2, 1)}; "
+          f"spp_trace in place {lib.rte_spp_trace_occupancy(0)}, culled "
+          f"{lib.rte_spp_trace_occupancy(1)}, staged {lib.rte_spp_trace_occupancy(2)} (staged: at "
+          "the largest stage, csrc/trace_common.cuh::kStageMaxBytes); wavefront_trace "
+          f"{lib.rte_wavefront_trace_occupancy(0)}, its counting kernel "
+          f"{lib.rte_wavefront_trace_occupancy(1)}", flush=True)
 
     def cfg_for(width: int, height: int) -> RenderConfig:
         return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
@@ -315,13 +353,17 @@ def main() -> int:
     # 9. the adjoint kernel vs its plain version, at the main path's camera
     plain_call_ms = {}  # label -> CUDA-event ms of check_grad's plain call
 
-    def check_grad(label: str, kernel, plain, tables, o, d, g, cfg, spread_rtol=None, **kw):
+    def check_grad(label: str, kernel, plain, tables, o, d, g, cfg, spread_rtol=None, skip_rows=(),
+                   keep=None, **kw):
         """An adjoint kernel vs its plain version -> (ray-cotangent seam
-        reports, max|diff| over every output); prints each table row against
-        its bound and the run-to-run spread of two kernel calls, and with
+        reports, max|diff| over every output); holds each table row to its
+        bound, except the rows of the tables in `skip_rows`, which it prints
+        only; prints the run-to-run spread of two kernel calls, and with
         `spread_rtol` holds each output's spread to that share of its
-        largest entry (the tolerance of csrc/chain_grad_dense.cu's global
-        atomics). `kw` goes to the kernel (chain_grad's map width)."""
+        largest entry (the run-to-run tolerance of the kernels' atomics).
+        `keep`, a list, gets (kernel's outputs, plain's outputs). `kw` goes
+        to the kernel (chain_grad's map width and tape, wavefront_grad's
+        counts)."""
         name = kernel.__name__
         ours = kernel(tables, o, d, g, cfg, **kw)
         sync()
@@ -350,8 +392,10 @@ def main() -> int:
                 bad += ["tri row 12 carries a cotangent"] if a[12].any() or b[12].any() else []
                 a, b = a[:12], b[:12]
             for row in table_cot_rows(table, a, b):
-                print(f"  {'PASS' if row.ok else 'FAIL'} {label} table {row}", flush=True)
-                bad += [] if row.ok else [str(row)]
+                held = table not in skip_rows
+                verdict = ("PASS" if row.ok else "FAIL") if held else "not held:"
+                print(f"  {verdict} {label} table {row}", flush=True)
+                bad += [] if row.ok or not held else [str(row)]
         if bad:
             raise AssertionError(f"{label} {name} table rows out of budget: {bad}")
         outs = lambda r: (*r[0], r[1], r[2])  # noqa: E731
@@ -359,29 +403,58 @@ def main() -> int:
         spread = max(float((a - b).abs().max()) for a, b in zip(outs(ours), outs(rerun)))
         rel = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
                   for a, b in zip(outs(ours), outs(rerun)))
-        atomics = "global and shared-memory" if spread_rtol is not None else "shared-memory"
+        atomics = "global and shared-memory" if kernel is cg.chain_grad_dense else "shared-memory"
         print(f"  {label}: max|diff| vs plain over all outputs {err:.3e}; run-to-run max|diff| "
               f"of two {name} calls ({atomics} atomics) {spread:.3e}, {rel:.3e} of the output's "
               "largest entry" + (f" (<= {spread_rtol:g})" if spread_rtol is not None else ""), flush=True)
         if spread_rtol is not None and not rel <= spread_rtol:
             raise AssertionError(f"{label} {name}: run-to-run spread {rel:.3e} > {spread_rtol:g}")
+        if keep is not None:
+            keep.append((ours, ref))
         return reports, err
 
-    print("[9 grad] head box 1920x1080 spp=1, g = d mean(img^2) / d img", flush=True)
+    def flips_line(label: str, reports) -> str:
+        """The ray-cotangent flips beside the parent's (PARENT_FLIPS)."""
+        parent = PARENT_FLIPS.get(label)
+        return (f"{label}: seam-flip pixels d_o {reports['d_o'].flips}, d_d {reports['d_d'].flips} "
+                + (f"(the parent's: {parent[0]}, {parent[1]})" if parent else "(the parent's: not measured)"))
+
+    print("[9 grad] head box 1920x1080 spp=1, g = d mean(img^2) / d img; chain_grad fed from the "
+          "taping chain_trace", flush=True)
     g = (2.0 * chain_out / chain_out.numel()).contiguous()
+    taped_out, tape = ct.chain_trace(tables, o, d, cfg, tape=True)
+    sync()
+    if not torch.equal(taped_out, chain_out):
+        raise AssertionError("the taping chain_trace's frame differs from chain_trace's")
+    cg.chain_grad.routes = dict.fromkeys(ct.ROUTES, 0)
     cot_reports, grad_err = check_grad("head box", cg.chain_grad, cg.chain_grad_plain, tables, o, d, g, cfg,
-                                       width=W1080)
+                                       spread_rtol=1e-4, width=W1080, tape=tape)
+    print(f"  {flips_line('head box', cot_reports)}; the taping forward's frame equals "
+          "chain_trace's bit for bit", flush=True)
+    # render_hdr takes the identity thread-to-ray map (width 0) wherever a
+    # chunk is not whole rows of the image; it groups other rays in a warp
+    id_reports, id_err = check_grad("head box, identity map", cg.chain_grad, cg.chain_grad_plain, tables,
+                                    o, d, g, cfg, spread_rtol=1e-4, width=0, tape=tape)
+    print(f"  {flips_line('head box, identity map', id_reports)}; chain_grad per route "
+          f"{cg.chain_grad.routes} (staged)", flush=True)
+    if cg.chain_grad.routes["staged"] != cg.chain_grad.launches or not cg.chain_grad.launches:
+        raise AssertionError(f"the head-box adjoint left the staged route: {cg.chain_grad.routes}")
+    grad_err = max(grad_err, id_err)
+    del taped_out
     print("[9 grad] baseline spheres (2 lights) 1920x1080 spp=1, g = d mean(img^2) / d img",
           flush=True)
     b_scene, b_cam = baseline_sphere_scene(W1080, H1080, spp=1, n_lights=2, device=dev)
     b_tables = ct.pack_scene_tables(flatten_scene(b_scene))
     b_o, b_d = b_cam.rays_for_pixels(*b_cam.pixel_grid())
     b_o = b_o.contiguous()
-    b_img = ct.chain_trace(b_tables, b_o, b_d, cfg)
-    b_reports, b_err = check_grad("spheres", cg.chain_grad, cg.chain_grad_plain, b_tables, b_o, b_d,
-                                  (2.0 * b_img / b_img.numel()).contiguous(), cfg, width=W1080)
-    grad_err = max(grad_err, b_err)
-    del b_scene, b_cam, b_tables, b_o, b_d, b_img
+    b_img, b_tape = ct.chain_trace(b_tables, b_o, b_d, cfg, tape=True)
+    for label, width in (("spheres", W1080), ("spheres, identity map", 0)):
+        b_reports, b_err = check_grad(label, cg.chain_grad, cg.chain_grad_plain, b_tables, b_o, b_d,
+                                      (2.0 * b_img / b_img.numel()).contiguous(), cfg, spread_rtol=1e-4,
+                                      width=width, tape=b_tape)
+        print(f"  {flips_line(label, b_reports)}", flush=True)
+        grad_err = max(grad_err, b_err)
+    del b_scene, b_cam, b_tables, b_o, b_d, b_img, b_tape
 
     # 10. the training step, as a user calls it (bench.py:95-124)
     print("[10 train] head box 1920x1080 spp=1, SGD(lr=1e-6) on mean(img^2), 8 steps", flush=True)
@@ -394,8 +467,10 @@ def main() -> int:
     train_step = make_train_step(t_cam, cfg, opt, loss_fn=mean_sq)
     sync()
     ct.chain_trace.launches = 0
+    ct.chain_trace.tape_launches = 0
     ct.chain_trace.routes = ct.new_route_counts()
     cg.chain_grad.launches = 0
+    cg.chain_grad.routes = dict.fromkeys(ct.ROUTES, 0)
     losses, grads = [], {}
     for _ in range(8):
         loss, grads = train_step(params, static, None)
@@ -403,6 +478,7 @@ def main() -> int:
         grads = {**grads, "camera.focal": focal.grad}
     sync()
     train_launches = {"chain_trace": ct.chain_trace.launches, "chain_grad": cg.chain_grad.launches}
+    train_tapes = ct.chain_trace.tape_launches
     losses = [float(x) for x in losses]
     # a leaf that never reaches the loss (an empty sphere family) has no grad
     finite = all(np.isfinite(losses)) and all(
@@ -416,12 +492,15 @@ def main() -> int:
     }
     nonzero = {name: any(grads.get(k) is not None and bool((grads[k] != 0).any()) for k in keys)
                for name, keys in groups.items()}
-    print(f"  launches {train_launches} (8 each; chain_trace per route {ct.chain_trace.routes}); "
+    print(f"  launches {train_launches} (8 each; chain_trace per route {ct.chain_trace.routes}, "
+          f"{train_tapes} of them taping; chain_grad per route {cg.chain_grad.routes}); "
           f"losses {losses[0]:.6f} -> {losses[-1]:.6f}; finite={finite}; non-zero grads {nonzero}",
           flush=True)
-    if train_launches != {"chain_trace": 8, "chain_grad": 8} or ct.chain_trace.routes["staged"] != 8:
-        raise AssertionError(f"the training step did not run through both kernels: {train_launches}, "
-                             f"{ct.chain_trace.routes}")
+    if (train_launches != {"chain_trace": 8, "chain_grad": 8} or ct.chain_trace.routes["staged"] != 8
+            or train_tapes != 8 or cg.chain_grad.routes["staged"] != 8):
+        raise AssertionError(f"the training step did not run through the taping chain_trace and the "
+                             f"staged chain_grad: {train_launches}, {ct.chain_trace.routes}, "
+                             f"{train_tapes} taping, {cg.chain_grad.routes}")
     if not finite or not all(nonzero.values()):
         raise AssertionError(f"training step: finite={finite}, non-zero gradients {nonzero}")
 
@@ -498,14 +577,59 @@ def main() -> int:
 
     # 13. the glass adjoint kernel vs its plain version, at the main path's camera
     print("[13 glass grad] glass_sphere_scene 1920x1080 spp=1, main path camera, "
-          "g = d mean(img^2) / d img", flush=True)
-    wg_reports, wg_g, wg_err = {}, {}, 0.0
-    for mode in ("march", "binary"):
-        gcfg = dataclasses.replace(glass_cfg, shadow_mode=mode)
-        wg_g[mode] = (2.0 * glass_out[mode] / glass_out[mode].numel()).contiguous()
+          "g = d mean(img^2) / d img; wavefront_grad fed from the counting wavefront_trace", flush=True)
+    wg_reports, wg_g, wg_err, wg_pops = {}, {}, 0.0, {}
+    # march and binary shadows at the main path's config; then the deep-TIR
+    # config of the JAX package's adjoint tests (max_depth 6, budget 100:
+    # trees the budget cuts, with nodes left on the stack)
+    deep_cfg = dataclasses.replace(glass_cfg, max_depth=6, wavefront_budget=100)
+    for mode, gcfg in (("march", glass_cfg), ("binary", dataclasses.replace(glass_cfg, shadow_mode="binary")),
+                       ("deep TIR", deep_cfg)):
+        img_c, wg_pops[mode] = wt.wavefront_trace(g_tables, g_o, g_d, gcfg, count=True)
+        sync()
+        if mode in glass_out and not torch.equal(img_c, glass_out[mode]):
+            raise AssertionError(f"the counting wavefront_trace's {mode} frame differs from wavefront_trace's")
+        wg_g[mode] = (2.0 * img_c / img_c.numel()).contiguous()
         wg_reports[mode], err = check_grad(f"glass {mode}", wg.wavefront_grad, wg.wavefront_grad_plain,
-                                           g_tables, g_o, g_d, wg_g[mode], gcfg)
+                                           g_tables, g_o, g_d, wg_g[mode], gcfg, spread_rtol=1e-4,
+                                           warp_pops=wg_pops[mode])
+        pops = wg_pops[mode].to(torch.int64)
+        print(f"  {flips_line(f'glass {mode}', wg_reports[mode])}; tape slots of 32 nodes "
+              f"{int(pops.sum())} for {g_o.shape[0]} rays ({32 * float(pops.sum()) / g_o.shape[0]:.3f} "
+              f"node slots per ray, the most in one warp {int(pops.max())}); no tape overrun "
+              "(wavefront_grad raises on one)", flush=True)
         wg_err = max(wg_err, err)
+        del img_c
+    # A tape overrun raises in the call that made it: the counts of the
+    # warp that popped the most, one short.
+    short = wg_pops["march"].clone()
+    short[int(short.argmax())] -= 1
+    try:
+        wg.wavefront_grad(g_tables, g_o, g_d, wg_g["march"], glass_cfg, warp_pops=short)
+    except RuntimeError as e:
+        if "popped more nodes" not in str(e):
+            raise
+        print(f"  PASS counts one short in one warp: wavefront_grad raised in the same call: {e}",
+              flush=True)
+    else:
+        raise AssertionError("wavefront_grad did not raise on counts one short of the forward's")
+
+    def adjoint_in_backward(grad):  # as WavefrontTraceFused.backward calls it
+        wg.wavefront_grad(g_tables, g_o, g_d, wg_g["march"], glass_cfg, warp_pops=short, defer_check=True)
+        return grad
+
+    probe = torch.zeros(1, device=dev, requires_grad=True)
+    probe_out = probe * 1.0
+    probe_out.register_hook(adjoint_in_backward)
+    try:
+        probe_out.sum().backward()
+    except RuntimeError as e:
+        if "popped more nodes" not in str(e):
+            raise
+        print(f"  PASS the same, the check deferred to the end of the backward pass: backward() raised: {e}",
+              flush=True)
+    else:
+        raise AssertionError("the backward pass did not raise on counts one short of the forward's")
     dropped = wt.dropped_pushes()
     print("  seam-flip pixels of the adjoint (d_o, d_d): " + ", ".join(
         f"{m} {r['d_o'].flips}, {r['d_d'].flips}" for m, r in wg_reports.items())
@@ -528,6 +652,7 @@ def main() -> int:
                                 loss_fn=mean_sq)
         sync()
         wt.wavefront_trace.launches = 0
+        wt.wavefront_trace.count_launches = 0
         wg.wavefront_grad.launches = 0
         g_losses, g_grads = [], {}
         for _ in range(8):
@@ -536,6 +661,7 @@ def main() -> int:
         sync()
         launches_g = {"wavefront_trace": wt.wavefront_trace.launches,
                       "wavefront_grad": wg.wavefront_grad.launches}
+        counting = wt.wavefront_trace.count_launches
         g_grads = {**g_grads, "camera.focal": gfocal.grad}
         g_losses = [float(x) for x in g_losses]
         finite = all(np.isfinite(g_losses)) and all(
@@ -559,12 +685,15 @@ def main() -> int:
                                     RenderConfig(use_pallas=True))
         top = max((k for k in g_grads if g_grads[k] is not None and g_grads[k].numel()),
                   key=lambda k: float(g_grads[k].abs().max()))
-        print(f"  {w_}x{h_}: launches {launches_g} (8 each); losses {g_losses[0]:.6f} -> "
+        print(f"  {w_}x{h_}: launches {launches_g} (8 each, {counting} of wavefront_trace's counting; "
+              f"no counting kernel of the adjoint's own); losses {g_losses[0]:.6f} -> "
               f"{g_losses[-1]:.6f}; finite={finite}; non-zero grads {nonzero}; largest |grad| "
               f"{top} {float(g_grads[top].abs().max()):.3e}; after 8 steps "
-              f"{t_work.pops / t_work.rays:.3f} nodes per ray (at most {t_work.max_pops})", flush=True)
-        if launches_g != {"wavefront_trace": 8, "wavefront_grad": 8}:
-            raise AssertionError(f"the glass training step did not run through both kernels: {launches_g}")
+              f"{t_work.pops / t_work.rays:.3f} nodes per ray (at most {t_work.max_pops}); no adjoint "
+              "tape overrun (wavefront_grad raises on one)", flush=True)
+        if launches_g != {"wavefront_trace": 8, "wavefront_grad": 8} or counting != 8:
+            raise AssertionError(f"the glass training step did not run through the counting "
+                                 f"wavefront_trace and wavefront_grad: {launches_g}, {counting} counting")
         if not finite or not all(nonzero.values()):
             raise AssertionError(f"glass training step {w_}x{h_}: finite={finite}, non-zero {nonzero}")
         glass_steps[(w_, h_)] = (gstep, gp, gst)
@@ -775,6 +904,96 @@ def main() -> int:
                 raise AssertionError(f"{what}: the two routes' frames differ")
     del route_frames
 
+    # The head-box adjoint's two routes (csrc/trace_common.cuh::grad_route):
+    # its shadow scans over the stage where the stage and the accumulator fit
+    # one block, in place past the stage limit. The staged route on the
+    # stress scene (337 spheres) against the plain version: the ray
+    # cotangents and every table row but the spheres'. Each of its 337
+    # spheres' columns sums the ~100 rays that hit it at 320x180, and the
+    # sphere rows part from the plain version by as much as their largest
+    # entry (the parent's kernel as much: PERF.md §7, ROADMAP queue 3). The
+    # witness, printed: the same rows with g zeroed on the rays whose ray
+    # cotangents part (the seam flips). Then the stress scene and the head
+    # box staged and padded past the limit (in place): each ray's arithmetic
+    # is the same on both routes and the tapes come from equal frames, so
+    # d_o and d_d must be equal bit for bit, and the table cotangents of the
+    # real columns within the shared-memory atomics' run-to-run spread.
+    print("[18 routes] chain_grad fed from the taping chain_trace, each side of the stage limit",
+          flush=True)
+
+    def route_rays(make, depth_cfg):
+        r_scene, r_cam = make()
+        r_tables = ct.pack_scene_tables(flatten_scene(r_scene))
+        r_o, r_d = r_cam.rays_for_pixels(*r_cam.pixel_grid())
+        r_o = r_o.contiguous()
+        img, r_tape = ct.chain_trace(r_tables, r_o, r_d, depth_cfg, tape=True)
+        return r_tables, r_o, r_d, img, r_tape
+
+    def real_columns(cots, tb, real):
+        """The cotangents of the tables `tb` on the columns of the unpadded
+        tables `real`: each family's first columns, and the material
+        columns of those primitives (spheres, planes, triangles in order)."""
+        sph, pl, tri, mat, light = cots
+        ns, np_, nt = real.n_spheres, real.n_planes, real.n_triangles
+        o_pl, o_tri = tb.n_spheres, tb.n_spheres + tb.n_planes
+        return (sph[:, :ns], pl[:, :np_], tri[:, :nt], light[:, :real.n_lights],
+                torch.cat([mat[:, :ns], mat[:, o_pl:o_pl + np_], mat[:, o_tri:o_tri + nt]], 1))
+
+    stress = lambda n, pad=None: lambda: stress_scene(  # noqa: E731
+        n, width=W320, height=H180, spp=1, pad_multiple=pad, device=dev)
+    head_box = lambda pad=None: lambda: head_box_scene(  # noqa: E731
+        width=W320, height=H180, spp=1, pad_multiple=pad, device=dev)
+    label = "stress_scene, 337 spheres"
+    r_tables, r_o, r_d, img, r_tape = route_rays(stress(337), cfg)
+    r_g = (2.0 * img / img.numel()).contiguous()
+    keep = []
+    cg.chain_grad.routes = dict.fromkeys(ct.ROUTES, 0)
+    stress_reports, _ = check_grad(f"{label} adjoint", cg.chain_grad, cg.chain_grad_plain, r_tables, r_o,
+                                   r_d, r_g, cfg, spread_rtol=1e-4, skip_rows=("sph",), keep=keep,
+                                   width=W320, tape=r_tape)
+    (ours, ref), = keep
+    seam = torch.zeros(r_o.shape[0], dtype=torch.bool, device=dev)
+    for a, b in ((ours[1], ref[1]), (ours[2], ref[2])):
+        seam |= ((a - b).abs() > 1e-3 * b.abs().max()).any(1)
+    r_g_off = r_g.masked_fill(seam[:, None], 0.0)
+    sph_off = [t[0][0].cpu().numpy() for t in (
+        cg.chain_grad(r_tables, r_o, r_d, r_g_off, cfg, width=W320, tape=r_tape),
+        cg.chain_grad_plain(r_tables, r_o, r_d, r_g_off, cfg))]
+    if cg.chain_grad.routes["staged"] != 3:
+        raise AssertionError(f"{label}: chain_grad left the staged route: {cg.chain_grad.routes}")
+    witness = table_cot_rows("sph", *sph_off)
+    for row in witness:
+        print(f"  witness (not held): {label} adjoint, g zeroed on its {int(seam.sum())} seam-flip rays, "
+              f"table {row} {'inside' if row.ok else 'past'} its bound", flush=True)
+    del ours, ref, keep, r_g_off, sph_off
+    for label, (make_staged, make_padded) in (
+        ("stress_scene, 337 spheres", (stress(337), stress(337, 128))),
+        ("head box", (head_box(), head_box(128))),
+    ):
+        for depth_cfg in (cfg, depth1):
+            cg.chain_grad.routes = dict.fromkeys(ct.ROUTES, 0)
+            staged, padded = route_rays(make_staged, depth_cfg), route_rays(make_padded, depth_cfg)
+            r_g = (2.0 * staged[3] / staged[3].numel()).contiguous()
+            outs = [cg.chain_grad(tb, to, td, r_g, depth_cfg, width=W320, tape=tp)
+                    for tb, to, td, _, tp in (staged, padded)]
+            sync()
+            what = (f"chain_grad, {label} (staged) vs padded to 128 (in place), max_depth "
+                    f"{depth_cfg.max_depth}, routes {cg.chain_grad.routes}")
+            same = [torch.equal(a, b) for a, b in zip(outs[0][1:], outs[1][1:])]
+            # the real columns of each table: the padded ones carry none
+            spread = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                         for a, b in zip(real_columns(outs[0][0], staged[0], staged[0]),
+                                         real_columns(outs[1][0], padded[0], staged[0]))
+                         if a.numel())
+            ok = (all(same) and torch.equal(staged[3], padded[3]) and spread <= 1e-4
+                  and cg.chain_grad.routes == {"in_place": 1, "culled": 0, "staged": 1})
+            print(f"  {'PASS' if ok else 'FAIL'} {what}: the taping forwards' frames and d_o, d_d "
+                  f"bit-identical {torch.equal(staged[3], padded[3])}, {same}; table cotangents "
+                  f"{spread:.3e} of each table's largest entry apart (<= 1e-4)", flush=True)
+            if not ok:
+                raise AssertionError(f"{what}: the two routes' frames or cotangents differ ({same}, {spread})")
+            del staged, padded, outs
+
     # 8. timing: CUDA events around `iters` calls after one warm-up call
 
     def in_turns(kernel, plain, k_iters: int, p_iters: int):
@@ -803,19 +1022,21 @@ def main() -> int:
     )
     report("spp_trace kernel, 1080p spp=8", spp_ms, rays1 * 8)
     report("spp_trace_plain, 1080p spp=8", spp_plain_ms, rays1 * 8)
+    tape_ms = time_ms(lambda: ct.chain_trace(tables, o, d, cfg, tape=True), 20)
+    report("chain_trace taping kernel (the training step's forward), 1080p spp=1", tape_ms, rays1)
     grad_ms, grad_plain_ms = in_turns(
-        lambda: cg.chain_grad(tables, o, d, g, cfg, width=W1080),
+        lambda: cg.chain_grad(tables, o, d, g, cfg, width=W1080, tape=tape),
         lambda: cg.chain_grad_plain(tables, o, d, g, cfg), 10, 1,
     )
-    report("chain_grad kernel, 1080p", grad_ms, rays1)
+    report("chain_grad kernel, 1080p (fed from the taping forward)", grad_ms, rays1)
     report("chain_grad kernel, identity map (not the main path's), 1080p",
-           time_ms(lambda: cg.chain_grad(tables, o, d, g, cfg), 10), rays1)
+           time_ms(lambda: cg.chain_grad(tables, o, d, g, cfg, tape=tape), 10), rays1)
     report("chain_grad_plain, 1080p", grad_plain_ms, rays1)
     # The dense adjoint serves the head box's tables too (not culled: a linear
     # scan): it must agree with chain_grad there, and its time beside
     # chain_grad's says whether chain_grad.cu still earns its place.
     hb_dense = cg.chain_grad_dense(tables, o, d, g, cfg)
-    hb_grad = cg.chain_grad(tables, o, d, g, cfg, width=W1080)
+    hb_grad = cg.chain_grad(tables, o, d, g, cfg, width=W1080, tape=tape)
     sync()
     hb_bad = [f"{cot}: {r}" for cot, a, b in (("d_o", hb_dense[1], hb_grad[1]), ("d_d", hb_dense[2], hb_grad[2]))
               for r in [ray_cot_seam_budget(a.cpu().numpy(), b.cpu().numpy())] if not r.ok]
@@ -829,7 +1050,8 @@ def main() -> int:
         raise AssertionError(f"chain_grad_dense disagrees with chain_grad on the head box: {hb_bad}")
     del hb_dense, hb_grad
     hb_dense_ms, hb_grad_ms = in_turns(lambda: cg.chain_grad_dense(tables, o, d, g, cfg),
-                                       lambda: cg.chain_grad(tables, o, d, g, cfg, width=W1080), 10, 10)
+                                       lambda: cg.chain_grad(tables, o, d, g, cfg, width=W1080, tape=tape),
+                                       10, 10)
     report("chain_grad_dense kernel, head box 1080p (in turns with chain_grad)", hb_dense_ms, rays1)
     report("chain_grad kernel, head box 1080p (in turns with chain_grad_dense)", hb_grad_ms, rays1)
 
@@ -841,6 +1063,11 @@ def main() -> int:
             sync()
         report(f"{label}, synchronised after every step (host clock)",
                (time.perf_counter() - t0) * 1e3 / 10, rays)
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        sync()
+        print(f"  {label}: peak device memory of a step {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+              f"MiB (torch.cuda.max_memory_allocated) [{card}]", flush=True)
 
     time_step("training step (forward, backward, SGD), 1080p", lambda: train_step(params, static, None),
               rays1)
@@ -853,6 +1080,11 @@ def main() -> int:
     binary_cfg = dataclasses.replace(glass_cfg, shadow_mode="binary")
     report("wavefront_trace kernel, glass 1080p spp=1, binary",
            time_ms(lambda: wt.wavefront_trace(g_tables, g_o, g_d, binary_cfg), 20), rays1)
+    count_ms = time_ms(lambda: wt.wavefront_trace(g_tables, g_o, g_d, glass_cfg, count=True), 20)
+    report("wavefront_trace counting kernel (the glass step's forward), glass 1080p spp=1, march",
+           count_ms, rays1)
+    report("wavefront_trace counting kernel, glass 1080p spp=1, binary",
+           time_ms(lambda: wt.wavefront_trace(g_tables, g_o, g_d, binary_cfg, count=True), 20), rays1)
     wf_spp_ms, wf_spp_plain_ms = in_turns(
         lambda: wt.wavefront_spp_trace(g_tables, gcam8, px, py, glass_cfg, seed=1234),
         lambda: wt.wavefront_spp_trace_plain(g_tables, gcam8, px, py, glass_cfg, seed=1234), 10, 1,
@@ -860,13 +1092,14 @@ def main() -> int:
     report("wavefront_spp_trace kernel, glass 1080p spp=8", wf_spp_ms, rays1 * 8)
     report("wavefront_spp_trace_plain, glass 1080p spp=8", wf_spp_plain_ms, rays1 * 8)
     wgr_ms, wgr_plain_ms = in_turns(
-        lambda: wg.wavefront_grad(g_tables, g_o, g_d, wg_g["march"], glass_cfg),
+        lambda: wg.wavefront_grad(g_tables, g_o, g_d, wg_g["march"], glass_cfg, warp_pops=wg_pops["march"]),
         lambda: wg.wavefront_grad_plain(g_tables, g_o, g_d, wg_g["march"], glass_cfg), 10, 1,
     )
-    report("wavefront_grad kernel, glass 1080p, march", wgr_ms, rays1)
+    report("wavefront_grad kernel, glass 1080p, march (fed from the counting forward)", wgr_ms, rays1)
     report("wavefront_grad_plain, glass 1080p, march", wgr_plain_ms, rays1)
     report("wavefront_grad kernel, glass 1080p, binary",
-           time_ms(lambda: wg.wavefront_grad(g_tables, g_o, g_d, wg_g["binary"], binary_cfg), 10), rays1)
+           time_ms(lambda: wg.wavefront_grad(g_tables, g_o, g_d, wg_g["binary"], binary_cfg,
+                                             warp_pops=wg_pops["binary"]), 10), rays1)
     for (w_, h_), (gstep, gp, gst) in glass_steps.items():
         time_step(f"glass training step (forward, backward, SGD), {w_}x{h_}",
                   lambda: gstep(gp, gst, None), w_ * h_)
@@ -904,9 +1137,12 @@ def main() -> int:
     for label, tb in (("head box", tables), ("6016", dense["6016"][0]), ("50800", dense["50800"][0])):
         smem = 4 * sum(a * b for a, b in cg.small_table_shapes(tb))
         occ[label] = lib.rte_chain_grad_dense_occupancy(int(tb.culled), smem)
-    occ["chain_grad head box"] = lib.rte_chain_grad_occupancy(4 * cg.table_entries(tables, "chain_grad"))
-    print(f"  CTAs per SM of the adjoints (128 threads, their scenes' shared accumulators): "
-          f"chain_grad_dense {occ} [{card}]", flush=True)
+    hb_acc = 4 * cg.table_entries(tables, "chain_grad")
+    occ["chain_grad head box, staged"] = lib.rte_chain_grad_occupancy(2, hb_acc)
+    occ["chain_grad head box, in place"] = lib.rte_chain_grad_occupancy(0, hb_acc)
+    print(f"  CTAs per SM of the adjoints (128 threads, their scenes' shared accumulators; "
+          f"chain_grad's staged route at the largest stage): chain_grad_dense {occ} [{card}]",
+          flush=True)
     d_spp_ms = time_ms(lambda: st.spp_trace(spp_tables6, d_cam8, dpx, dpy, cfg, seed=1234), 5)
     report("culled spp_trace kernel, 6016 triangles 512x512 spp=8", d_spp_ms, rays512 * 8)
     report("spp_trace_plain (one call), 6016 triangles 512x512 spp=8", d_spp_plain_ms, rays512 * 8)
@@ -934,7 +1170,9 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_step(label: str, step) -> None:
+    def profile_step(label: str, step) -> list[str]:
+        """Prints the step's device time by kernel -> the names of the device
+        events (kernels) it ran."""
         step()
         sync()
         with warnings.catch_warnings():
@@ -953,7 +1191,7 @@ def main() -> int:
                       and e.key != "pack_forward_tables_perm"}
         if not dev_us:
             print(f"  {label} under the profiler: no device time recorded (not measured)")
-            return
+            return []
         total_ms = sum(dev_us.values()) / 1e3
         pack = [e for e in events
                 if e.key == "pack_forward_tables_perm" and str(e.device_type).endswith("CPU")]
@@ -970,17 +1208,22 @@ def main() -> int:
               + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
               + f", {len(dev_us) - len(ours)} other kernel kinds {other:.3f} ms{pack_note} [{card}]",
               flush=True)
+        return list(dev_us)
 
     profile_step("training step 1080p", lambda: train_step(params, static, None))
     gstep, gp, gst = glass_steps[(W1080, H1080)]
-    profile_step("glass training step 1080p", lambda: gstep(gp, gst, None))
+    glass_kernels = profile_step("glass training step 1080p", lambda: gstep(gp, gst, None))
+    if any("count" in k for k in glass_kernels):  # the adjoint's own counting replay is gone
+        raise AssertionError(f"the glass step ran a counting kernel: {[k for k in glass_kernels if 'count' in k]}")
     for label, (dstep, dp, dst) in dense_steps.items():
         profile_step(f"dense training step {label} triangles 512x512", lambda: dstep(dp, dst, None))
 
     # Roofline bounds from this run's work (roofline.py: intersection tests
-    # only). The adjoint's function needs the forward's scans: one closest
-    # hit per bounce and the shadow scans. Its kernel's second closest-hit
-    # scan per bounce (the checkpoint's) is a choice of design, not counted.
+    # only). An adjoint's function needs the forward's scans: one closest
+    # hit per bounce and the shadow scans; the head-box adjoint takes its
+    # closest hits from the taping forward's tape, so its function needs
+    # the shadow scans and the tape's bytes, and the taping forward's the
+    # tape's writes. A replay of a scan is a choice of design, not counted.
     work1 = chain_work(tables, o, d, cfg)
     work8 = ChainWork(rays=0)
     pids = py.to(torch.int64) * W1080 + px.to(torch.int64)
@@ -995,7 +1238,9 @@ def main() -> int:
     bounds = {
         "chain_trace": bound_ms(work_ops(work1), trace_bytes(rays1, tables)),
         "spp_trace": bound_ms(work_ops(work8), trace_bytes(rays1, tables, in_per_ray=8)),
-        "chain_grad": bound_ms(work_ops(work1), adjoint_bytes(rays1, tables)),
+        "chain_grad": bound_ms(work1.shadow_ops, taped_adjoint_bytes(work1, tables)),
+        "chain_trace, taping": bound_ms(work_ops(work1),
+                                        trace_bytes(rays1, tables) + chain_tape_bytes(work1)),
         "wavefront_trace": bound_ms(work_ops(g_work1), trace_bytes(rays1, g_tables)),
         "wavefront_spp_trace": bound_ms(work_ops(g_work8), trace_bytes(rays1, g_tables, in_per_ray=8)),
         "wavefront_grad": bound_ms(work_ops(g_work1), adjoint_bytes(rays1, g_tables)),
@@ -1140,6 +1385,7 @@ def main() -> int:
           + "; routes (chain_trace, spp_trace): " + ", ".join(
               f"{k} {v[0]} {v[1].flips}/{v[1].pixels}, {v[2].flips}/{v[2].pixels}"
               for k, v in route_reports.items())
+          + f"; chain_grad staged on the stress scene {stress_reports['d_d'].flips}/{stress_reports['d_d'].pixels}"
           + f"; training-path launches {train_launches}; main-path launches per route {main_routes}; "
           f"glass-path launches {glass_launches}; "
           f"glass training launches {glass_train_launches[(W1080, H1080)]} at 1080p; dense training "

@@ -3,8 +3,10 @@
 // guards and tie subgradients of the JAX package's autodiff, the pullbacks of
 // a closest hit's (t, n) onto the winning primitive, the warp-summed
 // table-cotangent adds, the fixed-order reduction of the per-block partial
-// sums, and the chain adjoint's per-ray body (`chain_adjoint_ray`), which the
-// two chain kernels share, each with its own sink for the table cotangents.
+// sums, and the chain adjoint's per-ray body: `chain_adjoint_ray`
+// (chain_grad_dense.cu: its own checkpoint, then the reverse pass) and its
+// reverse pass `reverse_bounces` (shared with chain_grad.cu, which reads the
+// forward's tape), each kernel with its own sink for the table cotangents.
 //
 // Table cotangents: every table entry has one float of a block-wide
 // accumulator in shared memory, laid out as `Offsets` says (the tables in
@@ -20,6 +22,7 @@ namespace {
 
 using rte::kEps;
 using rte::kInf;
+using rte::kStateRows;
 using rte::tab;
 using rte::Tables;
 
@@ -77,17 +80,26 @@ __device__ __forceinline__ V3 tab3(const float* t, int cols, int row, int i) {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {  // all 32 lanes converged
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(kFullWarp, v, s);
-  return v;
+// The power of two at or above k (k <= 16): the values a transposing warp
+// sum (add_column) carries.
+__host__ __device__ constexpr int pow2_at_least(int k) {
+  return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : k <= 8 ? 8 : 16;
 }
+__host__ __device__ constexpr int log2_of(int p) { return p <= 1 ? 0 : 1 + log2_of(p / 2); }
 
 // Add `n` (<= 12) cotangent values v[r] to acc[base + r * cols]: the entries of
 // one table column. `mine` says whether this lane has values. Called by all 32
 // lanes of the warp at once. If every lane with values adds to the same column
 // (neighbouring pixels mostly hit the same primitive and see the same light),
-// the warp sums each value with shuffles and its first such lane adds the sum;
-// otherwise each lane adds its own values with shared-memory atomics.
+// the warp sums the values together with a transposing butterfly: at each of
+// the first log2(P) steps (P = kMax rounded up to a power of two), a lane
+// hands half of its values to its partner and keeps the sums of the other
+// half, so P - 1 shuffles leave each lane one value, and the remaining
+// 5 - log2(P) steps sum that one (P - 1 + 5 - log2(P) shuffles in all,
+// where one warp sum per value took 5 P). Lane l then holds the sum of value
+// (l >> (5 - log2 P)) mod P, and the first lane of each group of 2^(5 -
+// log2 P) adds it: up to P atomics from different lanes at once. Otherwise
+// each lane adds its own values with atomics.
 template <int kMax>
 __device__ __forceinline__ void add_column(float* acc, bool mine, int base, int cols, int n,
                                            const float (&v)[kMax]) {
@@ -98,13 +110,26 @@ __device__ __forceinline__ void add_column(float* acc, bool mine, int base, int 
   if (__all_sync(kFullWarp, !mine || base == base0)) {
     const int n0 = __shfl_sync(kFullWarp, n, lead);
     const int cols0 = __shfl_sync(kFullWarp, cols, lead);
+    constexpr int P = pow2_at_least(kMax), kSteps = log2_of(P);
+    float a[P];
 #pragma unroll
-    for (int r = 0; r < kMax; ++r) {
-      if (r < n0) {  // warp-uniform
-        const float sum = warp_sum(mine ? v[r] : 0.0f);
-        if ((threadIdx.x & 31) == lead) atomicAdd(acc + base0 + r * cols0, sum);
+    for (int r = 0; r < P; ++r) a[r] = (mine && r < kMax) ? v[r] : 0.0f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int m = 16 >> s, half = P >> (s + 1);
+      const bool up = (threadIdx.x & m) != 0;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const float give = up ? a[j] : a[j + half];
+        const float keep = up ? a[j + half] : a[j];
+        a[j] = keep + __shfl_xor_sync(kFullWarp, give, m);
       }
     }
+#pragma unroll
+    for (int m = 16 >> kSteps; m > 0; m >>= 1) a[0] += __shfl_xor_sync(kFullWarp, a[0], m);
+    const int lane = threadIdx.x & 31;
+    const int r = (lane >> (5 - kSteps)) & (P - 1);
+    if ((lane & ((1 << (5 - kSteps)) - 1)) == 0 && r < n0) atomicAdd(acc + base0 + r * cols0, a[0]);
   } else if (mine) {
 #pragma unroll
     for (int r = 0; r < kMax; ++r)
@@ -233,8 +258,6 @@ __device__ __forceinline__ void tri_pullback(const Tables& T, int i, const Ray& 
 // ---------------------------------------------------------------------------
 
 constexpr int kChainThreads = rte::kCtaThreads;  // block size of both chain adjoint kernels
-// Floats saved per bounce and ray: o, d, w, and the winner's t, gi, tc.
-constexpr int kStateRows = 10;
 
 // State-only bounce (the JAX package's `_make_state_bounce`): the closest hit
 // by the scan `tris`, saved into w, and the reflection update. Returns
@@ -404,7 +427,32 @@ __device__ __forceinline__ void bounce_adjoint(const Tables& T, Sink& sink, Tris
   sink.hit(T, hit, gi, h.tc, mcot, pc);
 }
 
-// Ray i of a chain adjoint kernel, -1 for a thread with none (128-thread
+// Step 3 of chain_adjoint_ray, for ray i (-1: none) with nd saved bounces
+// in `states` ([depth][kStateRows][n], rte::ChainTape's layout): on entry c
+// is the cotangent of the state after the last bounce, on exit that of the
+// ray (o, d). The threads step through the loop together from the deepest
+// ray of the warp (linear tables) or of the CTA (culled) down; a lane whose
+// ray has no bounce at a depth idles through it, at the state `idle`.
+template <class Sink, class Tris>
+__device__ __forceinline__ void reverse_bounces(
+    const Tables& T, Sink& sink, Tris& tris, const float* __restrict__ states, long long n,
+    long long i, int nd, const Ray& idle, RayCot& c, float gr, float gg, float gb, float bias,
+    float min_weight) {
+  const int top = tris.top(nd);
+  for (int k = top - 1; k >= 0; --k) {
+    const bool act = k < nd;
+    Ray rk = idle;
+    Winner wk{kInf, 0, 0};
+    if (act) {
+      const float* s = states + static_cast<long long>(k) * kStateRows * n + i;
+      rk = Ray{{s[0], s[n], s[2 * n]}, {s[3 * n], s[4 * n], s[5 * n]}, s[6 * n]};
+      wk = Winner{s[7 * n], __float_as_int(s[8 * n]), __float_as_int(s[9 * n])};
+    }
+    bounce_adjoint(T, sink, tris, act, rk, wk, c, gr, gg, gb, bias, min_weight);
+  }
+}
+
+// Ray i of the dense chain adjoint, -1 for a thread with none (128-thread
 // CTAs; every thread of the CTA runs to the end, since the warp sums need
 // all 32 lanes and the culled scans every thread, and a thread with no ray
 // has no bounces):
@@ -419,10 +467,7 @@ __device__ __forceinline__ void bounce_adjoint(const Tables& T, Sink& sink, Tris
 //   2. the VJP of the depth-exhaustion sky term seeds the state cotangent;
 //   3. for depth nd-1 down to 0 the bounce's adjoint (its shading, one
 //      binary shadow scan per light, Blinn-Phong, reflection) is applied at
-//      its saved state and winner. The threads step through this loop
-//      together from the deepest ray of the warp (linear tables) or of the
-//      CTA (culled) down; a lane whose ray has no bounce at a depth idles
-//      through it.
+//      its saved state and winner (`reverse_bounces`).
 template <class Sink, class Tris>
 __device__ __forceinline__ void chain_adjoint_ray(
     const Tables& T, Sink& sink, Tris& tris, const float* __restrict__ o,
@@ -458,18 +503,7 @@ __device__ __forceinline__ void chain_adjoint_ray(
   RayCot c{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, 0.0f};
   if (live) sky_adjoint(r, c, gr, gg, gb);
   // 3. bounces in reverse, the threads in step
-  const int top = tris.top(nd);
-  for (int k = top - 1; k >= 0; --k) {
-    const bool act = k < nd;
-    Ray rk = r;
-    Winner wk{kInf, 0, 0};
-    if (act) {
-      const float* s = states + static_cast<long long>(k) * kStateRows * n + i;
-      rk = Ray{{s[0], s[n], s[2 * n]}, {s[3 * n], s[4 * n], s[5 * n]}, s[6 * n]};
-      wk = Winner{s[7 * n], __float_as_int(s[8 * n]), __float_as_int(s[9 * n])};
-    }
-    bounce_adjoint(T, sink, tris, act, rk, wk, c, gr, gg, gb, bias, min_weight);
-  }
+  reverse_bounces(T, sink, tris, states, n, i, nd, r, c, gr, gg, gb, bias, min_weight);
   if (valid) {
     go[3 * i] = c.o.x; go[3 * i + 1] = c.o.y; go[3 * i + 2] = c.o.z;
     gd[3 * i] = c.d.x; gd[3 * i + 1] = c.d.y; gd[3 * i + 2] = c.d.z;

@@ -34,9 +34,9 @@
 //     into zeroed device memory: 3.7 MB at 50,800 triangles, far more than a
 //     block's shared memory. A warp first sums each entry over its lanes with
 //     shuffles where all its contributing lanes share the winner (neighbouring
-//     rays mostly do); one lane then adds the sum with a global atomicAdd,
-//     else each lane adds its own. This replaces the TPU's in-order
-//     read-modify-write, which would be a race on a GPU.
+//     rays mostly do); lanes then add the column's sums with global
+//     atomicAdds (add_column), else each lane adds its own. This replaces the
+//     TPU's in-order read-modify-write, which would be a race on a GPU.
 // Tolerance: the global atomics land in an order that changes from run to
 // run, so the triangle and triangle-material cotangents do too, by the
 // rounding of an fp32 sum of up to ~10^5 terms in another order: changes

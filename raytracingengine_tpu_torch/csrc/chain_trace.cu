@@ -50,6 +50,13 @@
 // in-place scan's. Tables whose stage passes kStageMaxBytes take the
 // in-place scan: trace_common.cuh::trace_route chooses by size, and the
 // wrapper (kernels/chain_trace.py) names and counts the route reported.
+//
+// The taping instantiations (kTape, linear tables on both routes) also
+// write each ray's bounces to the chain tape (trace_common.cuh::ChainTape)
+// for the head-box adjoint (chain_grad.cu): 40 bytes per bounce, stored
+// coalesced across a warp's rays. Only a training step launches them
+// (kernels/chain_grad.py::ChainTraceFused); render_hdr without gradients
+// runs the kernels without kTape, whose code the tape does not touch.
 #include "trace_common.cuh"
 
 namespace {
@@ -63,26 +70,29 @@ namespace {
 constexpr int kChainPacket = 2;
 constexpr int kChainStagedMinCtas = 7;
 
-template <class Tris>
+template <class Tris, bool kTape = false>
 __global__ void __launch_bounds__(rte::kCtaThreads, Tris::kMinCtas) chain_trace_kernel(
     rte::Tables T, const float* __restrict__ o, const float* __restrict__ d,
-    float* __restrict__ out, long long n_rays, int max_depth, float bias, float min_weight) {
+    float* __restrict__ out, long long n_rays, int max_depth, float bias, float min_weight,
+    rte::ChainTape tape = rte::ChainTape{}) {
   Tris tris = Tris::make();
   const long long i = rte::ray_of_thread(n_rays);
   const bool valid = i >= 0;
   const long long k = valid ? i : 0;
-  const float3 c = rte::trace_ray(T, tris, valid, o[3 * k], o[3 * k + 1], o[3 * k + 2], d[3 * k],
-                                  d[3 * k + 1], d[3 * k + 2], max_depth, bias, min_weight);
+  const float3 c = rte::trace_ray<Tris, kTape>(T, tris, valid, o[3 * k], o[3 * k + 1],
+                                               o[3 * k + 2], d[3 * k], d[3 * k + 1],
+                                               d[3 * k + 2], max_depth, bias, min_weight, tape, k);
   if (!valid) return;
   out[3 * i] = c.x;
   out[3 * i + 1] = c.y;
   out[3 * i + 2] = c.z;
 }
 
-template <int K>
+template <int K, bool kTape = false>
 __global__ void __launch_bounds__(rte::kCtaThreads, kChainStagedMinCtas) chain_trace_staged_kernel(
     rte::Tables T, const float* __restrict__ o, const float* __restrict__ d,
-    float* __restrict__ out, long long n_rays, int max_depth, float bias, float min_weight) {
+    float* __restrict__ out, long long n_rays, int max_depth, float bias, float min_weight,
+    rte::ChainTape tape = rte::ChainTape{}) {
   const rte::StagedScan<K> sc = rte::StagedScan<K>::make(T);
   const long long i0 = K * (static_cast<long long>(blockIdx.x) * rte::kCtaThreads + threadIdx.x);
   if (i0 >= n_rays) return;  // no barrier follows the stage
@@ -100,7 +110,7 @@ __global__ void __launch_bounds__(rte::kCtaThreads, kChainStagedMinCtas) chain_t
     r.dz[k] = d[j + 2];
   }
   float3 c[K];
-  rte::trace_packet<K>(sc, live, r, max_depth, bias, min_weight, c);
+  rte::trace_packet<K, kTape>(sc, live, r, max_depth, bias, min_weight, c, tape, i0);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (i0 + k >= n_rays) break;
@@ -113,13 +123,15 @@ __global__ void __launch_bounds__(rte::kCtaThreads, kChainStagedMinCtas) chain_t
 }  // namespace
 
 // The scan is rte::trace_route's (culled, staged or in place), written to
-// *route for the wrapper to name and count.
+// *route for the wrapper to name and count. A non-null `tape` (linear
+// tables only: rte_chain_tape_floats(max_depth, n_rays) floats) takes the
+// route's taping kernel.
 extern "C" int rte_chain_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
-    const float* o, const float* d, float* out, int n_rays, int* route, int max_depth,
-    float bias, float min_weight, void* stream) {
+    const float* o, const float* d, float* out, int n_rays, int* route, float* tape,
+    int max_depth, float bias, float min_weight, void* stream) {
   const rte::Tables T = rte::with_culling(
       rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
                        light, light_cols, nl),
@@ -129,7 +141,18 @@ extern "C" int rte_chain_trace(
   if (n_rays <= 0) return 0;
   if (taabb && !rte::stageable(T)) return static_cast<int>(cudaErrorMisalignedAddress);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (r == rte::kStaged) {
+  if (tape) {
+    if (r == rte::kCulled) return static_cast<int>(cudaErrorInvalidValue);
+    const rte::ChainTape tp{tape, n_rays, max_depth};
+    if (r == rte::kStaged) {
+      chain_trace_staged_kernel<kChainPacket, true>
+          <<<rte::ray_ctas(n_rays, kChainPacket), rte::kCtaThreads, rte::stage_bytes(T), s>>>(
+              T, o, d, out, n_rays, max_depth, bias, min_weight, tp);
+    } else {
+      chain_trace_kernel<rte::LinearTris, true><<<rte::ray_ctas(n_rays), rte::kCtaThreads, 0, s>>>(
+          T, o, d, out, n_rays, max_depth, bias, min_weight, tp);
+    }
+  } else if (r == rte::kStaged) {
     chain_trace_staged_kernel<kChainPacket>
         <<<rte::ray_ctas(n_rays, kChainPacket), rte::kCtaThreads, rte::stage_bytes(T), s>>>(
             T, o, d, out, n_rays, max_depth, bias, min_weight);
@@ -144,18 +167,27 @@ extern "C" int rte_chain_trace(
 }
 
 // CTAs per SM that the occupancy calculator gives each route (rte::Route;
-// the staged one at the largest stage).
-extern "C" int rte_chain_trace_occupancy(int route) {
+// the staged one at the largest stage), taping (tape != 0: the linear
+// routes) or not.
+extern "C" int rte_chain_trace_occupancy(int route, int tape) {
   int n = 0;
+  const auto occ = [&](auto kernel, int smem) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, rte::kCtaThreads, smem);
+  };
+  const int st = rte::kStageMaxBytes;
   const cudaError_t e =
-      route == rte::kStaged ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                  &n, chain_trace_staged_kernel<kChainPacket>, rte::kCtaThreads,
-                                  rte::kStageMaxBytes)
-      : route == rte::kCulled ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                    &n, chain_trace_kernel<rte::CtaCulledTris>, rte::kCtaThreads, 0)
-                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                    &n, chain_trace_kernel<rte::LinearTris>, rte::kCtaThreads, 0);
+      route == rte::kStaged
+          ? (tape ? occ(chain_trace_staged_kernel<kChainPacket, true>, st)
+                  : occ(chain_trace_staged_kernel<kChainPacket>, st))
+      : route == rte::kCulled ? occ(chain_trace_kernel<rte::CtaCulledTris>, 0)
+      : tape                  ? occ(chain_trace_kernel<rte::LinearTris, true>, 0)
+                              : occ(chain_trace_kernel<rte::LinearTris>, 0);
   return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// Floats of the chain tape of n_rays rays at max_depth (rte::ChainTape).
+extern "C" long long rte_chain_tape_floats(int max_depth, int n_rays) {
+  return rte::chain_tape_floats(max_depth, n_rays);
 }
 
 extern "C" const char* rte_error_string(int err) {

@@ -46,7 +46,13 @@
 // fits kStageMaxBytes through `StagedScan<K>` and `trace_packet<K>`
 // instead: the CTA copies every table once into shared memory, one to
 // three 16-byte entries per primitive, and each thread traces a packet of K
-// rays, so that one broadcast load of an entry serves K tests.
+// rays, so that one broadcast load of an entry serves K tests. The head-box
+// adjoint (chain_grad.cu) scans its shadow rays over the same stage, one ray
+// a thread (`StagedTris`, chosen by `grad_route`).
+//
+// `ChainTape` is the chain tape: chain_trace.cu's taping instantiations
+// (trace_ray and trace_packet with kTape) write each ray's state and closest
+// hit at every bounce it takes, and chain_grad.cu reads them back.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +89,46 @@ struct Hit {
   float t, nx, ny, nz;
   int gi;  // global primitive index: spheres, then planes, then triangles
   int tc = 0;  // a winning triangle's column in the tri table
+};
+
+// The chain tape, [max_depth][kStateRows][R] then [kTailRows][R] floats:
+// for each bounce k a ray takes, its state before the bounce (o xyz, d xyz,
+// weight) and the bounce's closest hit (t, and the winner's global index
+// and tri column as int bits); then per ray the bounces it took, whether it
+// reached max_depth alive (the depth-exhaustion sky follows), and that
+// sky's d.y and weight. Neighbouring rays' entries are neighbours, so a
+// warp's stores and loads are coalesced. The taping forward writes it
+// (chain_trace.cu) and the head-box adjoint reads it (chain_grad.cu):
+// the adjoint differentiates the path the frame was rendered on.
+constexpr int kStateRows = 10;
+constexpr int kTailRows = 4;
+
+inline long long chain_tape_floats(int max_depth, long long n) {
+  return static_cast<long long>(max_depth * kStateRows + kTailRows) * n;
+}
+
+struct ChainTape {
+  float* s;
+  long long n;
+  int max_depth;
+
+  // Bounce k of ray i: its state and the closest hit h.
+  __device__ __forceinline__ void bounce(int k, long long i, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float w,
+                                         const Hit& h) const {
+    float* p = s + static_cast<long long>(k) * kStateRows * n + i;
+    p[0] = ox; p[n] = oy; p[2 * n] = oz;
+    p[3 * n] = dx; p[4 * n] = dy; p[5 * n] = dz; p[6 * n] = w;
+    p[7 * n] = h.t; p[8 * n] = __int_as_float(h.gi); p[9 * n] = __int_as_float(h.tc);
+  }
+
+  // Ray i's end: nd bounces; `alive`: it reached max_depth live, where its
+  // direction's y is dy and its weight w.
+  __device__ __forceinline__ void end(long long i, int nd, bool alive, float dy, float w) const {
+    float* p = s + static_cast<long long>(max_depth) * kStateRows * n + i;
+    p[0] = __int_as_float(nd); p[n] = __int_as_float(alive ? 1 : 0);
+    p[2 * n] = dy; p[3 * n] = w;
+  }
 };
 
 // Products and sums that nvcc must not contract into FMAs (see tri_t).
@@ -725,15 +771,21 @@ static __device__ __forceinline__ void reflect_ray(const Frame& f, float bias, f
 // ray, whose result is not used. The depth loop and the light loop run
 // until no ray of the CTA (culled) or this ray (linear) is live, and a
 // thread whose ray ended passes through them with its scans inactive.
-template <class Tris>
+// With kTape it also writes ray `ray`'s bounces and end to `tape`.
+template <class Tris, bool kTape = false>
 static __device__ __forceinline__ float3 trace_ray(
     const Tables& T, Tris& tris, bool valid, float ox, float oy, float oz, float dx, float dy,
-    float dz, int max_depth, float bias, float min_weight) {
+    float dz, int max_depth, float bias, float min_weight, const ChainTape& tape = ChainTape{},
+    long long ray = 0) {
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, weight = 1.0f;
   bool live = valid;
+  int nd = 0;  // bounces taken (the tape's)
   for (int depth = 0; depth < max_depth; ++depth) {
     if (!tris.any(live)) break;
     const Hit h = closest_hit(T, tris, live, ox, oy, oz, dx, dy, dz);
+    if constexpr (kTape) {
+      if (live) tape.bounce(nd++, ray, ox, oy, oz, dx, dy, dz, weight, h);
+    }
     const bool shade = live && h.t < kInf;
     if (live && !shade) {  // miss -> sky
       const float3 s = sky(dy);
@@ -815,6 +867,9 @@ static __device__ __forceinline__ float3 trace_ray(
     acc_r += weight * s.x;
     acc_g += weight * s.y;
     acc_b += weight * s.z;
+  }
+  if constexpr (kTape) {
+    if (valid) tape.end(ray, nd, live, dy, weight);
   }
   return make_float3(acc_r, acc_g, acc_b);
 }
@@ -1012,21 +1067,35 @@ struct StagedScan {
 // rays that need it. `live` marks the rays that exist; out[k] is ray k's
 // radiance. (trace_ray keeps its own text: written with the helpers above,
 // the culled kernels' block-test loop compiled 7 instructions longer and
-// ran 2-3% slower on the H100, PERF.md §6.)
-template <int K>
+// ran 2-3% slower on the H100, PERF.md §6.) With kTape it also writes the
+// bounces and ends of rays i0 + k to `tape`, as trace_ray does.
+template <int K, bool kTape = false>
 static __device__ __forceinline__ void trace_packet(const StagedScan<K>& sc, bool (&live)[K],
                                                     Rays<K>& r, int max_depth, float bias,
-                                                    float min_weight, float3 (&out)[K]) {
+                                                    float min_weight, float3 (&out)[K],
+                                                    const ChainTape& tape = ChainTape{},
+                                                    long long i0 = 0) {
   float weight[K];
+  bool valid[K];  // the rays that exist (the tape's)
+  int nd[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     out[k] = make_float3(0.0f, 0.0f, 0.0f);
     weight[k] = 1.0f;
+    valid[k] = live[k];
+    nd[k] = 0;
   }
   for (int depth = 0; depth < max_depth; ++depth) {
     if (!any_of(live)) break;
     Hit h[K];
     sc.closest(live, r, h);
+    if constexpr (kTape) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (live[k]) tape.bounce(nd[k]++, i0 + k, r.ox[k], r.oy[k], r.oz[k], r.dx[k], r.dy[k],
+                                 r.dz[k], weight[k], h[k]);
+      }
+    }
     bool shade[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -1097,7 +1166,41 @@ static __device__ __forceinline__ void trace_packet(const StagedScan<K>& sc, boo
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (live[k]) add_sky(out[k], weight[k], r.dy[k]);  // depth exhaustion
+    if constexpr (kTape) {
+      if (valid[k]) tape.end(i0 + k, nd[k], live[k], r.dy[k], weight[k]);
+    }
   }
+}
+
+// The staged tables as a scan of one ray a thread: the head-box adjoint's
+// shadow rays (chain_grad.cu, where `grad_route` takes the stage). The
+// tests, their order and the first-blocker exit are any_hit's over
+// LinearTris, so the two routes' booleans, and the adjoint's arithmetic
+// around them, are the same per ray.
+struct StagedTris {
+  StagedScan<1> sc;
+  // Every thread of the CTA calls it once (StagedScan::make's barrier).
+  static __device__ __forceinline__ StagedTris make(const Tables& T) {
+    return StagedTris{StagedScan<1>::make(T)};
+  }
+  __device__ __forceinline__ bool any(bool p) const { return p; }
+  __device__ __forceinline__ int top(int n) const { return __reduce_max_sync(kFullMask, n); }
+};
+
+// Binary occlusion over the stage: is there a primitive with lo < t < hi?
+// (It takes the scan as any_hit<Tris> does, so that overload resolution
+// picks it over the template.)
+static __device__ __forceinline__ bool any_hit(const Tables&, StagedTris& s, bool active,
+                                               float ox, float oy, float oz, float dx, float dy,
+                                               float dz, float lo, float hi) {
+  if (!active) return false;
+  bool scan[1] = {true};
+  Rays<1> r;
+  r.ox[0] = ox; r.oy[0] = oy; r.oz[0] = oz;
+  r.dx[0] = dx; r.dy[0] = dy; r.dz[0] = dz;
+  const float h[1] = {hi};
+  s.sc.occluded(scan, r, lo, h);
+  return !scan[0];
 }
 
 // ---------------------------------------------------------------------------
@@ -1494,6 +1597,20 @@ inline int stage_bytes(const Tables& T) { return 16 * stage_layout(T).n; }
 inline Route trace_route(const Tables& T) {
   if (T.taabb) return kCulled;
   return stage_bytes(T) <= kStageMaxBytes ? kStaged : kInPlace;
+}
+
+// Shared memory one block may hold (the H100's 227 KB).
+constexpr int kBlockSmemMaxBytes = 232448;
+
+// The scan of the head-box adjoint's shadow rays (chain_grad.cu), the one
+// place that decides it: the staged tables where trace_route stages them
+// and the stage and the block's table-cotangent accumulator (acc_bytes) fit
+// one block's shared memory together, else the tables in place. The entry
+// point reports it to its wrapper, which names and counts it
+// (kernels/chain_grad.py).
+inline Route grad_route(const Tables& T, int acc_bytes) {
+  return trace_route(T) == kStaged && stage_bytes(T) + acc_bytes <= kBlockSmemMaxBytes ? kStaged
+                                                                                       : kInPlace;
 }
 
 }  // namespace rte

@@ -9,14 +9,15 @@
 // LANE]), then sweeps the tape in reverse under jax.vjp of each node's
 // shading and child construction, with a per-lane cotangent stack that
 // mirrors the ray stack. Here one thread runs one ray's DFS:
-//   1. a counting replay (`wavefront_count_kernel`) pops the ray's tree
-//      without lighting (the closest hit and `rte::node_children`, the
-//      forward kernel's own functions, so the same branches) and counts its
-//      nodes; the wrapper turns the counts into each ray's start in a tape
-//      sized by the nodes popped (an exclusive prefix sum, one host sync);
-//   2. `wavefront_grad_kernel` replays again, writing each popped node (o,
-//      d, weight, depth and which children it pushed: 32 bytes) to the
-//      ray's stretch of the tape, then walks it from the last pop back. A
+//   1. the forward's counting instantiation (wavefront_trace.cu, kCount)
+//      wrote, per warp of 32 rays, the most nodes one of its rays popped;
+//      the wrapper gives each warp a stretch of 32 x that many node slots
+//      in the tape (an exclusive prefix sum, one host sync: `tape_slots`);
+//   2. `wavefront_grad_kernel` replays the DFS without lighting (the
+//      closest hit and `rte::node_children`, the forward kernel's own
+//      functions, so the same branches), writing each popped node (o, d,
+//      weight, depth and which children it pushed: 32 bytes) to its
+//      warp's stretch, then walks it from the last pop back. A
 //      cotangent stack of kMaxCap (o, d, w) cotangents in local memory hands
 //      each node the cotangents of the children it pushed (refraction on
 //      top); the node's adjoint (`node_adjoint`, derived by hand below from
@@ -29,10 +30,18 @@
 //      in its transparency, times clip's subgradient at tau_raw_i and at T
 //      (0.5 at a bound): jax.grad of the JAX package's XLA march, the tests'
 //      reference. (The TPU kernel passes the full gradient on [0, 1].)
-// The tape is exact for every tree up to cfg.budget() nodes: at 1080p on
-// the glass sphere it holds ~2 nodes per ray (~130 MB), where the TPU
-// kernel's layout would take budget x 36 bytes per ray (2,048 x 36 x 2M =
-// 153 GB). Pushes dropped on a full stack count as the forward's do.
+// The tape (`TapeSlots`) is node-major and lane-minor within a warp's
+// stretch, and each node's two float4s lie in two planes, so the 32 lanes'
+// stores and loads of their node k fall in four contiguous 128-byte lines.
+// It holds every tree up to cfg.budget() nodes: at 1080p on the glass
+// sphere ~2 nodes per ray (~130 MB) plus each warp's padding to its
+// longest tree, where the TPU kernel's layout would take budget x 36
+// bytes per ray (2,048 x 36 x 2M = 153 GB). A lane whose replay pops more
+// nodes than the forward counted for its warp writes nothing past its
+// stretch: it counts itself in the overrun counter, which the wrapper reads
+// after the launch and raises on, and gives NaN cotangents (its rays' and
+// one table entry).
+// Pushes dropped on a full stack were counted by the forward.
 //
 // The node's reverse mode, by hand (CUDA has no jax.vjp): the sky of a miss
 // or of depth exhaustion (dy of the stored direction, not normalised); the
@@ -52,15 +61,15 @@
 // closest-hit scan per popped node and the shadow scans). On the glass
 // sphere at 1080p that is ~200 fp32 operations per ray, so the 60 bytes per
 // ray at 3.35 TB/s (0.04 ms) bound it, not the operations (roofline.py's
-// count in chip_smoke.py). This design adds two replays of the closest-hit
+// count in chip_smoke.py). This design adds one replay of the closest-hit
 // scans, a march replay per lit light, the adjoint arithmetic and 32 bytes
-// of tape per node each way.
+// of tape per node slot each way.
 //
 // What the design does about it: one thread per ray with per-ray exits, the
 // replays without lighting; the lanes of a warp step through the reverse
 // sweep together, from the warp's longest tape down (a lane with fewer
 // nodes idles first), so that the table cotangents can be summed over the
-// warp with shuffles before one shared-memory atomic (`add_column`); the
+// warp with shuffles before shared-memory atomics (`add_column`); the
 // march replays step the warp together for the same reason. Table
 // cotangents stay in shared memory until the block ends; the per-block
 // partials are summed by the fixed-order reduction of adjoint_common.cuh.
@@ -76,6 +85,20 @@ constexpr int kThreads = 128;
 
 // A taped node's code: its depth, and which children the replay pushed.
 constexpr int kDepthMask = 0xff, kReflPushed = 1 << 8, kRefrPushed = 1 << 9;
+
+// The tape's layout, the one place that decides it: n_slots slots of 32
+// nodes, slot s lane l at index 32 s + l of two float4 planes (o xyz, d.x |
+// d.y, d.z, w, code). Warp w owns slots starts[w] .. starts[w] + its
+// count - 1, node k of its lane l in slot starts[w] + k.
+constexpr int kTapeFloatsPerSlot = 32 * 8;
+
+struct TapeSlots {
+  float4* a;  // o xyz, d.x
+  float4* b;  // d.y, d.z, w, code
+  __device__ __forceinline__ long long at(long long slot, int lane) const {
+    return 32 * slot + lane;
+  }
+};
 
 // The forward DFS (trace_wavefront_ray) without the lighting, which does not
 // change which nodes are popped: visit(k, node, code) sees the k-th pop.
@@ -369,41 +392,46 @@ __device__ __forceinline__ RayCot node_adjoint(const Tables& T, const WavefrontP
   return c;
 }
 
-__global__ void __launch_bounds__(kThreads) wavefront_count_kernel(
-    Tables T, WavefrontParams P, const float* __restrict__ o, const float* __restrict__ d,
-    int* __restrict__ counts, int n_rays, int* __restrict__ dropped) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  int sp_fin, n_dropped = 0;
-  counts[i] = replay(T, P, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
-                     d[3 * i + 2], sp_fin, n_dropped, [](int, const Node&, int) {});
-  if (n_dropped) atomicAdd(dropped, n_dropped);
-}
-
 __global__ void __launch_bounds__(kThreads) wavefront_grad_kernel(
     Tables T, WavefrontParams P, Offsets off, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ g, float* __restrict__ go,
-    float* __restrict__ gd, int n_rays, const long long* __restrict__ starts,
-    float4* __restrict__ tape, float* __restrict__ partials) {
+    float* __restrict__ gd, int n_rays, const int* __restrict__ warp_pops,
+    const long long* __restrict__ starts, TapeSlots tape, int* __restrict__ overruns,
+    float* __restrict__ partials) {
   extern __shared__ float acc[];
   for (int j = threadIdx.x; j < off.total; j += blockDim.x) acc[j] = 0.0f;
   __syncthreads();
   // Every thread of the block runs to the end (the warp sums need all 32
   // lanes); a thread past the last ray has no nodes.
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const bool valid = i < n_rays;
   float gr = 0.0f, gg = 0.0f, gb = 0.0f;
   int n_pops = 0, sp_fin = 0;
-  float4* nodes = tape;  // this ray's stretch: two float4 per node
+  long long slot0 = 0;  // this warp's first slot
+  bool over = false;
   if (valid) {
     gr = g[3 * i]; gg = g[3 * i + 1]; gb = g[3 * i + 2];
-    nodes = tape + 2 * starts[i];
-    int dropped = 0;  // counted by the counting replay
+    const long long w = i >> 5;
+    slot0 = starts[w];
+    const int room = warp_pops[w];
+    int dropped = 0;  // the forward counted the drops
     n_pops = replay(T, P, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
                     d[3 * i + 2], sp_fin, dropped, [&](int k, const Node& n, int code) {
-                      nodes[2 * k] = make_float4(n.ox, n.oy, n.oz, n.dx);
-                      nodes[2 * k + 1] = make_float4(n.dy, n.dz, n.w, __int_as_float(code));
+                      if (k >= room) {  // past the stretch the forward sized
+                        over = true;
+                        return;
+                      }
+                      const long long at = tape.at(slot0 + k, lane);
+                      tape.a[at] = make_float4(n.ox, n.oy, n.oz, n.dx);
+                      tape.b[at] = make_float4(n.dy, n.dz, n.w, __int_as_float(code));
                     });
+    if (over) {  // no sweep over a tape cut short: NaN, and the wrapper raises
+      atomicAdd(overruns, 1);
+      atomicAdd(acc, __int_as_float(0x7fffffff));
+      n_pops = 0;
+      sp_fin = 0;
+    }
   }
   // The reverse sweep, the warp's lanes in step.
   const RayCot zero{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, 0.0f};
@@ -417,7 +445,8 @@ __global__ void __launch_bounds__(kThreads) wavefront_grad_kernel(
     int code = 0;
     RayCot c_refl = zero, c_refr = zero;
     if (act) {
-      const float4 a = nodes[2 * k], b = nodes[2 * k + 1];
+      const long long at = tape.at(slot0 + k, lane);
+      const float4 a = tape.a[at], b = tape.b[at];
       code = __float_as_int(b.w);
       n = Node{a.x, a.y, a.z, a.w, b.x, b.y, b.z, code & kDepthMask};
       if (code & kRefrPushed) c_refr = cs[--rsp];  // pushed last, on top
@@ -425,6 +454,10 @@ __global__ void __launch_bounds__(kThreads) wavefront_grad_kernel(
     }
     const RayCot c = node_adjoint(T, P, off, acc, act, n, code, c_refl, c_refr, gr, gg, gb);
     if (act) cs[rsp++] = c;
+  }
+  if (over) {
+    const float nan = __int_as_float(0x7fffffff);
+    cs[0] = RayCot{{nan, nan, nan}, {nan, nan, nan}, nan};
   }
   if (valid) {
     go[3 * i] = cs[0].o.x; go[3 * i + 1] = cs[0].o.y; go[3 * i + 2] = cs[0].o.z;
@@ -437,32 +470,24 @@ __global__ void __launch_bounds__(kThreads) wavefront_grad_kernel(
 
 }  // namespace
 
-extern "C" int rte_wavefront_grad_count(
-    const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
-    const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
-    const float* light, int light_cols, int nl, const float* o, const float* d, int* counts,
-    int n_rays, int max_depth, float bias, float min_weight, int march, int shadow_max_steps,
-    float shadow_min_t, int budget, int* dropped, void* stream) {
-  if (max_depth < 0 || max_depth + 2 > rte::kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rays <= 0) return 0;
-  const Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat,
-                                    mat_cols, light, light_cols, nl);
-  const WavefrontParams P{max_depth, bias, min_weight, march, shadow_max_steps, shadow_min_t,
-                          budget};
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  wavefront_count_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T, P, o, d, counts, n_rays, dropped);
-  return static_cast<int>(cudaGetLastError());
+// Floats of a tape of n_slots slots (TapeSlots).
+extern "C" long long rte_wavefront_tape_floats(long long n_slots) {
+  return kTapeFloatsPerSlot * n_slots;
 }
 
+// The adjoint of ray block [n_rays] given the forward's per-warp counts
+// `warp_pops` [ceil(n_rays / 32)], each warp's first slot `starts` and a
+// tape of n_slots slots (rte_wavefront_tape_floats floats). A lane that
+// pops past its warp's count adds one to *overruns.
 extern "C" int rte_wavefront_grad(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* o, const float* d, const float* g,
-    float* go, float* gd, int n_rays, const long long* starts, float* tape, float* partials,
-    float* out, int total, int max_depth, float bias, float min_weight, int march,
-    int shadow_max_steps, float shadow_min_t, int budget, int* dropped, void* stream) {
-  (void)dropped;  // the counting replay counted the drops
+    float* go, float* gd, int n_rays, const int* warp_pops, const long long* starts,
+    float* tape, long long n_slots, int* overruns, float* partials, float* out, int total,
+    int max_depth, float bias, float min_weight, int march, int shadow_max_steps,
+    float shadow_min_t, int budget, int* dropped, void* stream) {
+  (void)dropped;  // the forward counted the drops
   if (max_depth < 0 || max_depth + 2 > rte::kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return 0;
   const Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat,
@@ -479,8 +504,11 @@ extern "C" int rte_wavefront_grad(
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (n_rays + kThreads - 1) / kThreads;
-  wavefront_grad_kernel<<<blocks, kThreads, smem, s>>>(T, P, off, o, d, g, go, gd, n_rays, starts,
-                                                       reinterpret_cast<float4*>(tape), partials);
+  float4* planes = reinterpret_cast<float4*>(tape);
+  const TapeSlots slots{planes, planes + 32 * n_slots};
+  wavefront_grad_kernel<<<blocks, kThreads, smem, s>>>(T, P, off, o, d, g, go, gd, n_rays,
+                                                       warp_pops, starts, slots, overruns,
+                                                       partials);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return reduce_partials(partials, total, blocks, out, s);

@@ -20,23 +20,42 @@
 // consecutive rays are neighbouring pixels, and a dropped push (stack full,
 // which cap = max_depth + 2 rules out) is counted into *dropped for the
 // wrapper to read, never silent.
+//
+// The counting instantiation (kCount) also writes, for each warp of 32
+// consecutive rays, the most nodes any of its rays popped: the glass
+// adjoint (wavefront_grad.cu) sizes its warp-interleaved tape by these
+// counts. Only a training step launches it (kernels/wavefront_grad.py::
+// WavefrontTraceFused); render_hdr without gradients runs the kernel
+// without kCount.
 #include "trace_common.cuh"
 
 namespace {
 
+template <bool kCount>
 __global__ void __launch_bounds__(128) wavefront_trace_kernel(
     rte::Tables T, rte::WavefrontParams P, const float* __restrict__ o,
-    const float* __restrict__ d, float* __restrict__ out, int n_rays, int* __restrict__ dropped) {
+    const float* __restrict__ d, float* __restrict__ out, int n_rays, int* __restrict__ dropped,
+    int* __restrict__ warp_pops) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  int pops = 0, n_dropped = 0;
-  const float3 c = rte::trace_wavefront_ray(T, P, o[3 * i], o[3 * i + 1], o[3 * i + 2],
-                                            d[3 * i], d[3 * i + 1], d[3 * i + 2], pops,
-                                            n_dropped);
-  out[3 * i] = c.x;
-  out[3 * i + 1] = c.y;
-  out[3 * i + 2] = c.z;
-  if (n_dropped) atomicAdd(dropped, n_dropped);
+  if constexpr (!kCount) {
+    if (i >= n_rays) return;
+  }
+  int pops = 0;
+  if (i < n_rays) {
+    int n_dropped = 0;
+    const float3 c = rte::trace_wavefront_ray(T, P, o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                                              d[3 * i], d[3 * i + 1], d[3 * i + 2], pops,
+                                              n_dropped);
+    out[3 * i] = c.x;
+    out[3 * i + 1] = c.y;
+    out[3 * i + 2] = c.z;
+    if (n_dropped) atomicAdd(dropped, n_dropped);
+  }
+  if constexpr (kCount) {  // every lane of the warp is here
+    const int most = __reduce_max_sync(rte::kFullMask, pops);
+    const long long w = i >> 5;
+    if ((threadIdx.x & 31) == 0 && (w << 5) < n_rays) warp_pops[w] = most;
+  }
 }
 
 }  // namespace
@@ -46,7 +65,7 @@ extern "C" int rte_wavefront_trace(
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
     const float* light, int light_cols, int nl, const float* o, const float* d, float* out,
     int n_rays, int max_depth, float bias, float min_weight, int march, int shadow_max_steps,
-    float shadow_min_t, int budget, int* dropped, void* stream) {
+    float shadow_min_t, int budget, int* dropped, int* warp_pops, void* stream) {
   if (max_depth < 0 || max_depth + 2 > rte::kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return 0;
   const rte::Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols,
@@ -55,7 +74,24 @@ extern "C" int rte_wavefront_trace(
                                shadow_min_t, budget};
   const int threads = 128;
   const int blocks = (n_rays + threads - 1) / threads;
-  wavefront_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T, P, o, d, out, n_rays, dropped);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (warp_pops) {
+    wavefront_trace_kernel<true><<<blocks, threads, 0, s>>>(T, P, o, d, out, n_rays, dropped,
+                                                           warp_pops);
+  } else {
+    wavefront_trace_kernel<false><<<blocks, threads, 0, s>>>(T, P, o, d, out, n_rays, dropped,
+                                                            nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs per SM of the kernel, counting (count != 0) or not.
+extern "C" int rte_wavefront_trace_occupancy(int count) {
+  int n = 0;
+  const cudaError_t e =
+      count ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wavefront_trace_kernel<true>, 128,
+                                                            0)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wavefront_trace_kernel<false>, 128,
+                                                            0);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }

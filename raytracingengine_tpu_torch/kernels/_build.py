@@ -37,7 +37,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raytracingengine_tpu_torch"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 #: Per table: pointer, column count, primitive count (light: pointer,
 #: columns, count; mat: pointer, columns).
@@ -46,8 +46,9 @@ _TABLE_ARGTYPES = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I]
 _CULL_ARGTYPES = [_P, _I]
 _TRACE_ARGTYPES = [_I, _F, _F, _P]  # max_depth, bias, min_weight, stream
 #: max_depth, bias, min_weight, march, shadow_max_steps, shadow_min_t,
-#: budget, dropped-push counter, stream
-_WAVEFRONT_ARGTYPES = [_I, _F, _F, _I, _I, _F, _I, _P, _P]
+#: budget, dropped-push counter (the stream follows, after any other
+#: argument of the entry point)
+_WAVEFRONT_ARGTYPES = [_I, _F, _F, _I, _I, _F, _I, _P]
 
 
 def nvcc() -> str:
@@ -110,9 +111,10 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's types."""
     path, _log = build()
     lib = ctypes.CDLL(str(path))
-    # o, d, out, n_rays, route (out: the scan taken, kernels/chain_trace.py::ROUTES)
+    # o, d, out, n_rays, route (out: the scan taken, kernels/chain_trace.py::
+    # ROUTES), tape (null: the kernels without the tape)
     lib.rte_chain_trace.argtypes = (
-        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _I, _IP] + _TRACE_ARGTYPES
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _I, _IP, _P] + _TRACE_ARGTYPES
     )
     lib.rte_chain_trace.restype = _I
     # cam, px, py, out, n_pixels, width, height, spp, seed, route (out)
@@ -121,10 +123,10 @@ def load_library() -> ctypes.CDLL:
         + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _IP] + _TRACE_ARGTYPES
     )
     lib.rte_spp_trace.restype = _I
-    # o, d, g, d_o, d_d, n_rays, width (the thread-to-ray map's), states,
-    # partials, total, n_ctas
+    # tape, g, d_o, d_d, n_rays, width (the thread-to-ray map's), partials,
+    # total, n_ctas, route (out: the shadow scan taken)
     lib.rte_chain_grad.argtypes = (
-        _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I] + _TRACE_ARGTYPES
+        _TABLE_ARGTYPES + [_P, _P, _P, _P, _I, _I, _P, _I, _I, _IP] + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad.restype = _I
     lib.rte_chain_grad_dense.argtypes = (
@@ -132,27 +134,37 @@ def load_library() -> ctypes.CDLL:
         + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad_dense.restype = _I
-    # CTAs per SM of each chain kernel (the trace kernels: by route code,
-    # kernels/chain_trace.py::ROUTES; chain_grad_dense: culled or not,
-    # dynamic shared bytes)
-    for name, args in (("rte_chain_trace_occupancy", [_I]), ("rte_spp_trace_occupancy", [_I]),
-                       ("rte_chain_grad_occupancy", [_I]),
-                       ("rte_chain_grad_dense_occupancy", [_I, _I])):
+    # CTAs per SM of each kernel (the trace kernels: by route code,
+    # kernels/chain_trace.py::ROUTES, and chain_trace taping or not;
+    # chain_grad: by route code and dynamic shared bytes; chain_grad_dense:
+    # culled or not, dynamic shared bytes; wavefront_trace: counting or not)
+    for name, args in (("rte_chain_trace_occupancy", [_I, _I]), ("rte_spp_trace_occupancy", [_I]),
+                       ("rte_chain_grad_occupancy", [_I, _I]),
+                       ("rte_chain_grad_dense_occupancy", [_I, _I]),
+                       ("rte_wavefront_trace_occupancy", [_I])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = _I
-    lib.rte_wavefront_trace.argtypes = _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
+    # The tapes' sizes in floats: the chain tape's (max_depth, n_rays), the
+    # glass adjoint's (its slots of 32 nodes)
+    lib.rte_chain_tape_floats.argtypes = [_I, _I]
+    lib.rte_chain_tape_floats.restype = _LL
+    lib.rte_wavefront_tape_floats.argtypes = [_LL]
+    lib.rte_wavefront_tape_floats.restype = _LL
+    # o, d, out, n_rays, ..., warp_pops (null: the kernel without the counts)
+    lib.rte_wavefront_trace.argtypes = (
+        _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES + [_P, _P]
+    )
     lib.rte_wavefront_trace.restype = _I
     lib.rte_wavefront_spp_trace.argtypes = (
         _TABLE_ARGTYPES + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32]
-        + _WAVEFRONT_ARGTYPES
+        + _WAVEFRONT_ARGTYPES + [_P]
     )
     lib.rte_wavefront_spp_trace.restype = _I
-    lib.rte_wavefront_grad_count.argtypes = (
-        _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
-    )
-    lib.rte_wavefront_grad_count.restype = _I
+    # o, d, g, d_o, d_d, n_rays, warp_pops, starts, tape, n_slots, overruns,
+    # partials, out, total
     lib.rte_wavefront_grad.argtypes = (
-        _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I] + _WAVEFRONT_ARGTYPES
+        _TABLE_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _I]
+        + _WAVEFRONT_ARGTYPES + [_P]
     )
     lib.rte_wavefront_grad.restype = _I
     lib.rte_chain_grad_reduce.argtypes = [_P, _I, _I, _P, _P]

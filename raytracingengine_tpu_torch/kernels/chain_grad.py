@@ -16,7 +16,8 @@ ray's origin and direction. Per ray:
      state and its VJP taken: the state cotangent moves one bounce back and
      the table cotangents accumulate. (The CUDA kernels save each bounce's
      winner in step 1 and rebuild the hit from it, so their only
-     closest-hit scan is the checkpoint's.)
+     closest-hit scan is the checkpoint's; the head-box kernel's step 1 is
+     the forward's own, below.)
 
 Shadow occlusion is a boolean decision, so it carries no cotangent: the
 VJP treats it as a constant, which is the exact adjoint of the bounce.
@@ -25,8 +26,12 @@ Two adjoints, as the JAX package has (kernels/chain_grad.py):
 
   * `chain_grad` (<= MAX_PRIMS primitives, tables that are not culled):
     `bounce_plain` differentiates the closest hit over every primitive.
-    CPU tensors run `chain_grad_plain`, CUDA tensors csrc/chain_grad.cu.
-    It replaces chain_grad_pallas.
+    CPU tensors run `chain_grad_plain`, CUDA tensors csrc/chain_grad.cu,
+    which takes its step 1 from the tape of the forward's taping kernel
+    (`chain_trace(..., tape=True)`) and runs no closest-hit scan; its
+    shadow scans read the tables staged in shared memory or in place, as
+    csrc/trace_common.cuh::grad_route decides (counted in
+    `chain_grad.routes`). It replaces chain_grad_pallas.
   * `chain_grad_dense` (culled tables, or more than MAX_PRIMS primitives):
     `bounce_dense_plain` finds the closest hit without gradient, with the
     forward's scan (kernels/chain_trace.py), then recomputes (t, n) on the
@@ -44,8 +49,9 @@ distance is found without gradient and differentiated in the plane form
 (`_tri_t_plane`), as the kernels' `tri_pullback` does: the gradient of
 autodiff of the Moller-Trumbore formula, at the forward's hit point.
 
-`ChainTraceFused` / `chain_trace_fused`: forward `chain_trace`, backward
-the adjoint `adjoint_route` picks; autograd carries the table cotangents
+`ChainTraceFused` / `chain_trace_fused`: forward `chain_trace` (on the
+card, its taping kernel where the backward is `chain_grad`), backward the
+adjoint `adjoint_route` picks; autograd carries the table cotangents
 back through `pack_forward_tables_perm` (the reorder is an index),
 `pack_scene_tables` and `flatten_scene` to the scene leaves, and the ray
 cotangents to the camera. `chain_grad_dense` serves any triangle count (its
@@ -55,6 +61,7 @@ light cotangents do not fit one block's shared memory, it raises.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -65,6 +72,7 @@ from raytracingengine_tpu_torch.geometry.intersect import EPS
 from raytracingengine_tpu_torch.kernels import _build
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
+    ROUTES,
     SceneTables,
     _any_hit,
     _check_rays,
@@ -85,8 +93,8 @@ MAX_SMEM_BYTES = 227 * 1024
 #: two blocks of 13 rows of 128 floats and two sets of four warp votes),
 #: beside the dense adjoint's accumulator.
 STAGE_BYTES = 2 * 13 * 128 * 4 + 2 * 4 * 8
-#: Floats the adjoint kernels save per bounce and ray: o, d, w and the
-#: closest hit's t, winner and tri column (csrc/adjoint_common.cuh).
+#: Floats the dense adjoint saves per bounce and ray: o, d, w and the
+#: closest hit's t, winner and tri column (csrc/trace_common.cuh kStateRows).
 STATE_ROWS = 10
 
 
@@ -536,22 +544,28 @@ def check_width(width: int) -> None:
 
 
 def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
-               gbar: torch.Tensor, cfg, width: int = 0):
+               gbar: torch.Tensor, cfg, width: int = 0, tape: torch.Tensor | None = None):
     """Adjoint of `chain_trace` -> (table cotangents in the tables' shapes,
     d_o [R,3], d_d [R,3]).
 
-    CPU tensors run `chain_grad_plain`; CUDA tensors launch the CUDA adjoint
-    (csrc/chain_grad.cu) and its fixed-order reduction of the per-block
-    table cotangents, on the current stream. `width` is the image width of
-    the ray block's rows, for the kernel's 32x4 pixel-tile CTAs
-    (kernels/chain_trace.py::thread_rays), or 0 for the identity map; it
-    changes no result."""
+    CPU tensors run `chain_grad_plain`, which checkpoints itself (`tape`
+    None). CUDA tensors launch the CUDA adjoint (csrc/chain_grad.cu) and its
+    fixed-order reduction of the per-block table cotangents, on the current
+    stream: `tape` is the one `chain_trace(tables, o, d, cfg, tape=True)`
+    wrote at this cfg, whose bounces the adjoint differentiates; the route
+    of its shadow scans is counted in `chain_grad.routes`. `width` is the
+    image width of the ray block's rows, for the kernel's 32x4 pixel-tile
+    CTAs (kernels/chain_trace.py::thread_rays), or 0 for the identity map;
+    it changes no result."""
     _check_rays(o, d)
     check_width(width)
     check_gbar(gbar, o)
     _check_scope(tables)
     check_tables(tables, o.device)
     if o.device.type == "cpu":
+        if tape is not None:
+            raise ValueError("chain_grad: the tape is the CUDA kernels'; the plain "
+                             "adjoint checkpoints itself")
         return chain_grad_plain(tables, o, d, gbar, cfg)
     if o.device.type != "cuda":
         raise ValueError(f"chain_grad: unsupported device {o.device}")
@@ -559,33 +573,43 @@ def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
         raise ValueError("chain_grad: o, d and gbar must be contiguous")
     total = table_entries(tables, "chain_grad")
     r = o.shape[0]
+    lib = _build.load_library()
+    n_tape = lib.rte_chain_tape_floats(cfg.max_depth, r)
+    if (tape is None or tape.dtype != torch.float32 or tape.device != o.device
+            or tape.shape != (n_tape,) or not tape.is_contiguous()):
+        raise ValueError(
+            "chain_grad: expected the tape of chain_trace(tables, o, d, cfg, tape=True), "
+            f"float32 [{n_tape}] on {o.device}, got "
+            + ("None" if tape is None else f"{tape.dtype} {tuple(tape.shape)} on {tape.device}")
+        )
     if r == 0:
         return tuple(torch.zeros_like(t) for t in tables.tensors()), o.clone(), d.clone()
-    lib = _build.load_library()
     flat = torch.empty(total, dtype=torch.float32, device=o.device)
     go, gd = torch.empty_like(o), torch.empty_like(d)
     n_blocks = map_ctas(r, width)
-    # Saved ray state and winner, [depth][STATE_ROWS][ray]: each thread
-    # writes and reads its own column.
-    states = torch.empty((max(cfg.max_depth, 1), STATE_ROWS, r), dtype=torch.float32, device=o.device)
     partials = torch.empty((total, n_blocks), dtype=torch.float32, device=o.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_chain_grad(
-            *_build.table_args(tables), o.data_ptr(), d.data_ptr(), gbar.data_ptr(),
-            go.data_ptr(), gd.data_ptr(), r, width, states.data_ptr(), partials.data_ptr(),
-            total, n_blocks, cfg.max_depth, cfg.bias, cfg.min_weight, stream,
+            *_build.table_args(tables), tape.data_ptr(), gbar.data_ptr(), go.data_ptr(),
+            gd.data_ptr(), r, width, partials.data_ptr(), total, n_blocks, ctypes.byref(route),
+            cfg.max_depth, cfg.bias, cfg.min_weight, stream,
         )
         _build.check(lib, err, "chain_grad")
         err = lib.rte_chain_grad_reduce(partials.data_ptr(), total, n_blocks,
                                         flat.data_ptr(), stream)
         _build.check(lib, err, "chain_grad reduce")
     chain_grad.launches += 1
+    chain_grad.routes[ROUTES[route.value]] += 1
     return split_table_cots(flat, tables.tensors()), go, gd
 
 
-#: Kernel launches since the last reset (the CPU path does not count).
+#: Kernel launches since the last reset (the CPU path does not count), in
+#: all and per route of the shadow scans (kernels/chain_trace.py::ROUTES:
+#: "staged" or "in_place").
 chain_grad.launches = 0
+chain_grad.routes = dict.fromkeys(ROUTES, 0)
 
 
 def small_table_shapes(tables: SceneTables) -> tuple[tuple[int, int], ...]:
@@ -664,23 +688,33 @@ class ChainTraceFused(torch.autograd.Function):
     (by `adjoint_route`), on the tables' five tensors and the rays. The
     culling tables ride along as values. The forward runs on detached
     tensors, so the forward-only wrappers keep refusing inputs that require
-    grad."""
+    grad. On the card, where the backward is `chain_grad`, the forward is
+    chain_trace's taping kernel, and its tape is saved for the backward
+    (csrc/trace_common.cuh::ChainTape: 40 bytes per ray and depth, and 16):
+    held from the forward to the backward, freed after it unless the graph
+    is retained, as every saved tensor is."""
 
     @staticmethod
     def forward(ctx, counts, culling, cfg, width, o, d, sph, pl, tri, mat, light):
         ctx.counts, ctx.culling, ctx.cfg, ctx.width = counts, culling, cfg, width
-        ctx.save_for_backward(o, d, sph, pl, tri, mat, light)
         tables = SceneTables(sph.detach(), pl.detach(), tri.detach(), mat.detach(),
                              light.detach(), *counts, *culling)
-        return chain_trace(tables, o.detach().contiguous(), d.detach().contiguous(), cfg)
+        rays = (o.detach().contiguous(), d.detach().contiguous())
+        tape = None
+        if o.device.type == "cuda" and adjoint_route(tables) == "chain_grad":
+            img, tape = chain_trace(tables, *rays, cfg, tape=True)
+        else:
+            img = chain_trace(tables, *rays, cfg)
+        ctx.save_for_backward(tape, o, d, sph, pl, tri, mat, light)
+        return img
 
     @staticmethod
     def backward(ctx, g):
-        o, d, *tabs = ctx.saved_tensors
+        tape, o, d, *tabs = ctx.saved_tensors
         tables = SceneTables(*(t.detach() for t in tabs), *ctx.counts, *ctx.culling)
         rays = (o.detach().contiguous(), d.detach().contiguous(), g.contiguous())
         if adjoint_route(tables) == "chain_grad":
-            table_cots, go, gd = chain_grad(tables, *rays, ctx.cfg, ctx.width)
+            table_cots, go, gd = chain_grad(tables, *rays, ctx.cfg, ctx.width, tape=tape)
         else:
             table_cots, go, gd = chain_grad_dense(tables, *rays, ctx.cfg)
         return (None, None, None, None, go, gd, *table_cots)

@@ -38,6 +38,11 @@ chain (opaque: reflectiveness = specular) to `max_depth`, pruned by
     chain_trace, samples of one pixel in spp_trace), else "in_place", one
     ray per thread reading the tables where they lie. The wrappers count
     launches per route in `routes` (names: ROUTES).
+  * `chain_trace(..., tape=True)` (CUDA tensors, linear tables) runs the
+    route's taping kernel, which also writes each ray's bounces to the
+    chain tape (csrc/trace_common.cuh::ChainTape, sized by the library) for
+    the head-box adjoint kernels/chain_grad.py::chain_grad; the frame is the
+    same. The plain adjoint checkpoints itself, so the CPU has no tape.
   * `thread_rays` mirrors the chain kernels' thread-to-ray map: the
     identity (width 0), or, for the head-box adjoint given the ray block's
     image width, 32x4 pixel tiles, one row of 32 per warp.
@@ -844,15 +849,21 @@ def check_width(width: int) -> None:
 
 
 def chain_trace(
-    tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg
-) -> torch.Tensor:
-    """[R,3] origins/directions -> [R,3] HDR radiance.
+    tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg, tape: bool = False
+):
+    """[R,3] origins/directions -> [R,3] HDR radiance; with `tape`, ->
+    (radiance, chain tape) for chain_grad.
 
     CPU tensors run `trace_chain_plain`; CUDA tensors launch the CUDA
     kernel (csrc/chain_trace.cu) on the current stream and counts the scan
-    it reports in `chain_trace.routes`."""
+    it reports in `chain_trace.routes`. `tape` (CUDA tensors, linear
+    tables) takes the route's taping kernel, which fills a float32 tape of
+    the library's size (csrc/trace_common.cuh::ChainTape)."""
     _check_rays(o, d)
     check_tables(tables, o.device, culled_ok=True)
+    if tape and (o.device.type != "cuda" or tables.culled):
+        raise ValueError("chain_trace: the tape is the CUDA kernels' on linear tables "
+                         "(chain_grad's); the plain adjoint checkpoints itself")
     if o.device.type == "cpu":
         return trace_chain_plain(tables, o, d, cfg)
     if o.device.type != "cuda":
@@ -862,17 +873,25 @@ def chain_trace(
         raise ValueError("chain_trace: o and d must be contiguous")
     lib = _build.load_library()
     out = torch.empty_like(o)
+    tp = None
+    if tape:
+        n = lib.rte_chain_tape_floats(cfg.max_depth, o.shape[0])
+        tp = torch.empty(n, dtype=torch.float32, device=o.device)
     route = ctypes.c_int(-1)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_chain_trace(
             *_build.table_args(tables), *_build.culling_args(tables),
             o.data_ptr(), d.data_ptr(), out.data_ptr(), o.shape[0], ctypes.byref(route),
-            cfg.max_depth, cfg.bias, cfg.min_weight, stream,
+            None if tp is None else tp.data_ptr(), cfg.max_depth, cfg.bias, cfg.min_weight,
+            stream,
         )
     _build.check(lib, err, "chain_trace")
     chain_trace.launches += 1
     chain_trace.routes[ROUTES[route.value]] += 1
+    if tape:
+        chain_trace.tape_launches += 1
+        return out, tp
     return out
 
 
@@ -885,3 +904,5 @@ def new_route_counts() -> dict[str, int]:
 #: all and per route.
 chain_trace.launches = 0
 chain_trace.routes = new_route_counts()
+#: Of those, the launches of a taping kernel (`tape=True`).
+chain_trace.tape_launches = 0

@@ -34,11 +34,16 @@ ray's recursion tree (Scene.h:131-198), so per ray:
     `torch.autograd.grad` of `pop_shade` per reverse iteration.
   * `wavefront_grad` is the wrapper: CPU tensors run `wavefront_grad_plain`,
     CUDA tensors launch csrc/wavefront_grad.cu (the hand-derived adjoint)
-    and count the launch in `wavefront_grad.launches`.
+    and count the launch in `wavefront_grad.launches`. On the card its
+    tape is sized by the forward's counting kernel (`wavefront_trace(...,
+    count=True)`: per warp of 32 rays, the most nodes one of its rays
+    popped), each warp's stretch placed by `tape_slots`; the kernel lays
+    the nodes out within it (csrc/wavefront_grad.cu::TapeSlots).
   * `WavefrontTraceFused` / `wavefront_trace_fused`: forward
-    `wavefront_trace`, backward `wavefront_grad`; autograd carries the
-    table cotangents back through `pack_scene_tables` and `flatten_scene`
-    to the scene leaves, and the ray cotangents to the camera.
+    `wavefront_trace` (on the card, its counting kernel), backward
+    `wavefront_grad`; autograd carries the table cotangents back through
+    `pack_scene_tables` and `flatten_scene` to the scene leaves, and the
+    ray cotangents to the camera.
 
 The march's clip rule follows jax.grad of the JAX package's XLA march
 (render/shading.py::transmittance_hard, the reference of the tests): a
@@ -332,59 +337,98 @@ def _check_scope(tables: SceneTables) -> None:
         )
 
 
+def tape_slots(warp_pops: torch.Tensor, n_rays: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The glass adjoint's tape stretches from the forward's per-warp counts
+    (int32 [ceil(n_rays / 32)]: the most nodes one of the warp's 32 rays
+    popped; a ragged last warp counts its rays only) -> (int64 first slot
+    of each warp, int64 [] slots in all). Warp w owns slots starts[w] ..
+    starts[w] + warp_pops[w] - 1, a slot holding one node of each of its 32
+    lanes (csrc/wavefront_grad.cu::TapeSlots lays them out); a warp that
+    popped nothing owns none. Both stay on the device."""
+    n_warps = (n_rays + 31) // 32
+    if warp_pops.dtype != torch.int32 or warp_pops.shape != (n_warps,):
+        raise ValueError(f"warp_pops: expected int32 [{n_warps}] (the counting forward's, "
+                         f"{n_rays} rays), got {warp_pops.dtype} {tuple(warp_pops.shape)}")
+    ends = warp_pops.to(torch.int64).cumsum(0)
+    total = ends[-1] if n_warps else torch.zeros((), dtype=torch.int64, device=warp_pops.device)
+    return ends - warp_pops, total
+
+
+def _raise_on_overruns(overruns: torch.Tensor) -> None:
+    """Raise if the glass adjoint kernel counted lanes whose replay popped
+    more nodes than the forward counted for their warp (a host sync)."""
+    overran = int(overruns.item())
+    if overran:
+        raise RuntimeError(f"wavefront_grad: {overran} lanes popped more nodes than the forward "
+                           "counted for their warp (warp_pops); their cotangents are NaN")
+
+
 def wavefront_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
-                   gbar: torch.Tensor, cfg):
+                   gbar: torch.Tensor, cfg, warp_pops: torch.Tensor | None = None,
+                   defer_check: bool = False):
     """Adjoint of `wavefront_trace` -> (table cotangents in the tables'
     shapes, d_o [R,3], d_d [R,3]).
 
-    CPU tensors run `wavefront_grad_plain`; CUDA tensors launch the CUDA
-    adjoint (csrc/wavefront_grad.cu) on the current stream: a counting
-    replay, then, with the tape sized by the nodes it counted (one host
-    sync), the taped replay and reverse sweep, and the fixed-order
-    reduction of the per-block table cotangents. Pushes dropped on a full
-    stack count into `wavefront_trace.dropped_pushes()`, as the forward's."""
+    CPU tensors run `wavefront_grad_plain` (`warp_pops` None: it tapes its
+    own lockstep replay). CUDA tensors launch the CUDA adjoint
+    (csrc/wavefront_grad.cu) on the current stream: `warp_pops` are the
+    counts of `wavefront_trace(tables, o, d, cfg, count=True)`; the tape is
+    sized by them (`tape_slots`, one host sync), then the taped replay and
+    reverse sweep, and the fixed-order reduction of the per-block table
+    cotangents. A second host sync reads the lanes whose replay popped more
+    nodes than the forward counted for their warp (their tape was cut
+    short and their cotangents are NaN): if there are any, it raises
+    before the cotangents are returned. With `defer_check`, which only a
+    backward pass may ask for, that check runs when the backward pass ends
+    instead (an autograd final callback), so that the host launches the
+    rest of the backward first; it still raises before backward()
+    returns, and so before an optimizer takes the cotangents."""
     _check_rays(o, d)
     check_gbar(gbar, o)
     check_tables(tables, o.device)
     _check_cfg(cfg, o.device)
     _check_scope(tables)
     if o.device.type == "cpu":
+        if warp_pops is not None:
+            raise ValueError("wavefront_grad: the per-warp counts are the CUDA kernels'; the "
+                             "plain adjoint tapes itself")
         return wavefront_grad_plain(tables, o, d, gbar, cfg)
     if o.device.type != "cuda":
         raise ValueError(f"wavefront_grad: unsupported device {o.device}")
     if not all(t.is_contiguous() for t in (o, d, gbar)):
         raise ValueError("wavefront_grad: o, d and gbar must be contiguous")
+    if warp_pops is None or warp_pops.device != o.device or not warp_pops.is_contiguous():
+        raise ValueError("wavefront_grad: expected the counts of wavefront_trace(tables, o, d, "
+                         f"cfg, count=True) on {o.device}")
     total = table_entries(tables, "wavefront_grad")
     r = o.shape[0]
+    starts, n_slots = tape_slots(warp_pops, r)
     if r == 0:
         return tuple(torch.zeros_like(t) for t in tables.tensors()), o.clone(), d.clone()
     lib = _build.load_library()
-    args = _wavefront_args(cfg, _dropped_counter(o.device))
-    counts = torch.empty(r, dtype=torch.int32, device=o.device)
+    n_slots = int(n_slots)  # the first host sync: the tape's size
+    overruns = torch.zeros(1, dtype=torch.int32, device=o.device)
+    tape = torch.empty(lib.rte_wavefront_tape_floats(n_slots), dtype=torch.float32,
+                       device=o.device)
+    n_blocks = max(1, math.ceil(r / THREADS))
+    partials = torch.empty((total, n_blocks), dtype=torch.float32, device=o.device)
+    flat = torch.empty(total, dtype=torch.float32, device=o.device)
+    go, gd = torch.empty_like(o), torch.empty_like(d)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rte_wavefront_grad_count(
-            *_build.table_args(tables), o.data_ptr(), d.data_ptr(), counts.data_ptr(), r,
-            *args, stream,
-        )
-        _build.check(lib, err, "wavefront_grad count")
-        ends = counts.to(torch.int64).cumsum(0)
-        starts = ends - counts
-        n_nodes = int(ends[-1])  # the tape holds exactly the nodes popped
-        # One node = (o, d, weight, depth and push flags): 32 bytes, each
-        # thread's nodes contiguous from its start.
-        tape = torch.empty((n_nodes, 8), dtype=torch.float32, device=o.device)
-        n_blocks = max(1, math.ceil(r / THREADS))
-        partials = torch.empty((total, n_blocks), dtype=torch.float32, device=o.device)
-        flat = torch.empty(total, dtype=torch.float32, device=o.device)
-        go, gd = torch.empty_like(o), torch.empty_like(d)
         err = lib.rte_wavefront_grad(
             *_build.table_args(tables), o.data_ptr(), d.data_ptr(), gbar.data_ptr(),
-            go.data_ptr(), gd.data_ptr(), r, starts.data_ptr(), tape.data_ptr(),
-            partials.data_ptr(), flat.data_ptr(), total, *args, stream,
+            go.data_ptr(), gd.data_ptr(), r, warp_pops.data_ptr(), starts.data_ptr(),
+            tape.data_ptr(), n_slots, overruns.data_ptr(), partials.data_ptr(), flat.data_ptr(),
+            total, *_wavefront_args(cfg, _dropped_counter(o.device)), stream,
         )
         _build.check(lib, err, "wavefront_grad")
     wavefront_grad.launches += 1
+    if defer_check:
+        torch.autograd.Variable._execution_engine.queue_callback(
+            lambda: _raise_on_overruns(overruns))
+    else:
+        _raise_on_overruns(overruns)
     return split_table_cots(flat, tables.tensors()), go, gd
 
 
@@ -395,7 +439,10 @@ wavefront_grad.launches = 0
 class WavefrontTraceFused(torch.autograd.Function):
     """Forward `wavefront_trace`, backward `wavefront_grad`, on the tables'
     five tensors and the rays. The forward runs on detached tensors, so the
-    forward-only wrappers keep refusing inputs that require grad."""
+    forward-only wrappers keep refusing inputs that require grad. On the
+    card the forward is the counting kernel, whose per-warp counts wait in
+    ctx for the backward's tape; the backward checks the tape for overruns
+    when the backward pass ends (`wavefront_grad`'s `defer_check`)."""
 
     @staticmethod
     def forward(ctx, counts, cfg, o, d, sph, pl, tri, mat, light):
@@ -403,14 +450,20 @@ class WavefrontTraceFused(torch.autograd.Function):
         ctx.save_for_backward(o, d, sph, pl, tri, mat, light)
         tables = SceneTables(sph.detach(), pl.detach(), tri.detach(), mat.detach(),
                              light.detach(), *counts)
-        return wavefront_trace(tables, o.detach().contiguous(), d.detach().contiguous(), cfg)
+        rays = (o.detach().contiguous(), d.detach().contiguous())
+        ctx.warp_pops = None
+        if o.device.type == "cuda":
+            img, ctx.warp_pops = wavefront_trace(tables, *rays, cfg, count=True)
+            return img
+        return wavefront_trace(tables, *rays, cfg)
 
     @staticmethod
     def backward(ctx, g):
         o, d, *tabs = ctx.saved_tensors
         tables = SceneTables(*(t.detach() for t in tabs), *ctx.counts)
         table_cots, go, gd = wavefront_grad(
-            tables, o.detach().contiguous(), d.detach().contiguous(), g.contiguous(), ctx.cfg
+            tables, o.detach().contiguous(), d.detach().contiguous(), g.contiguous(), ctx.cfg,
+            warp_pops=ctx.warp_pops, defer_check=o.device.type == "cuda",
         )
         return (None, None, go, gd, *table_cots)
 

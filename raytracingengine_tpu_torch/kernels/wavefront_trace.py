@@ -21,6 +21,9 @@ or one any-hit scan (`"binary"`).
     csrc/wavefront_trace.cu and csrc/wavefront_spp_trace.cu and count the
     launch in `.launches`. Both are forward-only on either device: the
     gradient of `wavefront_trace` is kernels/wavefront_grad.py's adjoint.
+    `wavefront_trace(..., count=True)` (CUDA tensors) runs the counting
+    kernel, which also returns, per warp of 32 rays, the most nodes one of
+    its rays popped: the glass adjoint sizes its tape by them.
 
 They replace raytracingengine_tpu/kernels/wavefront_trace.py::
 wavefront_trace_pallas and wavefront_spp_trace_pallas.
@@ -361,16 +364,22 @@ def _wavefront_args(cfg, dropped: torch.Tensor) -> list:
 
 
 def wavefront_trace(
-    tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg
-) -> torch.Tensor:
-    """[R,3] origins/directions -> [R,3] HDR radiance.
+    tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg, count: bool = False
+):
+    """[R,3] origins/directions -> [R,3] HDR radiance; with `count`, ->
+    (radiance, int32 [ceil(R / 32)] most nodes popped per warp).
 
     CPU tensors run `trace_wavefront_plain`; CUDA tensors launch the CUDA
-    kernel (csrc/wavefront_trace.cu) on the current stream."""
+    kernel (csrc/wavefront_trace.cu) on the current stream, its counting
+    instantiation with `count` (CUDA tensors only: the plain adjoint tapes
+    its own lockstep replay)."""
     _check_rays(o, d)
     check_tables(tables, o.device)
     _check_cfg(cfg, o.device)
     check_no_grad(o, d, *tables.tensors())
+    if count and o.device.type != "cuda":
+        raise ValueError("wavefront_trace: the per-warp counts are the CUDA kernel's (the "
+                         "glass adjoint kernel's tape); the plain adjoint tapes itself")
     if o.device.type == "cpu":
         return trace_wavefront_plain(tables, o, d, cfg)
     if o.device.type != "cuda":
@@ -379,15 +388,22 @@ def wavefront_trace(
         raise ValueError("wavefront_trace: o and d must be contiguous")
     lib = _build.load_library()
     out = torch.empty_like(o)
+    warp_pops = None
+    if count:
+        warp_pops = torch.empty((o.shape[0] + 31) // 32, dtype=torch.int32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_wavefront_trace(
             *_build.table_args(tables),
             o.data_ptr(), d.data_ptr(), out.data_ptr(), o.shape[0],
-            *_wavefront_args(cfg, _dropped_counter(o.device)), stream,
+            *_wavefront_args(cfg, _dropped_counter(o.device)),
+            None if warp_pops is None else warp_pops.data_ptr(), stream,
         )
     _build.check(lib, err, "wavefront_trace")
     wavefront_trace.launches += 1
+    if count:
+        wavefront_trace.count_launches += 1
+        return out, warp_pops
     return out
 
 
@@ -431,3 +447,5 @@ def wavefront_spp_trace(
 #: Kernel launches since the last reset (the CPU path does not count).
 wavefront_trace.launches = 0
 wavefront_spp_trace.launches = 0
+#: Of wavefront_trace's launches, those of the counting kernel (`count=True`).
+wavefront_trace.count_launches = 0

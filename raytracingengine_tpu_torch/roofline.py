@@ -447,6 +447,27 @@ def adjoint_bytes(rays: int, tables: SceneTables) -> int:
     return rays * (36 + 24) + 2 * table_bytes(tables)
 
 
+#: Bytes of the chain tape per bounce a ray takes and per ray
+#: (csrc/trace_common.cuh::ChainTape: kStateRows and kTailRows floats).
+TAPE_BOUNCE_BYTES, TAPE_RAY_BYTES = 40, 16
+
+
+def chain_tape_bytes(work: ChainWork) -> int:
+    """Bytes of the chain tape the taping forward writes for these rays
+    (one entry per bounce taken, and each ray's end) and the head-box
+    adjoint reads."""
+    return TAPE_BOUNCE_BYTES * work.bounces + TAPE_RAY_BYTES * work.rays
+
+
+def taped_adjoint_bytes(work: ChainWork, tables: SceneTables) -> int:
+    """Bytes the head-box adjoint must move, fed from the forward's tape:
+    per ray g in (12 bytes) and d_o, d_d out (24), the tape read, the
+    tables read and their cotangents written. Its operations are the
+    shadow scans alone (`work.shadow_ops`): the closest hits are the
+    tape's."""
+    return work.rays * (12 + 24) + chain_tape_bytes(work) + 2 * table_bytes(tables)
+
+
 def work_ops(work: ChainWork | WavefrontWork) -> float:
     """The fp32 operations a call needs: its closest-hit scans and its
     shadow scans (any-hit or march). An adjoint needs the same scans as its

@@ -656,7 +656,8 @@ def test_cuda_ragged_blocks_match_plain(cuda_device, case):
     g = (2.0 * ours / ours.numel()).contiguous()
     if case == "linear_tiles_ragged":
         before = cg.chain_grad.launches
-        cots, go, gd = cg.chain_grad(tables, o, d, g, cfg, width=w)
+        _, tape = ct.chain_trace(tables, o, d, cfg, tape=True)
+        cots, go, gd = cg.chain_grad(tables, o, d, g, cfg, width=w, tape=tape)
         assert cg.chain_grad.launches == before + 1
         ref_cots, ref_go, ref_gd = cg.chain_grad_plain(tables, o, d, g, cfg)
     else:

@@ -14,8 +14,10 @@ at 64x48 with spp 1, 3 and 8, so that spp is not always a multiple of the
 packet, and at max_depth 1; baseline spheres; the stress scene with 337
 spheres, one short of the limit, and with 338, past it), check which route
 each launch took, and require the head box's staged frames to equal those
-of the head box padded past the limit (in place). They skip on a host
-without one.
+of the head box padded past the limit (in place), and so the ray
+cotangents of the head-box adjoint, whose shadow scans take the same two
+routes (csrc/trace_common.cuh::grad_route). They skip on a host without
+one.
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import raytracingengine_tpu_torch.kernels.chain_grad as cg
 import raytracingengine_tpu_torch.kernels.chain_trace as ct
 import raytracingengine_tpu_torch.kernels.spp_trace as st
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
@@ -138,11 +141,31 @@ def test_cuda_routes_agree_on_padded_tables(cuda_device):
     the in-place one, at spp 1 and 3, at the default depth and at max_depth
     1: padded slots never hit, their lights emit 0, and each ray's
     arithmetic is the same on both routes, so the frames are equal; a ragged
-    pixel count (37x11) leaves a packet part empty."""
+    pixel count (37x11) leaves a packet part empty. At spp 1 the head-box
+    adjoint, fed from each route's taping forward, takes the same two routes
+    for its shadow scans, and its ray cotangents are equal bit for bit."""
     for cfg in (CFG, DEPTH1):
+        frames = {}
         for spp in (1, 3):
             staged, _ = run_route("head_box", spp, cuda_device, cfg, 37, 11, plain=False)
             in_place, _ = run_route("head_box_pad128", spp, cuda_device, cfg, 37, 11, plain=False)
             report = seam_budget(staged.cpu().numpy(), in_place.cpu().numpy())
             print(f"spp={spp} max_depth={cfg.max_depth}: staged vs in place {report}")
             assert torch.equal(staged, in_place), (spp, cfg.max_depth, report)
+            frames[spp] = staged
+        g = (2.0 * frames[1] / frames[1].numel()).contiguous()
+        cots = {}
+        for name in ("head_box", "head_box_pad128"):
+            cam, tables = scene_tables(name, 37, 11, 1, cuda_device)
+            o, d = cam.rays_for_pixels(*cam.pixel_grid())
+            o = o.contiguous()
+            img, tape = ct.chain_trace(tables, o, d, cfg, tape=True)
+            assert torch.equal(img, frames[1]), (name, cfg.max_depth)
+            route = SCENES[name][2]
+            before = cg.chain_grad.routes[route]
+            cots[name] = cg.chain_grad(tables, o, d, g, cfg, width=37, tape=tape)
+            assert cg.chain_grad.routes[route] == before + 1, (name, cg.chain_grad.routes)
+        torch.cuda.synchronize()
+        for i, cot in ((1, "d_o"), (2, "d_d")):
+            a, b = cots["head_box"][i], cots["head_box_pad128"][i]
+            assert torch.equal(a, b), (cot, cfg.max_depth, float((a - b).abs().max()))

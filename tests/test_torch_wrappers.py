@@ -2,8 +2,11 @@
 
 (h) A CPU tensor reaches the plain version and leaves the launch counter
 unchanged; unsupported configurations raise NotImplementedError; bad
-inputs raise. The tests marked `gpu` need a CUDA card: they launch the
-kernels against their plain versions (the adjoints and the wavefront
+inputs raise (the forwards' tape and counts are the CUDA kernels'); the
+glass adjoint's tape stretches follow the forward's per-warp counts. The
+tests marked `gpu` need a CUDA card: they launch the kernels against their
+plain versions (the adjoints fed from the taping and counting forwards,
+directly and through the fused autograd Functions, and the wavefront
 kernels on the glass sphere too) and check that a forward kernel's CUDA
 input with requires_grad raises. They skip on a host without one.
 """
@@ -41,7 +44,7 @@ def small_head_box(spp=1, device="cpu"):
     return scene, cam, ct.pack_scene_tables(flatten_scene(scene))
 
 
-def grad_inputs(scene_name, width, height, device):
+def grad_inputs(scene_name, width, height, device, cfg=CFG):
     """-> (tables, o, d, g) of an adjoint check: the head box, or baseline
     spheres with 2 lights (the head box has no spheres), and g = d mean(img^2)
     / d img."""
@@ -52,7 +55,7 @@ def grad_inputs(scene_name, width, height, device):
     tables = ct.pack_scene_tables(flatten_scene(scene))
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     o = o.contiguous()
-    img = ct.chain_trace(tables, o, d, CFG)
+    img = ct.chain_trace(tables, o, d, cfg)
     return tables, o, d, (2.0 * img / img.numel()).contiguous()
 
 
@@ -118,6 +121,10 @@ def test_bad_inputs_raise():
         ct.chain_trace(tables, o[:, :2], d[:, :2], CFG)
     with pytest.raises(ValueError):
         ct.chain_trace(tables, o, d[:5], CFG)
+    with pytest.raises(ValueError, match="plain adjoint checkpoints itself"):
+        ct.chain_trace(tables, o.contiguous(), d, CFG, tape=True)
+    with pytest.raises(ValueError, match="plain adjoint tapes itself"):
+        wt.wavefront_trace(tables, o.contiguous(), d, RenderConfig(use_pallas=True), count=True)
     px, py = cam.pixel_grid()
     with pytest.raises(ValueError):
         st.spp_trace(tables, cam, px.long(), py.long(), CFG)
@@ -139,6 +146,25 @@ def test_chain_grad_routes_cpu_to_plain():
         cg.chain_grad(tables, o, d, g[:5], CFG)
     with pytest.raises(ValueError):
         cg.chain_grad(tables, o, d, g.double(), CFG)
+    with pytest.raises(ValueError, match="plain adjoint checkpoints itself"):
+        cg.chain_grad(tables, o, d, g, CFG, tape=torch.zeros(1))
+
+
+def test_glass_tape_slots_follow_the_warp_counts():
+    """tape_slots: each warp's stretch starts where the previous one ends,
+    a warp that popped nothing owns no slot, and a ragged last warp (70
+    rays: 6 in warp 2) takes its count like any other; counts of the wrong
+    length or type raise."""
+    pops = torch.tensor([3, 0, 5], dtype=torch.int32)
+    starts, total = wg.tape_slots(pops, 70)
+    assert starts.tolist() == [0, 3, 3] and int(total) == 8
+    starts, total = wg.tape_slots(torch.zeros(3, dtype=torch.int32), 65)
+    assert starts.tolist() == [0, 0, 0] and int(total) == 0
+    starts, total = wg.tape_slots(torch.zeros(0, dtype=torch.int32), 0)
+    assert starts.numel() == 0 and int(total) == 0
+    for bad, n in ((pops, 64), (pops, 97), (pops.long(), 70)):
+        with pytest.raises(ValueError, match="warp_pops"):
+            wg.tape_slots(bad, n)
 
 
 def test_generator_seeds_the_render():
@@ -191,31 +217,71 @@ def test_cuda_kernels_match_plain(cuda_device, spp):
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("scene_name", ["head_box", "spheres"])
-def test_cuda_chain_grad_matches_plain(cuda_device, scene_name):
-    """The adjoint kernel against chain_grad_plain at 64x48, on the head box
-    and on baseline spheres (the sphere pullback). Ray cotangents under the
-    seam budget with atol 1e-3 of the largest plain entry; table cotangents
-    row by row (parity.table_cot_rows: fp32 sums in another order,
-    shared-memory atomics)."""
-    tables, o, d, g = grad_inputs(scene_name, 64, 48, cuda_device)
-    before = cg.chain_grad.launches
-    cots, go, gd = cg.chain_grad(tables, o, d, g, CFG)
-    assert cg.chain_grad.launches == before + 1
-    ref_cots, ref_go, ref_gd = cg.chain_grad_plain(tables, o, d, g, CFG)
-    torch.cuda.synchronize()
+def assert_grads_match(cots, go, gd, ref_cots, ref_go, ref_gd, case):
+    """Ray cotangents under the seam budget with atol 1e-3 of the largest
+    plain entry; table cotangents row by row (parity.table_cot_rows: fp32
+    sums in another order, shared-memory atomics)."""
     for name, ours, ref in (("d_o", go, ref_go), ("d_d", gd, ref_gd)):
         report = ray_cot_seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-        print(f"{name}: {report}")
-        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, report)
+        print(f"{case} {name}: {report}")
+        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (case, name, report)
     for name, ours, ref in zip(TABLE_ROWS, cots, ref_cots):
         assert ours.shape == ref.shape
         rows = table_cot_rows(name, ours.cpu().numpy(), ref.cpu().numpy())
         print("\n".join(map(str, rows)))
-        assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
-    if scene_name == "spheres":
-        assert float(ref_cots[0].abs().max()) > 0.0  # the sphere rows carry cotangents
+        assert all(r.ok for r in rows), (case, [str(r) for r in rows if not r.ok])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene_name", ["head_box", "spheres"])
+def test_cuda_chain_grad_matches_plain(cuda_device, scene_name):
+    """The adjoint kernel, fed from the taping chain_trace, against
+    chain_grad_plain on the head box and on baseline spheres (the sphere
+    pullback): at 64x48 under the pixel-tile map and the identity map
+    (`map_width` 0, which render_hdr takes when a chunk is not whole rows),
+    at 37x29 (a ray count no multiple of 32, under the pixel-tile map) and
+    at max_depth 1 (the depth-exhaustion sky follows the first bounce).
+    Then the fused forward and backward (chain_trace_fused under autograd)
+    under the same map: its taping forward's frame equals chain_trace's,
+    its gradients are the plain adjoint's, and a second backward through
+    the retained graph adds the same gradients again (the tape is kept):
+    the ray cotangents bit for bit, the table cotangents within the
+    shared-memory atomics' run-to-run spread (1e-4 of the largest entry)."""
+    depth1 = dataclasses.replace(CFG, max_depth=1)
+    for width, height, cfg, map_width in ((64, 48, CFG, 64), (64, 48, CFG, 0), (37, 29, CFG, 37),
+                                          (64, 48, depth1, 64)):
+        case = (scene_name, width, height, cfg.max_depth, map_width)
+        tables, o, d, g = grad_inputs(scene_name, width, height, cuda_device, cfg)
+        img, tape = ct.chain_trace(tables, o, d, cfg, tape=True)
+        torch.testing.assert_close(img, ct.chain_trace(tables, o, d, cfg), rtol=0, atol=0)
+        before = cg.chain_grad.launches
+        cots, go, gd = cg.chain_grad(tables, o, d, g, cfg, width=map_width, tape=tape)
+        assert cg.chain_grad.launches == before + 1
+        ref_cots, ref_go, ref_gd = cg.chain_grad_plain(tables, o, d, g, cfg)
+        torch.cuda.synchronize()
+        assert_grads_match(cots, go, gd, ref_cots, ref_go, ref_gd, case)
+        if scene_name == "spheres":
+            assert float(ref_cots[0].abs().max()) > 0.0  # the sphere rows carry cotangents
+        # the fused forward and backward, as render_hdr runs them
+        leaves = [t.clone().requires_grad_(True) for t in tables.tensors()]
+        fused = dataclasses.replace(tables, sph=leaves[0], pl=leaves[1], tri=leaves[2],
+                                    mat=leaves[3], light=leaves[4])
+        o_req, d_req = o.clone().requires_grad_(True), d.clone().requires_grad_(True)
+        tapes, before = ct.chain_trace.tape_launches, cg.chain_grad.launches
+        out = cg.chain_trace_fused(fused, o_req, d_req, cfg, map_width)
+        torch.testing.assert_close(out.detach(), img, rtol=0, atol=0)
+        (out * g).sum().backward(retain_graph=True)
+        assert (ct.chain_trace.tape_launches, cg.chain_grad.launches) == (tapes + 1, before + 1)
+        assert_grads_match([x.grad for x in leaves], o_req.grad, d_req.grad, ref_cots, ref_go,
+                           ref_gd, (*case, "fused"))
+        first = [x.grad.clone() for x in (*leaves, o_req, d_req)]
+        (out * g).sum().backward()
+        assert cg.chain_grad.launches == before + 2
+        for a, x in zip(first[-2:], (o_req, d_req)):
+            torch.testing.assert_close(x.grad, 2 * a, rtol=0, atol=0)
+        for a, x in zip(first[:-2], leaves):
+            spread = float((x.grad - 2 * a).abs().max())
+            assert spread <= 1e-4 * float(a.abs().max()), (case, spread)
 
 
 @pytest.mark.gpu
@@ -265,35 +331,67 @@ def test_cuda_wavefront_spp_trace_matches_plain(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shadow_mode", ["binary", "march"])
 def test_cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode):
-    """The glass adjoint kernel against wavefront_grad_plain on the glass
-    sphere at 64x64, g = d mean(img^2) / d img: ray cotangents under the
-    seam budget at atol 1e-3 of the largest plain entry, table cotangents
-    row by row (parity.table_cot_rows); the glass sphere's transparency and
-    refractive index rows carry cotangents; no push was dropped."""
-    scene, cam = builders.glass_sphere_scene(64, 64, spp=1, device=cuda_device)
-    tables = ct.pack_scene_tables(flatten_scene(scene))
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
-    o = o.contiguous()
-    cfg = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
-    img = wt.wavefront_trace(tables, o, d, cfg)
-    g = (2.0 * img / img.numel()).contiguous()
-    before = wg.wavefront_grad.launches
-    cots, go, gd = wg.wavefront_grad(tables, o, d, g, cfg)
-    assert wg.wavefront_grad.launches == before + 1
-    ref_cots, ref_go, ref_gd = wg.wavefront_grad_plain(tables, o, d, g, cfg)
-    torch.cuda.synchronize()
-    for name, ours, ref in (("d_o", go, ref_go), ("d_d", gd, ref_gd)):
-        report = ray_cot_seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-        print(f"{shadow_mode} {name}: {report}")
-        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, report)
-    for name, ours, ref in zip(TABLE_ROWS, cots, ref_cots):
-        assert ours.shape == ref.shape
-        rows = table_cot_rows(name, ours.cpu().numpy(), ref.cpu().numpy())
-        print("\n".join(map(str, rows)))
-        assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
-    mat = ref_cots[3].cpu().numpy()
-    assert abs(mat[5, 0]) > 0.0 and abs(mat[6, 0]) > 0.0  # transparency, ior
-    assert wt.dropped_pushes() == 0
+    """The glass adjoint kernel, fed from the counting wavefront_trace,
+    against wavefront_grad_plain on the glass sphere, g = d mean(img^2) /
+    d img: at 64x64, at 37x29 (1,073 rays: a ragged last warp) and in the
+    deep-TIR configuration of the JAX package's adjoint tests (max_depth
+    6, budget 100: trees the budget cuts). Ray cotangents under the seam
+    budget at atol 1e-3 of the largest plain entry, table cotangents row
+    by row (parity.table_cot_rows); the glass sphere's transparency and
+    refractive index rows carry cotangents; no push was dropped. Counts one
+    short in the warp that popped the most make the call raise (a lane's
+    replay ran past its warp's stretch of the tape), or, with the check
+    deferred as the autograd backward defers it, the backward pass; the
+    next call, with the forward's counts, does not. Then the fused forward and
+    backward (wavefront_trace_fused under autograd) on the ragged block."""
+    base = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
+    deep = dataclasses.replace(base, max_depth=6, wavefront_budget=100)
+    for width, height, cfg in ((64, 64, base), (37, 29, base), (64, 64, deep)):
+        case = (shadow_mode, width, height, cfg.max_depth)
+        scene, cam = builders.glass_sphere_scene(width, height, spp=1, device=cuda_device)
+        tables = ct.pack_scene_tables(flatten_scene(scene))
+        o, d = cam.rays_for_pixels(*cam.pixel_grid())
+        o = o.contiguous()
+        img, warp_pops = wt.wavefront_trace(tables, o, d, cfg, count=True)
+        torch.testing.assert_close(img, wt.wavefront_trace(tables, o, d, cfg), rtol=0, atol=0)
+        assert warp_pops.shape == ((width * height + 31) // 32,) and int(warp_pops.min()) >= 1
+        g = (2.0 * img / img.numel()).contiguous()
+        before = wg.wavefront_grad.launches
+        cots, go, gd = wg.wavefront_grad(tables, o, d, g, cfg, warp_pops=warp_pops)
+        assert wg.wavefront_grad.launches == before + 1
+        ref_cots, ref_go, ref_gd = wg.wavefront_grad_plain(tables, o, d, g, cfg)
+        torch.cuda.synchronize()
+        assert_grads_match(cots, go, gd, ref_cots, ref_go, ref_gd, case)
+        mat = ref_cots[3].cpu().numpy()
+        assert abs(mat[5, 0]) > 0.0 and abs(mat[6, 0]) > 0.0  # transparency, ior
+        assert wt.dropped_pushes() == 0, case
+        if cfg is base and width == 64:  # a tape overrun raises in its own call
+            short = warp_pops.clone()
+            short[int(short.argmax())] -= 1
+            with pytest.raises(RuntimeError, match="popped more nodes"):
+                wg.wavefront_grad(tables, o, d, g, cfg, warp_pops=short)
+
+            def adjoint_in_backward(grad):  # as WavefrontTraceFused.backward calls it
+                wg.wavefront_grad(tables, o, d, g, cfg, warp_pops=short, defer_check=True)
+                return grad
+
+            x = torch.zeros(1, device=cuda_device, requires_grad=True)
+            y = x * 1.0
+            y.register_hook(adjoint_in_backward)
+            with pytest.raises(RuntimeError, match="popped more nodes"):
+                y.sum().backward()
+        if (width, height) == (37, 29):  # the fused forward and backward
+            leaves = [t.clone().requires_grad_(True) for t in tables.tensors()]
+            fused = dataclasses.replace(tables, sph=leaves[0], pl=leaves[1], tri=leaves[2],
+                                        mat=leaves[3], light=leaves[4])
+            o_req, d_req = o.clone().requires_grad_(True), d.clone().requires_grad_(True)
+            counting = wt.wavefront_trace.count_launches
+            out = wg.wavefront_trace_fused(fused, o_req, d_req, cfg)
+            torch.testing.assert_close(out.detach(), img, rtol=0, atol=0)
+            (out * g).sum().backward()
+            assert wt.wavefront_trace.count_launches == counting + 1
+            assert_grads_match([x.grad for x in leaves], o_req.grad, d_req.grad, ref_cots, ref_go,
+                               ref_gd, (*case, "fused"))
 
 
 @functools.lru_cache(maxsize=None)
