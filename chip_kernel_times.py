@@ -20,13 +20,21 @@ as render_hdr and the training steps call them:
   512x512, 6,016 and   ordered along the mean ray), culled spp_trace at
   50,800 triangles     spp=8 (tables in no order)
 
+  glass sphere         wavefront_trace (march and binary shadows, without
+  1920x1080 (--glass)  and with its counts), wavefront_spp_trace at spp=8,
+                       wavefront_grad fed from the counting forward (march
+                       and binary), and the glass training step as
+                       --adjoints times it
+
 It also prints ptxas' register report of the build and, for each trace
 kernel function, its SASS instruction count and opcode mix (cuobjdump): the
-loads (LDG, LDS, LDC, ULDC), the fp32 arithmetic (FMUL, FADD, FFMA), MUFU
-and branches, over the function and over each innermost loop of at least
+loads (LDG, LDS, LDC, ULDC), the local-memory loads and stores (LDL, STL:
+a stack or spills), the fp32 arithmetic (FMUL, FADD, FFMA), MUFU and
+branches, over the function and over each innermost loop of at least
 30 fp32 instructions (the triangle tests' loops), so that two versions'
 code can be told apart beside their times. Beside each head-box time it
-prints a hash of the kernel's output (the adjoints: of d_o and d_d), so
+prints a hash of the kernel's output (the adjoints: of d_o and d_d; the
+counting wavefront_trace: of its frame and its counts), so
 that two versions' outputs can be seen to be bit-identical.
 
 The script uses only the package's public wrappers, so it runs the same in
@@ -38,9 +46,12 @@ line is one JSON object of ms per kernel and shape.
 Run on a machine with one CUDA card:
     python3 chip_kernel_times.py              # every kernel above
     python3 chip_kernel_times.py --head-box   # the head-box kernels only
+    python3 chip_kernel_times.py --glass      # the glass kernels and step only
     python3 chip_kernel_times.py --adjoints   # the adjoints, their forwards, the steps
     python3 chip_kernel_times.py --chain-grad # chain_trace and chain_grad only, no reports
     python3 chip_kernel_times.py --glass-step # the glass training step only, no reports
+    python3 chip_kernel_times.py --sphere-rows 7,8,9  # no timing: the stress
+                                              # scene's sphere rows vs float64
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ W1080, H1080, SIZE = 1920, 1080, 512
 #: SASS opcodes counted, by class (the opcode before its first '.').
 SASS_CLASSES = {
     "loads": ("LDG", "LDS", "LDC", "ULDC"),
+    "local": ("LDL", "STL"),
     "fp32": ("FMUL", "FADD", "FFMA"),
     "other": ("MUFU", "BRA"),
 }
@@ -226,6 +238,86 @@ def time_adjoints(dev, show, time_ms, glass_step_only: bool = False) -> None:
     time_steps(dev, show, time_ms, mean_sq, steps)
 
 
+def time_glass(dev, show, time_ms) -> None:
+    """The glass kernels at 1080p on the glass sphere with the main path's
+    camera, each with its output hash, then the glass training step."""
+    import dataclasses
+
+    from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+    from raytracingengine_tpu_torch.kernels import chain_trace as ct
+    from raytracingengine_tpu_torch.kernels import wavefront_grad as wg
+    from raytracingengine_tpu_torch.kernels import wavefront_trace as wt
+    from raytracingengine_tpu_torch.render.config import RenderConfig
+    from raytracingengine_tpu_torch.scenes import glass_sphere_scene
+
+    glass, cam = glass_sphere_scene(W1080, H1080, spp=1, device=dev)
+    tables = ct.pack_scene_tables(flatten_scene(glass))
+    px, py = cam.pixel_grid()
+    o, d = (x.contiguous() for x in cam.rays_for_pixels(px, py))
+    march = RenderConfig(use_pallas=True, chunk_size=W1080 * H1080)
+    for mode, cfg in (("march", march), ("binary", dataclasses.replace(march, shadow_mode="binary"))):
+        show(f"wavefront_trace glass 1080p {mode}",
+             time_ms(lambda: wt.wavefront_trace(tables, o, d, cfg), 20), wt.wavefront_trace(tables, o, d, cfg))
+        img, pops = wt.wavefront_trace(tables, o, d, cfg, count=True)
+        show(f"wavefront_trace counting glass 1080p {mode}",
+             time_ms(lambda: wt.wavefront_trace(tables, o, d, cfg, count=True), 20), img, pops)
+        g = (2.0 * img / img.numel()).contiguous()
+        out = wg.wavefront_grad(tables, o, d, g, cfg, warp_pops=pops)
+        show(f"wavefront_grad glass 1080p {mode}",
+             time_ms(lambda: wg.wavefront_grad(tables, o, d, g, cfg, warp_pops=pops), 10), out[1], out[2])
+    _, cam8 = glass_sphere_scene(W1080, H1080, spp=8, device=dev)
+    show("wavefront_spp_trace glass 1080p spp=8",
+         time_ms(lambda: wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234), 10),
+         wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234))
+    time_steps(dev, show, time_ms, lambda img, _target: (img * img).mean(),
+               (("glass training step 1080p", glass_sphere_scene, march),))
+
+
+def sphere_rows(dev, seeds) -> None:
+    """The stress scene's adjoint sphere rows against float64, as
+    chip_smoke.py's phase 18 holds them (parity.sphere_rows_vs_f64), on
+    stress_scene with 337 spheres at 320x180 for each seed: per row
+    |diff| / bound at parity.F64_PLAIN_FACTOR of the entry with the least
+    room and the factor its worst entry needs, the flips whose g is zeroed,
+    and the sphere rows' summed |diff| of the kernel and the float32 plain
+    version. A seed given twice reads the run-to-run spread (the adjoints'
+    atomics)."""
+    import numpy as np
+
+    from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+    from raytracingengine_tpu_torch.kernels import chain_grad as cg
+    from raytracingengine_tpu_torch.kernels import chain_trace as ct
+    from raytracingengine_tpu_torch.parity import (
+        F64_PLAIN_FACTOR,
+        f64_factors_needed,
+        sphere_rows_vs_f64,
+        table_cot_rows_vs_f64,
+    )
+    from raytracingengine_tpu_torch.render.config import RenderConfig
+    from raytracingengine_tpu_torch.scenes import stress_scene
+
+    width, height = 320, 180
+    cfg = RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
+    for seed in seeds:
+        scene, cam = stress_scene(337, width=width, height=height, spp=1, seed=seed, pad_multiple=None,
+                                  device=dev)
+        tables = ct.pack_scene_tables(flatten_scene(scene))
+        o, d = (x.contiguous() for x in cam.rays_for_pixels(*cam.pixel_grid()))
+        img, tape = ct.chain_trace(tables, o, d, cfg, tape=True)
+        g = (2.0 * img / img.numel()).contiguous()
+        ours = cg.chain_grad(tables, o, d, g, cfg, width=width, tape=tape)
+        ref = cg.chain_grad_plain(tables, o, d, g, cfg)
+        rows, seam, seam64 = sphere_rows_vs_f64(tables, o, d, g, cfg, ours, ref, width=width, tape=tape)
+        summed = [np.abs(x - rows[2]).sum(1) for x in rows[:2]]
+        print(f"  stress_scene seed {seed}, 337 spheres {width}x{height}: g zeroed on "
+              f"{int((seam | seam64).sum())} rays (kernel flips {int(seam.sum())}, float32 plain flips "
+              f"against float64 {int(seam64.sum())}); sphere rows' summed |diff| vs float64 kernel / "
+              f"float32 plain " + ", ".join(f"{a:.4e} / {b:.4e}" for a, b in zip(*summed)), flush=True)
+        for row, need in zip(table_cot_rows_vs_f64("sph", *rows), f64_factors_needed("sph", *rows)):
+            print(f"    seed {seed} {row}: |diff| / bound at factor {F64_PLAIN_FACTOR:g} "
+                  f"{row.err / row.bound:.4f}; factor needed {need:.4f}", flush=True)
+
+
 def time_steps(dev, show, time_ms, loss_fn, steps) -> None:
     """Each training step of `steps` ((label, scene builder, config)) at
     1080p after an 8-step warm-up: wall time with the host running ahead
@@ -284,12 +376,17 @@ def main() -> int:
     parser.add_argument("--head-box", action="store_true", help="time the head-box kernels only")
     parser.add_argument("--adjoints", action="store_true",
                         help="time the adjoints, their forwards and the training steps only")
+    parser.add_argument("--glass", action="store_true",
+                        help="time the glass kernels and the glass training step only")
     parser.add_argument("--glass-step", action="store_true",
                         help="time the glass training step only, without the build and SASS "
                              "reports (for many runs in turns)")
     parser.add_argument("--chain-grad", action="store_true",
                         help="time chain_trace and chain_grad on the head box only, without the "
                              "build and SASS reports (for many runs in turns)")
+    parser.add_argument("--sphere-rows", metavar="SEEDS",
+                        help="no timing: the stress scene's adjoint sphere rows against float64 for "
+                             "these comma-separated seeds (chip_smoke.py phase 18's check)")
     args = parser.parse_args()
     import torch
 
@@ -309,12 +406,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     lib_path, log = _build.build()
-    quiet = args.chain_grad or args.glass_step
+    quiet = args.chain_grad or args.glass_step or args.sphere_rows
     for line in log.splitlines() if not quiet else ():
         if "Compiling entry function" in line or "registers" in line or "stack frame" in line:
             print("  ptxas " + line.strip())
+    kinds = ("wavefront",) if args.glass else ("chain_trace", "spp_trace", "chain_grad", "wavefront")
     for fn, instrs in sorted(sass_functions(lib_path).items()) if not quiet else ():
-        if any(k in fn for k in ("chain_trace", "spp_trace", "chain_grad", "wavefront")):
+        if any(k in fn for k in kinds):
             print(f"  sass {fn}: {opcode_mix(instrs)}")
             if "trace" in fn:
                 for start, end, body in hot_loops(instrs):
@@ -340,6 +438,15 @@ def main() -> int:
         digest = f", output sha1 {' '.join(out_hash(x) for x in outs)}" if outs else ""
         print(f"  {name}: {ms:.3f} ms{digest} [{card}]", flush=True)
 
+    if args.sphere_rows:
+        sphere_rows(dev, [int(x) for x in args.sphere_rows.split(",")])
+        print(card)
+        return 0
+    if args.glass:
+        time_glass(dev, show, time_ms)
+        print(card)
+        print(json.dumps({"ms": times, "card": card}))
+        return 0
     if args.adjoints or args.glass_step:
         time_adjoints(dev, show, time_ms, glass_step_only=args.glass_step)
         print(card)

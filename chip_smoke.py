@@ -51,7 +51,9 @@ training step at full resolution, and times kernels against plain versions:
  11. glass      wavefront_trace vs trace_wavefront_plain (march and binary
                 shadows) and wavefront_spp_trace vs its plain version (spp=8,
                 same seed) on glass_sphere_scene 1920x1080 with the main path's
-                camera; dropped pushes, the largest pop count of any ray
+                camera, and wavefront_trace with the opaque sphere made a
+                mirror (specular 0.5: reflection children off opaque hits);
+                dropped pushes, the largest pop count of any ray
  12. glass path render_hdr of glass_sphere_scene at 1080p spp=1 and spp=8 with
                 RenderConfig(use_pallas=True, chunk_size=whole frame), as
                 bench.py:160-193 calls it, the launch counters reset before and
@@ -59,10 +61,11 @@ training step at full resolution, and times kernels against plain versions:
  13. glass grad wavefront_grad, fed from the counting wavefront_trace (whose
                 frame must equal wavefront_trace's), vs wavefront_grad_plain
                 on glass_sphere_scene 1920x1080 with the main path's camera,
-                g = d mean(img^2) / d img, march and binary shadows and the
-                deep-TIR config (max_depth 6, budget 100): ray cotangents,
-                table rows, run-to-run spread (<= 1e-4), flips beside phase
-                11's and the parent's, dropped pushes; a tape overrun raises
+                g = d mean(img^2) / d img, march and binary shadows, the
+                deep-TIR config (max_depth 6, budget 100) and phase 11's
+                mirror: ray cotangents, table rows, run-to-run spread
+                (<= 1e-4), flips beside phase 11's and the parent's,
+                dropped pushes; a tape overrun raises
                 in the call that made it, or in the backward pass that made
                 it (counts one short in one warp must raise, both ways)
  14. glass train the glass training step of bench.py:195-231 through the entry
@@ -103,8 +106,11 @@ training step at full resolution, and times kernels against plain versions:
                 grad_route), chain_grad fed from the taping chain_trace: the
                 staged one vs chain_grad_plain on stress_scene with 337
                 spheres (the ray cotangents and every table row but the
-                spheres', whose gap it prints with a witness: the same rows
-                with g zeroed on the seam-flip rays); the head box's and the
+                spheres'), and its sphere rows vs chain_grad_plain in float64
+                with g zeroed on both versions' flips, each entry within
+                table_cot_rows' bound plus parity.F64_PLAIN_FACTOR times the
+                float32 plain version's own distance from float64 (each row
+                prints the factor it needs); the head box's and the
                 padded head box's d_o and d_d (staged, in place), and the
                 stress scene's and its padded copy's, must be equal bit for
                 bit, at the default depth and at max_depth 1
@@ -181,11 +187,16 @@ def main() -> int:
     from raytracingengine_tpu_torch.kernels import wavefront_grad as wg
     from raytracingengine_tpu_torch.kernels import wavefront_trace as wt
     from raytracingengine_tpu_torch.parity import (
+        F64_PLAIN_FACTOR,
+        TABLE_ROWS,
+        f64_factors_needed,
         golden_ldr_mismatches,
         ray_cot_seam_budget,
         reference_frame_stats,
         seam_budget,
+        sphere_rows_vs_f64,
         table_cot_rows,
+        table_cot_rows_vs_f64,
     )
     from raytracingengine_tpu_torch.render.config import RenderConfig
     from raytracingengine_tpu_torch.render.pipeline import mean_direction, render_hdr
@@ -198,6 +209,7 @@ def main() -> int:
         chain_work,
         trace_bytes,
         taped_adjoint_bytes,
+        wavefront_bound_ms,
         wavefront_work,
         work_ops,
     )
@@ -240,7 +252,8 @@ def main() -> int:
           f"{lib.rte_spp_trace_occupancy(1)}, staged {lib.rte_spp_trace_occupancy(2)} (staged: at "
           "the largest stage, csrc/trace_common.cuh::kStageMaxBytes); wavefront_trace "
           f"{lib.rte_wavefront_trace_occupancy(0)}, its counting kernel "
-          f"{lib.rte_wavefront_trace_occupancy(1)}", flush=True)
+          f"{lib.rte_wavefront_trace_occupancy(1)}, wavefront_spp_trace "
+          f"{lib.rte_wavefront_spp_trace_occupancy()}", flush=True)
 
     def cfg_for(width: int, height: int) -> RenderConfig:
         return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
@@ -524,6 +537,22 @@ def main() -> int:
                                      glass_out[mode], ref)
         g_work[mode] = wavefront_work(g_tables, g_o, g_d, gcfg)
         del ref
+    # The opaque sphere made a mirror (specular 0.5, transparency 0): its
+    # hits push a reflection child, the other arm of the kernels' test for
+    # whether a hit can push a child (the glass scene's opaque surfaces
+    # have specular 0). Phase 13 sizes the adjoint's tape by its counts.
+    mirror_mat = g_tables.mat.clone()
+    mirror_mat[TABLE_ROWS["mat"].index("specular"), 1] = 0.5  # sphere 1, the opaque one
+    m_tables = dataclasses.replace(g_tables, mat=mirror_mat)
+    glass_out["mirror"] = wt.wavefront_trace(m_tables, g_o, g_d, glass_cfg)
+    glass_reports["mirror"] = budget("wavefront_trace vs trace_wavefront_plain, march shadows, the opaque "
+                                     "sphere a mirror", glass_out["mirror"],
+                                     wt.trace_wavefront_plain(m_tables, g_o, g_d, glass_cfg))
+    g_work["mirror"] = wavefront_work(m_tables, g_o, g_d, glass_cfg)
+    print(f"  the mirror: nodes popped {g_work['mirror'].pops} against the glass scene's "
+          f"{g_work['march'].pops} (its reflections)", flush=True)
+    if not g_work["mirror"].pops > g_work["march"].pops:
+        raise AssertionError("the mirror scene pushed no reflection child")
     _, gcam8 = glass_sphere_scene(W1080, H1080, spp=8, device=dev)
     g_spp_out = wt.wavefront_spp_trace(g_tables, gcam8, px, py, glass_cfg, seed=1234)
     sync()
@@ -533,6 +562,11 @@ def main() -> int:
     print(f"  wavefront_spp_trace_plain first call {time.perf_counter() - t0:.2f} s", flush=True)
     g_spp_report = budget("wavefront_spp_trace vs plain, spp=8 seed=1234", g_spp_out, g_spp_ref)
     del g_spp_ref
+    print(f"  the glass forward kernels: one thread per ray (pixel), node_children only on hits that can "
+          f"push a child; CTAs per SM wavefront_trace {lib.rte_wavefront_trace_occupancy(0)}, its counting "
+          f"kernel {lib.rte_wavefront_trace_occupancy(1)}, wavefront_spp_trace "
+          f"{lib.rte_wavefront_spp_trace_occupancy()} (phase 2: their registers; phase 8: their times against "
+          "the plain versions and their bounds)", flush=True)
     dropped = wt.dropped_pushes()
     w = g_work["march"]
     print(f"  dropped pushes {dropped} (0); nodes popped per ray {w.pops / w.rays:.3f}, the most "
@@ -581,17 +615,19 @@ def main() -> int:
     wg_reports, wg_g, wg_err, wg_pops = {}, {}, 0.0, {}
     # march and binary shadows at the main path's config; then the deep-TIR
     # config of the JAX package's adjoint tests (max_depth 6, budget 100:
-    # trees the budget cuts, with nodes left on the stack)
+    # trees the budget cuts, with nodes left on the stack); then phase 11's
+    # mirror, whose reflection children the counts must cover
     deep_cfg = dataclasses.replace(glass_cfg, max_depth=6, wavefront_budget=100)
-    for mode, gcfg in (("march", glass_cfg), ("binary", dataclasses.replace(glass_cfg, shadow_mode="binary")),
-                       ("deep TIR", deep_cfg)):
-        img_c, wg_pops[mode] = wt.wavefront_trace(g_tables, g_o, g_d, gcfg, count=True)
+    for mode, gcfg, w_tables in (("march", glass_cfg, g_tables),
+                                 ("binary", dataclasses.replace(glass_cfg, shadow_mode="binary"), g_tables),
+                                 ("deep TIR", deep_cfg, g_tables), ("mirror", glass_cfg, m_tables)):
+        img_c, wg_pops[mode] = wt.wavefront_trace(w_tables, g_o, g_d, gcfg, count=True)
         sync()
         if mode in glass_out and not torch.equal(img_c, glass_out[mode]):
             raise AssertionError(f"the counting wavefront_trace's {mode} frame differs from wavefront_trace's")
         wg_g[mode] = (2.0 * img_c / img_c.numel()).contiguous()
         wg_reports[mode], err = check_grad(f"glass {mode}", wg.wavefront_grad, wg.wavefront_grad_plain,
-                                           g_tables, g_o, g_d, wg_g[mode], gcfg, spread_rtol=1e-4,
+                                           w_tables, g_o, g_d, wg_g[mode], gcfg, spread_rtol=1e-4,
                                            warp_pops=wg_pops[mode])
         pops = wg_pops[mode].to(torch.int64)
         print(f"  {flips_line(f'glass {mode}', wg_reports[mode])}; tape slots of 32 nodes "
@@ -910,14 +946,13 @@ def main() -> int:
     # stress scene (337 spheres) against the plain version: the ray
     # cotangents and every table row but the spheres'. Each of its 337
     # spheres' columns sums the ~100 rays that hit it at 320x180, and the
-    # sphere rows part from the plain version by as much as their largest
-    # entry (the parent's kernel as much: PERF.md §7, ROADMAP queue 3). The
-    # witness, printed: the same rows with g zeroed on the rays whose ray
-    # cotangents part (the seam flips). Then the stress scene and the head
-    # box staged and padded past the limit (in place): each ray's arithmetic
-    # is the same on both routes and the tapes come from equal frames, so
-    # d_o and d_d must be equal bit for bit, and the table cotangents of the
-    # real columns within the shared-memory atomics' run-to-run spread.
+    # seam-flip rays move the sphere rows by as much as their largest entry;
+    # the sphere rows are held against float64 below. Then the stress scene
+    # and the head box staged and padded past the limit (in place): each
+    # ray's arithmetic is the same on both routes and the tapes come from
+    # equal frames, so d_o and d_d must be equal bit for bit, and the table
+    # cotangents of the real columns within the shared-memory atomics'
+    # run-to-run spread.
     print("[18 routes] chain_grad fed from the taping chain_trace, each side of the stage limit",
           flush=True)
 
@@ -952,20 +987,39 @@ def main() -> int:
                                    r_d, r_g, cfg, spread_rtol=1e-4, skip_rows=("sph",), keep=keep,
                                    width=W320, tape=r_tape)
     (ours, ref), = keep
-    seam = torch.zeros(r_o.shape[0], dtype=torch.bool, device=dev)
-    for a, b in ((ours[1], ref[1]), (ours[2], ref[2])):
-        seam |= ((a - b).abs() > 1e-3 * b.abs().max()).any(1)
-    r_g_off = r_g.masked_fill(seam[:, None], 0.0)
-    sph_off = [t[0][0].cpu().numpy() for t in (
-        cg.chain_grad(r_tables, r_o, r_d, r_g_off, cfg, width=W320, tape=r_tape),
-        cg.chain_grad_plain(r_tables, r_o, r_d, r_g_off, cfg))]
+    # The sphere rows against a float64 reference (parity.sphere_rows_vs_f64):
+    # chain_grad_plain on the same tables, rays and g in float64, g zeroed on
+    # the kernel's seam-flip rays (held above under the seam budget) and on
+    # the float32 plain version's own flips against float64 (rays where
+    # float32 takes another closest hit; counted here). No float32 result
+    # comes within table_cot_rows' bound of the float64 sums here (the plain
+    # version's sphere rows miss it by 4-8x, PERF.md §6), so each entry is
+    # held within that bound plus F64_PLAIN_FACTOR times the float32 plain
+    # version's own distance from float64: the kernel is as close as the
+    # plain version. Each row prints the factor its worst entry needs.
+    sph_off, seam, seam64 = sphere_rows_vs_f64(r_tables, r_o, r_d, r_g, cfg, ours, ref, width=W320,
+                                               tape=r_tape)
     if cg.chain_grad.routes["staged"] != 3:
         raise AssertionError(f"{label}: chain_grad left the staged route: {cg.chain_grad.routes}")
-    witness = table_cot_rows("sph", *sph_off)
-    for row in witness:
-        print(f"  witness (not held): {label} adjoint, g zeroed on its {int(seam.sum())} seam-flip rays, "
-              f"table {row} {'inside' if row.ok else 'past'} its bound", flush=True)
-    del ours, ref, keep, r_g_off, sph_off
+    off = f"g zeroed on {int((seam | seam64).sum())} rays (the kernel's {int(seam.sum())} seam flips, the " \
+          f"float32 plain version's {int(seam64.sum())} flips against float64)"
+    for name, rows in (("kernel", table_cot_rows("sph", sph_off[0], sph_off[2])),
+                       ("float32 plain", table_cot_rows("sph", sph_off[1], sph_off[2]))):
+        for row in rows:
+            print(f"  witness (not held): {label} adjoint, {off}: {name} vs float64, table {row}", flush=True)
+    err = lambda x: np.abs(x - sph_off[2])  # noqa: E731
+    print(f"  {label} adjoint, {off}: sphere rows' summed |diff| vs float64, kernel "
+          f"{err(sph_off[0]).sum(1).tolist()}, float32 plain {err(sph_off[1]).sum(1).tolist()}", flush=True)
+    bad = []
+    for row, need in zip(table_cot_rows_vs_f64("sph", *sph_off), f64_factors_needed("sph", *sph_off)):
+        print(f"  {'PASS' if row.ok else 'FAIL'} {label} adjoint vs float64, {off}: table {row} (bound: "
+              f"table_cot_rows' + {F64_PLAIN_FACTOR:g} x |float32 plain - float64|; |diff| / bound "
+              f"{row.err / row.bound:.4f}; the factor its worst entry needs {need:.4f})", flush=True)
+        bad += [] if row.ok else [str(row)]
+    if bad:
+        raise AssertionError(f"{label}: chain_grad's sphere rows farther from float64 than the float32 plain "
+                             f"version allows: {bad}")
+    del ours, ref, keep, sph_off
     for label, (make_staged, make_padded) in (
         ("stress_scene, 337 spheres", (stress(337), stress(337, 128))),
         ("head box", (head_box(), head_box(128))),
@@ -1233,7 +1287,7 @@ def main() -> int:
     g_work8 = WavefrontWork(rays=0)
     for sample in range(gcam8.spp):
         o8, d8 = gcam8.rays_for_pixels(px, py, st.pixel_jitter(1234, pids, sample))
-        g_work8 += wavefront_work(g_tables, o8.contiguous(), d8.contiguous(), glass_cfg)
+        g_work8 += wavefront_work(g_tables, o8.contiguous(), d8.contiguous(), glass_cfg, camera_sample=sample)
     g_work1 = g_work["march"]
     bounds = {
         "chain_trace": bound_ms(work_ops(work1), trace_bytes(rays1, tables)),
@@ -1246,6 +1300,14 @@ def main() -> int:
         "wavefront_grad": bound_ms(work_ops(g_work1), adjoint_bytes(rays1, g_tables)),
         "wavefront_grad, binary": bound_ms(work_ops(g_work["binary"]), adjoint_bytes(rays1, g_tables)),
     }
+    # The glass forward kernels' bound on their whole counted work: the
+    # tests and the shading, MUFU and jitter operations (roofline.
+    # wavefront_bound_ms); the line below names the pipe that sets it.
+    work_bounds = {
+        "wavefront_trace": wavefront_bound_ms(g_work1, trace_bytes(rays1, g_tables)),
+        "wavefront_trace, binary": wavefront_bound_ms(g_work["binary"], trace_bytes(rays1, g_tables)),
+        "wavefront_spp_trace": wavefront_bound_ms(g_work8, trace_bytes(rays1, g_tables, in_per_ray=8)),
+    }
     print(f"  work at 1080p spp=1: {work1.bounces / rays1:.3f} bounces/ray, "
           f"{work1.shadow_rays / rays1:.3f} shadow rays/ray, closest-hit {work1.closest_ops / rays1:.0f} "
           f"+ shadow {work1.shadow_ops / rays1:.0f} fp32 ops/ray; spp=8: "
@@ -1255,7 +1317,11 @@ def main() -> int:
           f"{g_work1.march_steps / rays1:.3f} march steps/ray, closest-hit "
           f"{g_work1.closest_ops / rays1:.0f} + march {g_work1.shadow_ops / rays1:.0f} fp32 ops/ray; "
           f"spp=8: {(g_work8.closest_ops + g_work8.shadow_ops) / rays1:.0f} ops/pixel, at most "
-          f"{g_work8.max_pops} nodes in one sample's tree")
+          f"{g_work8.max_pops} nodes in one sample's tree; beyond the tests, per ray (spp=1 march / binary) "
+          f"and per pixel (spp=8): shading {g_work1.shade_ops / rays1:.0f} / "
+          f"{g_work['binary'].shade_ops / rays1:.0f} / {g_work8.shade_ops / rays1:.0f} fp32, MUFU "
+          f"{g_work1.mufu_ops / rays1:.1f} / {g_work['binary'].mufu_ops / rays1:.1f} / "
+          f"{g_work8.mufu_ops / rays1:.1f}, jitter {g_work8.int_ops / rays1:.0f} integer ops")
     # The dense kernels' bounds: the culled work of a traversal that knew each
     # scan's answer (roofline.py), on the timed rays.
     dense_work = {label: chain_work(tb, to, td, cfg, widths=(0, W512)) for label, (tb, to, td, _) in dense.items()}
@@ -1308,6 +1374,9 @@ def main() -> int:
               f"{128 * per(w.staged_blocks[W512]):.2f} (32x4 tiles)")
     for name, (b, by) in bounds.items():
         print(f"  bound {name}: {b:.4f} ms ({by}) [H100 SXM peaks; {card}]")
+    for name, (b, by) in work_bounds.items():
+        print(f"  work bound {name} (tests, shading, MUFU, jitter): {b:.4f} ms ({by}) [H100 SXM peaks; {card}]")
+    as_contract = lambda by: "bytes" if by == "bytes" else "operations"  # noqa: E731
 
     kernels = [
         {"name": "chain_trace", "route": "cuda",
@@ -1333,14 +1402,14 @@ def main() -> int:
          "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:655",
          "launches": glass_launches["wavefront_trace"],
          "max_abs_err": max(r.max_abs for r in glass_reports.values()),
-         "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": bounds["wavefront_trace"][0],
-         "bound_by": bounds["wavefront_trace"][1], "library_ms": None},
+         "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": work_bounds["wavefront_trace"][0],
+         "bound_by": as_contract(work_bounds["wavefront_trace"][1]), "library_ms": None},
         {"name": "wavefront_spp_trace", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/wavefront_spp_trace.cu",
          "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:758",
          "launches": glass_launches["wavefront_spp_trace"], "max_abs_err": g_spp_report.max_abs,
-         "ms": wf_spp_ms, "plain_ms": wf_spp_plain_ms, "bound_ms": bounds["wavefront_spp_trace"][0],
-         "bound_by": bounds["wavefront_spp_trace"][1], "library_ms": None},
+         "ms": wf_spp_ms, "plain_ms": wf_spp_plain_ms, "bound_ms": work_bounds["wavefront_spp_trace"][0],
+         "bound_by": as_contract(work_bounds["wavefront_spp_trace"][1]), "library_ms": None},
         {"name": "wavefront_grad", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/wavefront_grad.cu",
          "replaces": "raytracingengine_tpu/kernels/wavefront_grad.py:762",

@@ -1405,7 +1405,9 @@ static __device__ __forceinline__ bool push_node(Node* stack, int& sp, int cap, 
 // _dfs_trace_tile over a per-thread LIFO stack of (o, d, weight, depth) in
 // local memory, indexed by sp. Each pop shades one node: sky at depth >=
 // max_depth or on a miss; else direct light weighted by (1 - tau), then the
-// children of node_children. A push finding the stack full is dropped and
+// children of node_children where it can push one (the glass adjoint's
+// replay, wavefront_grad.cu, calls it on every hit: where it is skipped here
+// it pushes none there). A push finding the stack full is dropped and
 // counted in `dropped` (cap = max_depth + 2 bounds the DFS, so it stays 0).
 // `pops` counts the nodes popped, at most P.budget.
 static __device__ __forceinline__ float3 trace_wavefront_ray(
@@ -1489,9 +1491,14 @@ static __device__ __forceinline__ float3 trace_wavefront_ray(
     acc_g += wl * (ag * diff_g + spec_g * spec);
     acc_b += wl * (ab * diff_b + spec_b * spec);
 
-    const Children ch = node_children(T, P, n, h, srf);
-    if (ch.push_refl) push_node(stack, sp, cap, ch.refl, dropped);
-    if (ch.push_refr) push_node(stack, sp, cap, ch.refr, dropped);
+    // node_children pushes a child only off a transparent hit (refraction,
+    // Fresnel reflection) or a specular one (spec > bias): an opaque diffuse
+    // hit, the floor's and most of a frame's, skips it.
+    if (tau > 0.0f || spec > bias) {
+      const Children ch = node_children(T, P, n, h, srf);
+      if (ch.push_refl) push_node(stack, sp, cap, ch.refl, dropped);
+      if (ch.push_refr) push_node(stack, sp, cap, ch.refr, dropped);
+    }
   }
   return make_float3(acc_r, acc_g, acc_b);
 }

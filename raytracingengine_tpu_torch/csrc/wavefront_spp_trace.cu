@@ -8,10 +8,17 @@
 // sample), the bits of kernels/spp_trace.py::pixel_jitter), traces it with
 // trace_wavefront_ray and writes the mean once. Forward-only.
 //
-// What bounds it on the H100: as wavefront_trace.cu, fp32 ALU work and warp
-// divergence over spp trees per pixel; a pixel reads 8 bytes and writes 12.
-// The sample loop inside the thread keeps the per-sample rays, their jitter
-// and the running sum out of device memory entirely.
+// What bounds it on the H100: as wavefront_trace.cu, the issue of each
+// popped node's instructions, over spp trees per pixel; a pixel reads 8
+// bytes and writes 12. The sample loop inside the thread keeps the
+// per-sample rays, their jitter and the running sum out of device memory
+// entirely, and trace_wavefront_ray skips node_children on hits that can
+// push no child. Measured (PERF.md §6): pixels sorted by their 8
+// trees' size ran 3% faster, so the warp waiting for its largest pixel
+// costs little; the sample loop flattened into the node loop, with each
+// CTA's threads taking pixels from a shared pool as they finish (no lane
+// waiting for another's trees), ran 29-47% slower: the lanes then pop
+// nodes of different kinds side by side, and the loop spills.
 #include "trace_common.cuh"
 
 namespace {
@@ -61,4 +68,12 @@ extern "C" int rte_wavefront_spp_trace(
   wavefront_spp_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       T, P, cam, px, py, out, n_pixels, width, height, spp, seed, dropped);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs per SM of the kernel.
+extern "C" int rte_wavefront_spp_trace_occupancy() {
+  int n = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wavefront_spp_trace_kernel, 128, 0);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }

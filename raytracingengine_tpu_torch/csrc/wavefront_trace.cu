@@ -10,21 +10,31 @@
 // trace_wavefront_ray), its DFS ends when its own stack is empty, and its
 // shadow march when its own shadow ray is done.
 //
-// What bounds it on the H100: fp32 ALU work and warp divergence. A ray
-// reads 24 bytes and writes 12; its work is a tree of closest-hit scans,
-// each with a shadow march (or an any-hit scan) per light, and the trees
-// of neighbouring rays differ in size wherever a warp straddles the edge of
-// a transparent object. The stack sits in local memory (L1-cached); a node
-// is written once and read once. What the design does about it: per-ray
-// exits end work the TPU kernel could only skip when a whole tile agreed,
-// consecutive rays are neighbouring pixels, and a dropped push (stack full,
-// which cap = max_depth + 2 rules out) is counted into *dropped for the
-// wrapper to read, never silent.
+// What bounds it on the H100: the issue of each popped node's instructions.
+// A ray reads 24 bytes and writes 12; its work is a tree of closest-hit
+// scans, each with a shadow march (or an any-hit scan) per light, and the
+// node's shading and children. Measured at 1080p on the glass sphere
+// (PERF.md §6): the trees of a warp's 32 rays keep 97% of its lanes
+// busy (the same rays sorted by their tree size ran 1-3% faster), the
+// stack in local memory costs nothing measurable (in shared memory, or cut
+// to 12 nodes, no faster), and one node per ray takes half the time of the
+// whole tree, so the time is the node's own instruction stream. What the
+// design does about it: a hit whose material can push no child (opaque and
+// not specular: the floor's and most of a frame's) skips node_children's
+// Fresnel and child arithmetic (trace_common.cuh::trace_wavefront_ray);
+// per-ray exits end work the TPU kernel could only skip when a whole tile
+// agreed; consecutive rays are neighbouring pixels; and a dropped push
+// (stack full, which cap = max_depth + 2 rules out) is counted into
+// *dropped for the wrapper to read, never silent.
 //
 // The counting instantiation (kCount) also writes, for each warp of 32
 // consecutive rays, the most nodes any of its rays popped: the glass
 // adjoint (wavefront_grad.cu) sizes its warp-interleaved tape by these
-// counts. Only a training step launches it (kernels/wavefront_grad.py::
+// counts. Every lane of a warp traces, a lane past the last ray tracing
+// the last ray again without writing it, so that the trace is not inside a
+// branch: so built it takes the plain kernel's 80 registers (a branch
+// around the trace took 96, one CTA per SM fewer, and ran 11-13% slower).
+// Only a training step launches it (kernels/wavefront_grad.py::
 // WavefrontTraceFused); render_hdr without gradients runs the kernel
 // without kCount.
 #include "trace_common.cuh"
@@ -40,18 +50,18 @@ __global__ void __launch_bounds__(128) wavefront_trace_kernel(
   if constexpr (!kCount) {
     if (i >= n_rays) return;
   }
-  int pops = 0;
+  const long long j = kCount ? min(i, static_cast<long long>(n_rays) - 1) : i;  // the ray traced
+  int pops = 0, n_dropped = 0;
+  const float3 c = rte::trace_wavefront_ray(T, P, o[3 * j], o[3 * j + 1], o[3 * j + 2],
+                                            d[3 * j], d[3 * j + 1], d[3 * j + 2], pops,
+                                            n_dropped);
   if (i < n_rays) {
-    int n_dropped = 0;
-    const float3 c = rte::trace_wavefront_ray(T, P, o[3 * i], o[3 * i + 1], o[3 * i + 2],
-                                              d[3 * i], d[3 * i + 1], d[3 * i + 2], pops,
-                                              n_dropped);
     out[3 * i] = c.x;
     out[3 * i + 1] = c.y;
     out[3 * i + 2] = c.z;
     if (n_dropped) atomicAdd(dropped, n_dropped);
   }
-  if constexpr (kCount) {  // every lane of the warp is here
+  if constexpr (kCount) {  // every lane of the warp is here; one past the end repeats the last ray
     const int most = __reduce_max_sync(rte::kFullMask, pops);
     const long long w = i >> 5;
     if ((threadIdx.x & 31) == 0 && (w << 5) < n_rays) warp_pops[w] = most;

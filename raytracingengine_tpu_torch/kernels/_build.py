@@ -137,11 +137,13 @@ def load_library() -> ctypes.CDLL:
     # CTAs per SM of each kernel (the trace kernels: by route code,
     # kernels/chain_trace.py::ROUTES, and chain_trace taping or not;
     # chain_grad: by route code and dynamic shared bytes; chain_grad_dense:
-    # culled or not, dynamic shared bytes; wavefront_trace: counting or not)
+    # culled or not, dynamic shared bytes; wavefront_trace: counting or not;
+    # wavefront_spp_trace)
     for name, args in (("rte_chain_trace_occupancy", [_I, _I]), ("rte_spp_trace_occupancy", [_I]),
                        ("rte_chain_grad_occupancy", [_I, _I]),
                        ("rte_chain_grad_dense_occupancy", [_I, _I]),
-                       ("rte_wavefront_trace_occupancy", [_I])):
+                       ("rte_wavefront_trace_occupancy", [_I]),
+                       ("rte_wavefront_spp_trace_occupancy", [])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = _I
     # The tapes' sizes in floats: the chain tape's (max_depth, n_rays), the

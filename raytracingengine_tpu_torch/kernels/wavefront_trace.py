@@ -210,8 +210,9 @@ def trace_wavefront_plain(
     A line-by-line mirror of the TPU kernel's `_dfs_trace_tile`. The stack
     is a [cap, R, 8] tensor (o, d, weight, depth per slot) indexed per lane
     by sp; a dead lane pops slot 0 and is masked. `observer`, if given, is
-    told of every pop, closest-hit scan, shadow ray, march step and any-hit
-    scan (roofline.wavefront_work counts the work with it)."""
+    told of every pop, closest-hit scan, node shaded, shadow ray, light
+    added, march step and any-hit scan (roofline.wavefront_work counts the
+    work with it)."""
     T = _HostTables(tables)
     bias, max_depth = cfg.bias, cfg.max_depth
     cap = max_depth + 2
@@ -253,6 +254,8 @@ def trace_wavefront_plain(
         front, n, p = surface(t, nx, ny, nz, ox, oy, oz, dx, dy, dz)
         (nx, ny, nz), (px, py, pz) = n, p
         tau = vm.clip(tau_raw, 0.0, 1.0)
+        if observer is not None:  # the kernels run node_children where it can push a child
+            observer.shade(sky_lanes, shade, shade & (gi < T.ns), shade & ((tau > 0.0) | (spec > bias)))
 
         # Direct lighting (Scene.h:79-129)
         so = (px + nx * bias, py + ny * bias, pz + nz * bias)
@@ -279,6 +282,8 @@ def trace_wavefront_plain(
             sr = sr + torch.where(s_ok, er * sf, 0.0)
             sg = sg + torch.where(s_ok, eg * sf, 0.0)
             sb = sb + torch.where(s_ok, eb * sf, 0.0)
+            if observer is not None:
+                observer.light(shade & (T.light[6][li] > 0.0), vis, s_ok)
         wl = weight * (1.0 - tau)  # Scene.h:171-173
         acc_r = acc_r + torch.where(shade, wl * (ar * dr + sr * spec), 0.0)
         acc_g = acc_g + torch.where(shade, wl * (ag * dg + sg * spec), 0.0)

@@ -27,6 +27,28 @@ every triangle, as a linear scan does, would put the bound far above what
 they need. (For a shadow ray it counts every block its segment meets, where
 a scan that stops at the first blocker may test fewer.)
 
+The glass kernels' work (`wavefront_work`) also counts what the tests
+leave out, so that their bound names the node's arithmetic: each popped
+node's shading in csrc/trace_common.cuh::trace_wavefront_ray (a sky
+node's sky term; a shaded node's surface and direct light, and
+node_children where it can push a child; per light the shadow ray's
+set-up, and where it is lit the diffuse and Blinn-Phong terms), each
+march step's bookkeeping, and for the AA kernel
+each sample's camera ray (trace_common.cuh::camera_dir) and Philox jitter.
+Their fp32 adds and multiplies are counted against the fp32 peak, the
+special-function operations (sqrt, rsqrt, reciprocal, exp, log: one MUFU
+instruction each, with their refinement left out) against the MUFU peak,
+and the jitter's integer operations against the INT32 peak, each on its
+own pipe: `wavefront_bound_ms` takes the largest of those times and the
+bytes'. Branches taken only by some rays (the refraction child past TIR,
+the specular term) count where the replay takes them; node_children's
+refraction square root, taken only off TIR, is left out, so this count too
+is a lower bound. The constants below are counted by hand from the CUDA
+source of csrc/trace_common.cuh: trace_wavefront_ray, sky, surface,
+node_children, march_T's step, camera_dir, philox_xy and uniform01. An edit
+to any of those functions must recount them; nothing checks them against
+the compiled kernels.
+
 Beside the operations, `chain_work` counts the culled scans' blocks, each
 128 triangle tests:
   * per lane, the blocks of the oracle's segments above (`lane_blocks`);
@@ -70,6 +92,11 @@ from raytracingengine_tpu_torch.kernels.wavefront_trace import trace_wavefront_p
 
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_OPS_PER_S = 67e12
+#: MUFU (special-function) and INT32 peaks of the same part: 16 and 64
+#: results per SM per clock against fp32's 128 (FMA counted as 2), 132 SMs
+#: at the 1.98 GHz behind the fp32 peak (NVIDIA's Hopper white paper).
+H100_MUFU_OPS_PER_S = H100_FP32_OPS_PER_S / 16
+H100_INT32_OPS_PER_S = H100_FP32_OPS_PER_S / 4
 
 # fp32 operations (add, sub, mul, div, sqrt, rsqrt) of one test in
 # csrc/trace_common.cuh, to its first early exit:
@@ -85,6 +112,46 @@ TRI_PARALLEL, TRI_FULL = 14, 45
 #: make_slab: three reciprocals, once per culled scan; box_hit: 6 sub, 6 mul,
 #: 6 min/max of the slabs, 4 min/max for tmin and tmax
 SLAB_SETUP, SLAB_TEST = 3, 22
+# fp32 operations (add, sub, mul, min, max) and MUFU operations of the glass
+# kernels' shading (csrc/trace_common.cuh::trace_wavefront_ray), beside
+# their tests:
+#: a sky node (depth exhaustion or a miss): sky(dy) 9, acc += w * sky 6
+SKY_NODE = 15
+#: a shaded node: surface 14, clip01(tau) 2, the shadow origin 6, the local
+#: term 2 + 15
+SHADE_NODE = 39
+#: node_children, on a hit that can push a child (transparent, or specular
+#: past bias): Fresnel 16, eta, cosi and k 7, the refraction direction's
+#: length and normalisation 9, its weight 3, the reflection direction 16,
+#: its weight 1, the children's origins 13. MUFU: the two divisions (f0,
+#: eta), sqrt and rsqrt of the refraction, rsqrt of the reflection
+CHILDREN, CHILDREN_MUFU = 65, 5
+#: the winner's normal where a sphere wins: g 9, |g|^2 5, max 1, 3 products;
+#: rsqrt
+SPHERE_NORMAL, SPHERE_NORMAL_MUFU = 18, 1
+#: per shaded node and light that emits: to the light 3, dist^2 5, max 1,
+#: the unit direction 3, n.l 6; sqrt and 1 / dist
+LIGHT_SETUP, LIGHT_SETUP_MUFU = 18, 2
+#: a light that reaches the point: 1/d^2 n.l T 3, the diffuse sums 6, the
+#: half vector 3, |h|^2 5, max 1, n.h 7; rsqrt
+LIGHT_LIT, LIGHT_LIT_MUFU = 25, 1
+#: its specular term: shin * log 1, * 1/d^2 * T 2, the sums 6; log and exp
+LIGHT_SPEC, LIGHT_SPEC_MUFU = 9, 2
+#: a march step beside its scan: the origin 6, the distance 1, t + bias 1
+MARCH_STEP = 8
+#: a sample's camera ray: minus the camera 2, |dd|^2 5, 3 products, the
+#: sample's sum 3; rsqrt. Once per pixel (counted with sample 0): the
+#: screen point 4
+CAMERA, CAMERA_MUFU, CAMERA_PIXEL = 13, 1, 4
+#: a jittered sample (1..): the two uniforms' - 1 (fp32); and integer,
+#: Philox4x32-10's rounds, each two wide multiplies (one IMAD.WIDE.U32 gives
+#: a product's high and low words), two three-way xors (LOP3) and k0's add
+#: (k1 starts at 0 and rises by constants: folded), round 0 one multiply
+#: and one xor (the zero counter words fold the rest) and no add: 2 + 9 x 5;
+#: the uniforms' shifts and ors 4. The pixel id (one IMAD per pixel) is
+#: left out
+JITTER, PHILOX_INT = 2, 51
+
 #: Blocks of culled tables per vote of the kernels' traversal
 #: (csrc/trace_common.cuh::kWindow).
 WINDOW = 64
@@ -384,6 +451,10 @@ class WavefrontWork:
     shadow_rays: int = 0  # shadow rays marched or scanned
     march_steps: int = 0  # march scans, summed over shadow rays (march)
     shadow_ops: float = 0.0  # march scans, or any-hit scans to the first blocker
+    # beyond the tests (the module docstring):
+    shade_ops: float = 0.0  # fp32: shading, light loop, node_children, march steps, camera
+    mufu_ops: float = 0.0  # their sqrt, rsqrt, reciprocal, exp and log
+    int_ops: float = 0.0  # the AA kernel's Philox jitter
 
     def __iadd__(self, other: "WavefrontWork") -> "WavefrontWork":
         for f in dataclasses.fields(self):
@@ -406,26 +477,49 @@ class _WavefrontCounter:
     def closest(self, ox, oy, oz, dx, dy, dz, active):
         self.work.closest_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, active)
 
+    def shade(self, sky, shade, sphere, children):
+        n_sphere, n_children = int(sphere.sum()), int(children.sum())
+        self.work.shade_ops += (SKY_NODE * int(sky.sum()) + SHADE_NODE * int(shade.sum())
+                                + SPHERE_NORMAL * n_sphere + CHILDREN * n_children)
+        self.work.mufu_ops += SPHERE_NORMAL_MUFU * n_sphere + CHILDREN_MUFU * n_children
+
     def shadow(self, ok):
         self.work.shadow_rays += int(ok.sum())
 
+    def light(self, setup, lit, spec):
+        n_setup, n_lit, n_spec = int(setup.sum()), int(lit.sum()), int(spec.sum())
+        self.work.shade_ops += LIGHT_SETUP * n_setup + LIGHT_LIT * n_lit + LIGHT_SPEC * n_spec
+        self.work.mufu_ops += LIGHT_SETUP_MUFU * n_setup + LIGHT_LIT_MUFU * n_lit + LIGHT_SPEC_MUFU * n_spec
+
     def march_step(self, ox, oy, oz, dx, dy, dz, live):
-        self.work.march_steps += int(live.sum())
+        n = int(live.sum())
+        self.work.march_steps += n
         self.work.shadow_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, live)
+        self.work.shade_ops += MARCH_STEP * n
 
     def any_hit(self, ox, oy, oz, dx, dy, dz, ok, lo, hi):
         self.work.shadow_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, ok, lo=lo, hi=hi)
 
 
 @torch.no_grad()
-def wavefront_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> WavefrontWork:
+def wavefront_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg,
+                   camera_sample: int | None = None) -> WavefrontWork:
     """Replay the wavefront DFS (the kernels' per-ray control flow) on these
-    rays and count its pops, scans, march steps and their operations."""
+    rays and count its pops, scans, march steps, shading and their
+    operations. With `camera_sample` the rays are that sample of the AA
+    kernel, which builds each camera ray itself (and jitters samples past
+    0): its operations count too, the per-pixel ones with sample 0."""
     counter = _WavefrontCounter(tables, o)
     trace_wavefront_plain(tables, o, d, cfg, observer=counter)
-    counter.work.pops = int(counter.pops.sum())
-    counter.work.max_pops = int(counter.pops.max()) if o.shape[0] else 0
-    return counter.work
+    work = counter.work
+    work.pops = int(counter.pops.sum())
+    work.max_pops = int(counter.pops.max()) if o.shape[0] else 0
+    if camera_sample is not None:
+        jittered = camera_sample > 0
+        work.shade_ops += (CAMERA + CAMERA_PIXEL * (not jittered) + JITTER * jittered) * work.rays
+        work.mufu_ops += CAMERA_MUFU * work.rays
+        work.int_ops += PHILOX_INT * jittered * work.rays
+    return work
 
 
 def table_bytes(tables: SceneTables) -> int:
@@ -473,6 +567,20 @@ def work_ops(work: ChainWork | WavefrontWork) -> float:
     shadow scans (any-hit or march). An adjoint needs the same scans as its
     forward; its own replays are choices of design and are not counted."""
     return work.closest_ops + work.shadow_ops
+
+
+def wavefront_bound_ms(work: WavefrontWork, n_bytes: float) -> tuple[float, str]:
+    """-> (least time in ms on an H100 SXM at 700 W for the glass kernels'
+    counted work: their tests and shading on the fp32 pipe, their MUFU and
+    integer operations on theirs, or their bytes; what sets it)."""
+    times = {
+        "fp32 operations": (work_ops(work) + work.shade_ops) / H100_FP32_OPS_PER_S,
+        "MUFU operations": work.mufu_ops / H100_MUFU_OPS_PER_S,
+        "integer operations": work.int_ops / H100_INT32_OPS_PER_S,
+        "bytes": n_bytes / H100_BYTES_PER_S,
+    }
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:

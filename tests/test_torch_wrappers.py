@@ -24,12 +24,16 @@ import raytracingengine_tpu_torch.kernels.spp_trace as st
 import raytracingengine_tpu_torch.kernels.wavefront_grad as wg
 import raytracingengine_tpu_torch.kernels.wavefront_trace as wt
 import raytracingengine_tpu_torch.render.pipeline as pipeline
+import raytracingengine_tpu_torch.roofline as rl
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
 from raytracingengine_tpu_torch.parity import (
     TABLE_ROWS,
+    f64_factors_needed,
     ray_cot_seam_budget,
     seam_budget,
+    sphere_rows_vs_f64,
     table_cot_rows,
+    table_cot_rows_vs_f64,
 )
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.scenes import builders
@@ -343,18 +347,33 @@ def test_cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode):
     replay ran past its warp's stretch of the tape), or, with the check
     deferred as the autograd backward defers it, the backward pass; the
     next call, with the forward's counts, does not. Then the fused forward and
-    backward (wavefront_trace_fused under autograd) on the ragged block."""
+    backward (wavefront_trace_fused under autograd) on the ragged block.
+    Last, the opaque sphere made a mirror (specular 0.5): its hits push a
+    reflection child with transparency 0, the other arm of the forward
+    kernels' test for whether a hit can push a child; both frames are held
+    to trace_wavefront_plain and the counts size the adjoint's tape."""
     base = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
     deep = dataclasses.replace(base, max_depth=6, wavefront_budget=100)
-    for width, height, cfg in ((64, 64, base), (37, 29, base), (64, 64, deep)):
-        case = (shadow_mode, width, height, cfg.max_depth)
+    for width, height, cfg, mirror in ((64, 64, base, False), (37, 29, base, False),
+                                       (64, 64, deep, False), (64, 64, base, True)):
+        case = (shadow_mode, width, height, cfg.max_depth, "mirror" if mirror else "glass")
         scene, cam = builders.glass_sphere_scene(width, height, spp=1, device=cuda_device)
         tables = ct.pack_scene_tables(flatten_scene(scene))
         o, d = cam.rays_for_pixels(*cam.pixel_grid())
         o = o.contiguous()
+        if mirror:
+            glass_pops = rl.wavefront_work(tables, o, d, cfg).pops
+            mirror_mat = tables.mat.clone()
+            mirror_mat[TABLE_ROWS["mat"].index("specular"), 1] = 0.5  # sphere 1, the opaque one
+            tables = dataclasses.replace(tables, mat=mirror_mat)
         img, warp_pops = wt.wavefront_trace(tables, o, d, cfg, count=True)
         torch.testing.assert_close(img, wt.wavefront_trace(tables, o, d, cfg), rtol=0, atol=0)
         assert warp_pops.shape == ((width * height + 31) // 32,) and int(warp_pops.min()) >= 1
+        if mirror:  # the mirror's reflections pop, and the frame is the plain version's
+            assert rl.wavefront_work(tables, o, d, cfg).pops > glass_pops, case
+            report = seam_budget(img.cpu().numpy(), wt.trace_wavefront_plain(tables, o, d, cfg).cpu().numpy())
+            print(f"{case} frame: {report}")
+            assert report.ok, (case, report)
         g = (2.0 * img / img.numel()).contiguous()
         before = wg.wavefront_grad.launches
         cots, go, gd = wg.wavefront_grad(tables, o, d, g, cfg, warp_pops=warp_pops)
@@ -414,7 +433,9 @@ ROW_ERRORS = {
 def test_table_cot_rows_catch_one_wrong_row(case):
     """The adjoint's table budget, row by row: the plain cotangents pass
     against themselves, and one row off by a sign or a factor of 2 fails on
-    that row alone, small rows (shininess) too."""
+    that row alone, small rows (shininess) too; so against a float64
+    reference, with the factor each row needs. Once, the sphere rows'
+    float64 comparison on baseline spheres."""
     scene_name, table, row, factor = ROW_ERRORS[case]
     for name, ref in zip(TABLE_ROWS, plain_table_cots(scene_name)):
         ours = ref.copy()
@@ -422,6 +443,25 @@ def test_table_cot_rows_catch_one_wrong_row(case):
             ours[TABLE_ROWS[table].index(row)] *= factor
         bad = [r.row for r in table_cot_rows(name, ours, ref) if not r.ok]
         assert bad == ([row] if name == table else []), (name, bad)
+        # Against a float64 reference: with the float32 plain version on it
+        # the bound is table_cot_rows'; a float32 plain version as far off
+        # as the kernel widens it to let the kernel through.
+        assert [r.row for r in table_cot_rows_vs_f64(name, ours, ref, ref) if not r.ok] == bad
+        assert all(r.ok for r in table_cot_rows_vs_f64(name, ours, ours, ref))
+        # The factor each row needs: none where it passes alone, no factor
+        # where the float32 plain version sits on float64, less than 1
+        # where it is as far off as the kernel.
+        need = f64_factors_needed(name, ours, ref, ref)
+        assert need == [np.inf if r in bad else 0.0 for r in TABLE_ROWS[name]], (name, need)
+        assert max(f64_factors_needed(name, ours, ours, ref)) < 1.0
+    if case == "spheres_radius_sign":  # the sphere rows against float64, on the CPU
+        tables, o, d, g = grad_inputs("spheres", 16, 12, "cpu")
+        ref = cg.chain_grad_plain(tables, o, d, g, CFG)
+        rows, seam, seam64 = sphere_rows_vs_f64(tables, o, d, g, CFG, ref, ref)
+        np.testing.assert_array_equal(rows[0], rows[1])  # on the CPU chain_grad is the plain version
+        np.testing.assert_allclose(rows[0], plain_table_cots("spheres")[0], rtol=0, atol=0)
+        assert not bool(seam.any()) and all(r.ok for r in table_cot_rows_vs_f64("sph", *rows))
+        assert np.abs(rows[1] - rows[2]).max() > 0.0, int(seam64.sum())  # float64 is another sum
 
 
 def test_roofline_work_counts():
@@ -429,8 +469,6 @@ def test_roofline_work_counts():
     max_depth 1, each closest-hit scan between its all-early-exit and its
     all-full cost, at most one shadow ray per light, and the bound taken from
     the larger of the two times."""
-    from raytracingengine_tpu_torch import roofline as rl
-
     _, cam, tables = small_head_box()
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     r = o.shape[0]
@@ -444,3 +482,37 @@ def test_roofline_work_counts():
     assert w10.bounces > w1.bounces and w10.closest_ops > w1.closest_ops
     assert rl.bound_ms(67e9, 1.0) == (1.0, "operations")
     assert rl.bound_ms(1.0, 3.35e9) == (1.0, "bytes")
+
+    # The glass kernels' shading: every pop is a sky node or a shaded one,
+    # each shaded node adds at most its sphere normal, node_children and,
+    # per light, the shadow ray's set-up and the lit and specular terms
+    # (node_children only off the glass sphere here: the floor and the
+    # opaque sphere push no child); the camera ray of an AA sample counts
+    # per ray, its screen point with sample 0 only (once per pixel), its
+    # jitter past sample 0 only.
+    scene, gcam = builders.glass_sphere_scene(8, 6, spp=1, device="cpu")
+    g_tables = ct.pack_scene_tables(flatten_scene(scene))
+    go, gd = (x.contiguous() for x in gcam.rays_for_pixels(*gcam.pixel_grid()))
+    glass_cfg = RenderConfig(use_pallas=True)
+    gw = rl.wavefront_work(g_tables, go, gd, glass_cfg)
+    per_light = rl.LIGHT_SETUP + rl.LIGHT_LIT + rl.LIGHT_SPEC
+    most = rl.SHADE_NODE + rl.SPHERE_NORMAL + rl.CHILDREN + g_tables.n_lights * per_light
+    assert gw.pops >= r and gw.march_steps > 0
+    assert gw.pops * rl.SKY_NODE <= gw.shade_ops - rl.MARCH_STEP * gw.march_steps <= gw.pops * most
+    sky_only = dataclasses.replace(glass_cfg, max_depth=0)  # every node a sky node
+    assert rl.wavefront_work(g_tables, go, gd, sky_only).shade_ops == rl.SKY_NODE * go.shape[0]
+    assert 0 < gw.mufu_ops <= gw.pops * (rl.CHILDREN_MUFU + rl.SPHERE_NORMAL_MUFU + g_tables.n_lights * (
+        rl.LIGHT_SETUP_MUFU + rl.LIGHT_LIT_MUFU + rl.LIGHT_SPEC_MUFU)) and gw.int_ops == 0
+    for sample, jitter in ((0, 0), (1, 1), (3, 1)):
+        gs = rl.wavefront_work(g_tables, go, gd, glass_cfg, camera_sample=sample)
+        rays = go.shape[0]
+        per_sample = rl.CAMERA + (rl.JITTER if jitter else rl.CAMERA_PIXEL)
+        assert gs.shade_ops - gw.shade_ops == per_sample * rays
+        assert gs.mufu_ops - gw.mufu_ops == rl.CAMERA_MUFU * rays
+        assert gs.int_ops == rl.PHILOX_INT * jitter * rays
+    fp32_ms, by = rl.wavefront_bound_ms(gw, 0.0)
+    assert by == "fp32 operations" and fp32_ms == pytest.approx(
+        1e3 * (rl.work_ops(gw) + gw.shade_ops) / rl.H100_FP32_OPS_PER_S)
+    assert rl.wavefront_bound_ms(gw, 3.35e9) == (1.0, "bytes")
+    assert rl.wavefront_bound_ms(rl.WavefrontWork(rays=1, mufu_ops=67e9 / 16), 0.0) == (1.0, "MUFU operations")
+    assert rl.wavefront_bound_ms(rl.WavefrontWork(rays=1, int_ops=67e9 / 4), 0.0) == (1.0, "integer operations")
