@@ -22,8 +22,9 @@ training step at full resolution, and times kernels against plain versions:
                 read after; PNGs to out/
   8. timing     CUDA events after warm-up, kernel and plain version in turns;
                 the taping chain_trace and the counting wavefront_trace; the
-                training steps with the host running ahead and synchronised
-                after every step, and their peak device memory; each step's
+                training steps (phase 19's spp=4 steps too) with the host
+                running ahead and synchronised after every step, and their
+                peak device memory; each step's
                 device time by kernel from the profiler (the glass step runs
                 no counting kernel of its own); each kernel's roofline bound
                 from this run's work counts; chain_grad_dense on the head
@@ -114,6 +115,22 @@ training step at full resolution, and times kernels against plain versions:
                 padded head box's d_o and d_d (staged, in place), and the
                 stress scene's and its padded copy's, must be equal bit for
                 bit, at the default depth and at max_depth 1
+ 19. sample loop render_hdr's per-sample loop at spp=4 with
+                RenderConfig(use_pallas=True, differentiable=True), training
+                through make_train_step with SGD(lr=1e-6) on mean(img^2), one
+                seed per step, the launch counters reset before and read after
+                each: the head box at 1920x1080 (8 steps: 32 taping
+                chain_trace, 32 chain_grad, no spp_trace), the glass sphere at
+                256x256 (8 steps: 32 counting wavefront_trace, 32
+                wavefront_grad) and dense_mesh_scene at 512x512 (2 steps: 8
+                chain_trace, 8 chain_grad_dense, the culled tables packed once
+                per chunk); the loop's 1080p frame vs spp_trace at the same
+                seed; its gradient at 320x180 vs the integrators'
+                (use_pallas=False); the CLI in-process (render --use-pallas at
+                1080p spp=8, render at its defaults, aov, fit --steps 8, a JSON
+                scene with refbuild/box.obj; files to out/cli_*); soft shadows
+                and soft primary at 512x512 spp=2, one training step each, and
+                soft shadows on stress_scene (64 spheres) with its peak memory
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -142,6 +159,8 @@ count on the main path, error against its plain version, and times.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -178,7 +197,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
-    from raytracingengine_tpu_torch.imageio import read_hdr64, read_ppm, write_png
+    from raytracingengine_tpu_torch.imageio import read_hdr64, read_png, read_ppm, write_png
     from raytracingengine_tpu_torch.inverse import combine, make_train_step, partition
     from raytracingengine_tpu_torch.kernels import _build
     from raytracingengine_tpu_torch.kernels import chain_grad as cg
@@ -191,6 +210,7 @@ def main() -> int:
         TABLE_ROWS,
         f64_factors_needed,
         golden_ldr_mismatches,
+        grad_leaf_mismatches,
         ray_cot_seam_budget,
         reference_frame_stats,
         seam_budget,
@@ -198,6 +218,7 @@ def main() -> int:
         table_cot_rows,
         table_cot_rows_vs_f64,
     )
+    from raytracingengine_tpu_torch.render import pipeline
     from raytracingengine_tpu_torch.render.config import RenderConfig
     from raytracingengine_tpu_torch.render.pipeline import mean_direction, render_hdr
     from raytracingengine_tpu_torch.roofline import (
@@ -1048,6 +1069,217 @@ def main() -> int:
                 raise AssertionError(f"{what}: the two routes' frames or cotangents differ ({same}, {spread})")
             del staged, padded, outs
 
+    # 19. the sample loop and the entry points
+    t19 = time.perf_counter()
+    print("[19 sample loop] spp > 1 training through the fused kernels (use_pallas, differentiable=True), "
+          "the CLI in-process, soft shadows and soft primary", flush=True)
+
+    def reset_counts():
+        sync()
+        for fn in (ct.chain_trace, st.spp_trace, cg.chain_grad, cg.chain_grad_dense, wt.wavefront_trace,
+                   wt.wavefront_spp_trace, wg.wavefront_grad):
+            fn.launches = 0
+        ct.chain_trace.tape_launches = 0
+        wt.wavefront_trace.count_launches = 0
+
+    def read_counts() -> dict:
+        sync()
+        return {"chain_trace": ct.chain_trace.launches, "taping": ct.chain_trace.tape_launches,
+                "chain_grad": cg.chain_grad.launches, "chain_grad_dense": cg.chain_grad_dense.launches,
+                "spp_trace": st.spp_trace.launches, "wavefront_trace": wt.wavefront_trace.launches,
+                "counting": wt.wavefront_trace.count_launches,
+                "wavefront_spp_trace": wt.wavefront_spp_trace.launches,
+                "wavefront_grad": wg.wavefront_grad.launches}
+
+    def loop_cfg(w_, h_, **kw) -> RenderConfig:
+        return RenderConfig(use_pallas=True, differentiable=True, chunk_size=w_ * h_, **kw)
+
+    def train_loop(label, scene_, cam_, cfg_, steps, expect, seed0=100):
+        """`steps` training steps at the camera's spp through make_train_step
+        (SGD lr=1e-6 on mean(img^2)), one seed per step, the launch counters
+        reset before and read after -> (counts, ms per step, peak MiB, the
+        step closure)."""
+        params_, static_ = partition(scene_)
+        step_ = make_train_step(cam_, cfg_, torch.optim.SGD(params_.values(), lr=1e-6), loss_fn=mean_sq)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses_ = [float(step_(params_, static_, None, seed0 + i)[0]) for i in range(steps)]
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        grads_ = {k: p.grad for k, p in params_.items()}
+        finite_ = all(np.isfinite(losses_)) and all(v is None or bool(torch.isfinite(v).all())
+                                                    for v in grads_.values())
+        ok = finite_ and all(counts[k] == v for k, v in expect.items())
+        print(f"  {'PASS' if ok else 'FAIL'} {label}: {steps} steps, launches {counts} (expected {expect}); "
+              f"losses {losses_[0]:.6f} -> {losses_[-1]:.6f}; finite={finite_}; {ms:.3f} ms per step "
+              f"(host clock, a float(loss) per step, the first step included); peak device memory "
+              f"{peak:.1f} MiB [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: launches {counts}, expected {expect}; finite={finite_}")
+        return counts, ms, peak, (lambda: step_(params_, static_, None, seed0),
+                                  cam_.num_pixels * cam_.spp)
+
+    loop_launches, loop_steps = {}, {}
+    hb4, hb4_cam = head_box_scene(width=W1080, height=H1080, spp=4, device=dev)
+    loop_launches["head box"], _, _, loop_steps["head box 1080p spp=4"] = train_loop(
+        "head box 1920x1080 spp=4", hb4, hb4_cam, loop_cfg(W1080, H1080, shadow_mode="binary"), 8,
+        {"chain_trace": 32, "taping": 32, "chain_grad": 32, "spp_trace": 0, "chain_grad_dense": 0})
+    gl4, gl4_cam = glass_sphere_scene(256, 256, spp=4, device=dev)
+    loop_launches["glass"], _, _, loop_steps["glass 256x256 spp=4"] = train_loop(
+        "glass 256x256 spp=4 (march)", gl4, gl4_cam, loop_cfg(256, 256), 8,
+        {"wavefront_trace": 32, "counting": 32, "wavefront_grad": 32, "wavefront_spp_trace": 0})
+    packs = []
+    pack_fn = pipeline.pack_forward_tables_perm
+    pipeline.pack_forward_tables_perm = lambda *a: packs.append(1) or pack_fn(*a)
+    try:
+        dm4, dm4_cam = dense_mesh_scene(W512, W512, spp=4, device=dev)
+        loop_launches["dense"], _, _, loop_steps["dense 512x512 spp=4"] = train_loop(
+            "dense_mesh_scene 6016 triangles 512x512 spp=4", dm4, dm4_cam,
+            loop_cfg(W512, W512, shadow_mode="binary"), 2,
+            {"chain_trace": 8, "taping": 0, "chain_grad_dense": 8, "chain_grad": 0, "spp_trace": 0})
+    finally:
+        pipeline.pack_forward_tables_perm = pack_fn
+    print(f"  dense: culled tables packed {len(packs)} times in 2 steps of one chunk (2: once per chunk, "
+          "along the centre rays' mean direction, for every sample)", flush=True)
+    if len(packs) != 2:
+        raise AssertionError(f"the dense loop packed its tables {len(packs)} times in 2 steps")
+
+    # The loop's frame against the in-kernel AA at the same seed: the same
+    # jitter, rays built by the camera (a division by a square root) against
+    # the kernel's rsqrt, so the seam budget and not equality.
+    with torch.no_grad():
+        reset_counts()
+        loop_frame = render_hdr(hb4, hb4_cam, loop_cfg(W1080, H1080, shadow_mode="binary"), seed=77)
+        frame_counts = read_counts()
+        px4, py4 = hb4_cam.pixel_grid()
+        aa_frame = st.spp_trace(ct.pack_scene_tables(flatten_scene(hb4)), hb4_cam, px4, py4, cfg, seed=77)
+    print(f"  the loop's 1080p spp=4 frame (no grad; launches {frame_counts}) vs spp_trace, seed 77:", flush=True)
+    loop_aa_report = budget("loop vs spp_trace, head box 1080p spp=4", loop_frame.reshape(-1, 3), aa_frame)
+    if frame_counts["chain_trace"] != 4 or frame_counts["spp_trace"] != 0:
+        raise AssertionError(f"the loop's frame did not take 4 chain_trace launches: {frame_counts}")
+    del loop_frame, aa_frame
+
+    # The loop's gradient against the integrators' (use_pallas=False) at
+    # 320x180 spp=4; the camera nudged off-axis, as the CPU tests do, so no
+    # centre ray falls exactly on a cube edge.
+    small, small_cam = head_box_scene(width=W320, height=H180, spp=4, device=dev)
+    small_cam = dataclasses.replace(small_cam, position=small_cam.position
+                                    + torch.tensor([0.013, 0.007, 0.0], device=dev))
+    route_grads = {}
+    for route, c in (("kernels", loop_cfg(W320, H180, shadow_mode="binary")),
+                     ("integrators", RenderConfig(shadow_mode="binary", chunk_size=W320 * H180))):
+        sp, ss = partition(small)
+        img = render_hdr(combine(sp, ss), small_cam, c, seed=5)
+        (img * img).mean().backward()
+        route_grads[route] = {k: np.zeros(tuple(p.shape), np.float32) if p.grad is None else p.grad.cpu().numpy()
+                              for k, p in sp.items()}
+    grad_errors = grad_leaf_mismatches(route_grads["kernels"], route_grads["integrators"])
+    print(f"  {'PASS' if not grad_errors else 'FAIL'} head box 320x180 spp=4: the loop's scene gradient through "
+          "the kernels vs the integrators' (use_pallas=False), parity.grad_leaf_mismatches: "
+          f"{grad_errors or 'every leaf within rtol 2e-3, atol 2e-4 + 1e-3 max|leaf|'}", flush=True)
+    if grad_errors:
+        raise AssertionError(f"the loop's gradient differs from the integrators': {grad_errors}")
+
+    # The CLI, in-process, as a user calls it; files to out/cli_*.
+    from raytracingengine_tpu_torch.cli import main as cli_main
+
+    def cli(label: str, argv: list[str]) -> str:
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        text = buf.getvalue()
+        wrote = [line.split()[-1] for line in text.splitlines() if line.startswith("wrote ")]
+        print(f"  {'PASS' if rc == 0 and wrote else 'FAIL'} cli {label}: {' '.join(argv)} -> rc {rc}, "
+              f"{secs:.2f} s, launches {counts}, wrote {len(wrote)} files", flush=True)
+        for line in text.splitlines():
+            if not line.startswith(("wrote ", "{")):
+                print(f"    {line} [{card}]", flush=True)
+        if rc != 0 or not wrote or not all(Path(p).is_file() for p in wrote):
+            raise AssertionError(f"cli {label} failed: rc {rc}, wrote {wrote}")
+        return text, counts
+
+    cli_text, cli_counts = cli("render --use-pallas 1080p spp=8", [
+        "render", "--use-pallas", "--shadow-mode", "binary", "--width", str(W1080), "--height", str(H1080),
+        "--spp", "8", "--out", str(out_dir / "cli_render_pallas")])
+    loop_launches["cli"] = cli_counts
+    if not cli_counts.get("spp_trace") or cli_counts.get("chain_trace"):
+        raise AssertionError(f"cli render --use-pallas at spp=8 did not take the in-kernel AA: {cli_counts}")
+    cli("render defaults 512x512", ["render", "--out", str(out_dir / "cli_render_defaults")])
+    cli("aov 512x512", ["aov", "--out", str(out_dir / "cli_aov")])
+    fit_text, _ = cli("fit --steps 8 256x256 (baseline spheres: their albedos)", [
+        "fit", "--scene", "baseline_spheres", "--steps", "8", "--width", "256", "--height", "256",
+        "--out", str(out_dir / "cli_fit")])
+    fit_line = [x for x in fit_text.splitlines() if x.startswith("fit: loss")][0]
+    fit_first, fit_last = (float(x) for x in fit_line.split()[2:5:2])
+    box_json = out_dir / "cli_scene_box.json"
+    box_json.write_text(json.dumps({
+        "camera": {"position": [0, 0, -25], "focal": 500, "near": 0, "far": 200},
+        "models": [{"obj": "../refbuild/box.obj", "translation": [0, 0, 10],
+                    "material": {"color": [0, 0, 1], "specular": 0.5, "refractive_index": 1.5}}],
+        "planes": [{"point": [0, -15, 0], "normal": [0, 1, 0], "material": {"color": [0.9, 0.9, 0.9]}},
+                   {"point": [0, 0, 15], "normal": [0, 0, -1], "material": {"color": [0.9, 0.9, 0.9]}}],
+        "lights": [{"position": [0, 0, -5], "intensity": 150}, {"position": [-2, 2, -5], "intensity": 150}],
+    }))
+    cli("render a JSON scene with refbuild/box.obj", [
+        "render", "--scene", str(box_json), "--use-pallas", "--shadow-mode", "binary",
+        "--out", str(out_dir / "cli_render_json")])
+    box_ldr = read_png(str(out_dir / "cli_render_json" / "aces.png")).astype(int)
+    box_centre = box_ldr[256, 256]
+    print(f"  fit loss {fit_first:.6f} -> {fit_last:.6f} (falls); the JSON box's centre pixel "
+          f"{box_centre.tolist()} (blue)", flush=True)
+    if not fit_last < fit_first or not box_centre[2] > max(box_centre[0], box_centre[1]) + 20:
+        raise AssertionError(f"cli: fit loss {fit_first} -> {fit_last}, JSON box centre {box_centre}")
+
+    # Soft shadows and soft primary: the integrators on the card, one
+    # training step each at 512x512 spp=2 (the per-sample loop);
+    # visibility_soft builds [rays, spheres, 3]
+    # per light, so soft shadows on stress_scene (64 spheres in 128 slots, 4
+    # lights) also render forward only, at render_hdr's default chunk size,
+    # for their peak memory (a training step there would hold every bounce's
+    # [rays, 128, 3] tensors of the whole frame until the backward).
+    soft_cells = (("soft shadows, baseline spheres", baseline_sphere_scene,
+                   RenderConfig(shadow_mode="soft", chunk_size=W512 * W512), True),
+                  ("soft primary, baseline spheres", baseline_sphere_scene,
+                   RenderConfig(shadow_mode="binary", soft_primary=True, use_pallas=True,
+                                chunk_size=W512 * W512), True),
+                  ("soft shadows, stress_scene 64 spheres", lambda w, h, **k: stress_scene(width=w, height=h, **k),
+                   RenderConfig(shadow_mode="soft"), False))
+    for label, make, c, train in soft_cells:
+        s_scene, s_cam = make(W512, W512, spp=2 if train else 1, device=dev)
+        sp, ss = partition(s_scene)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.set_grad_enabled(train):
+            img = render_hdr(combine(sp, ss), s_cam, c)
+            if train:
+                (img * img).mean().backward()
+        sync()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        g_c = sp["spheres.centers"].grad
+        finite = bool(torch.isfinite(img).all()) and all(p.grad is None or bool(torch.isfinite(p.grad).all())
+                                                         for p in sp.values())
+        moved = g_c is not None and bool((g_c != 0).any())
+        ok = finite and (moved or not train) and not counts and img.shape == (W512, W512, 3)
+        what = ("one training step (forward, backward) at spp=2" if train
+                else "forward only at spp=1 (default chunk size)")
+        print(f"  {'PASS' if ok else 'FAIL'} {label} 512x512: {what} {secs:.3f} s, finite={finite}"
+              + (f", |d loss / d sphere centres| max {float(g_c.abs().max()) if moved else 0.0:.3e}" if train else "")
+              + f", kernel launches {counts} (none: no kernel covers it), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: finite={finite}, centre grad moved={moved}, launches {counts}")
+        del img, sp, ss
+    phase19_s = time.perf_counter() - t19
+    print(f"  phase 19 took {phase19_s:.1f} s (target: 90 s)", flush=True)
+
     # 8. timing: CUDA events around `iters` calls after one warm-up call
 
     def in_turns(kernel, plain, k_iters: int, p_iters: int):
@@ -1157,6 +1389,8 @@ def main() -> int:
     for (w_, h_), (gstep, gp, gst) in glass_steps.items():
         time_step(f"glass training step (forward, backward, SGD), {w_}x{h_}",
                   lambda: gstep(gp, gst, None), w_ * h_)
+    for label, (step, rays) in loop_steps.items():
+        time_step(f"spp=4 training step through the per-sample loop, {label}", step, rays)
     for w_, h_, spp in glass_cells:
         m_scene, m_cam = glass_sphere_scene(w_, h_, spp=spp, device=dev)
         gc = RenderConfig(use_pallas=True, chunk_size=w_ * h_)
@@ -1271,6 +1505,8 @@ def main() -> int:
         raise AssertionError(f"the glass step ran a counting kernel: {[k for k in glass_kernels if 'count' in k]}")
     for label, (dstep, dp, dst) in dense_steps.items():
         profile_step(f"dense training step {label} triangles 512x512", lambda: dstep(dp, dst, None))
+    for label, (step, _) in loop_steps.items():
+        profile_step(f"spp=4 training step through the per-sample loop, {label}", step)
 
     # Roofline bounds from this run's work (roofline.py: intersection tests
     # only). An adjoint's function needs the forward's scans: one closest
@@ -1378,29 +1614,33 @@ def main() -> int:
         print(f"  work bound {name} (tests, shading, MUFU, jitter): {b:.4f} ms ({by}) [H100 SXM peaks; {card}]")
     as_contract = lambda by: "bytes" if by == "bytes" else "operations"  # noqa: E731
 
+    # Launches: the main paths' runs (phases 7, 10, 12, 14, 17) and phase 19's
+    # (the spp=4 training steps, the CLI's renders).
+    loop = lambda key, *parts: sum(loop_launches[p].get(key, 0) for p in parts)  # noqa: E731
     kernels = [
         {"name": "chain_trace", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/chain_trace.cu",
          "replaces": "raytracingengine_tpu/kernels/chain_trace.py:1401",
-         "launches": launches["chain_trace"], "max_abs_err": chain_report.max_abs,
+         "launches": launches["chain_trace"] + loop("chain_trace", "head box", "dense"),
+         "max_abs_err": chain_report.max_abs,
          "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": bounds["chain_trace"][0],
          "bound_by": bounds["chain_trace"][1], "library_ms": None},
         {"name": "spp_trace", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/spp_trace.cu",
          "replaces": "raytracingengine_tpu/kernels/spp_trace.py:109",
-         "launches": launches["spp_trace"], "max_abs_err": spp_report.max_abs,
+         "launches": launches["spp_trace"] + loop("spp_trace", "cli"), "max_abs_err": spp_report.max_abs,
          "ms": spp_ms, "plain_ms": spp_plain_ms, "bound_ms": bounds["spp_trace"][0],
          "bound_by": bounds["spp_trace"][1], "library_ms": None},
         {"name": "chain_grad", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/chain_grad.cu",
          "replaces": "raytracingengine_tpu/kernels/chain_grad.py:555",
-         "launches": train_launches["chain_grad"], "max_abs_err": grad_err,
+         "launches": train_launches["chain_grad"] + loop("chain_grad", "head box"), "max_abs_err": grad_err,
          "ms": grad_ms, "plain_ms": grad_plain_ms, "bound_ms": bounds["chain_grad"][0],
          "bound_by": bounds["chain_grad"][1], "library_ms": None},
         {"name": "wavefront_trace", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/wavefront_trace.cu",
          "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:655",
-         "launches": glass_launches["wavefront_trace"],
+         "launches": glass_launches["wavefront_trace"] + loop("wavefront_trace", "glass"),
          "max_abs_err": max(r.max_abs for r in glass_reports.values()),
          "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": work_bounds["wavefront_trace"][0],
          "bound_by": as_contract(work_bounds["wavefront_trace"][1]), "library_ms": None},
@@ -1413,7 +1653,8 @@ def main() -> int:
         {"name": "wavefront_grad", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/wavefront_grad.cu",
          "replaces": "raytracingengine_tpu/kernels/wavefront_grad.py:762",
-         "launches": glass_train_launches[(W1080, H1080)]["wavefront_grad"], "max_abs_err": wg_err,
+         "launches": glass_train_launches[(W1080, H1080)]["wavefront_grad"] + loop("wavefront_grad", "glass"),
+         "max_abs_err": wg_err,
          "ms": wgr_ms, "plain_ms": wgr_plain_ms, "bound_ms": bounds["wavefront_grad"][0],
          "bound_by": bounds["wavefront_grad"][1], "library_ms": None},
         {"name": "chain_trace_streamed", "route": "cuda",
@@ -1426,7 +1667,7 @@ def main() -> int:
         {"name": "chain_grad_dense", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/chain_grad_dense.cu",
          "replaces": "raytracingengine_tpu/kernels/chain_grad.py:1143",
-         "launches": dense_train_launches["6016"]["chain_grad_dense"],
+         "launches": dense_train_launches["6016"]["chain_grad_dense"] + loop("chain_grad_dense", "dense"),
          "max_abs_err": max(v[5] for k, v in dense_grad.items() if not k.startswith("50800")),
          "ms": dense_grad_ms["6016 512x512"], "plain_ms": dense_grad_plain_ms["6016 512x512"],
          "bound_ms": bounds["chain_grad_dense"][0], "bound_by": bounds["chain_grad_dense"][1],
@@ -1458,7 +1699,8 @@ def main() -> int:
           + f"; training-path launches {train_launches}; main-path launches per route {main_routes}; "
           f"glass-path launches {glass_launches}; "
           f"glass training launches {glass_train_launches[(W1080, H1080)]} at 1080p; dense training "
-          f"launches {dense_train_launches}; the dense kernels' plain_ms is one call's; no PyTorch "
+          f"launches {dense_train_launches}; phase 19's launches {loop_launches}; the loop's frame vs "
+          f"spp_trace {loop_aa_report.flips}/{loop_aa_report.pixels}; the dense kernels' plain_ms is one call's; no PyTorch "
           "call traces rays, so library_ms is null")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

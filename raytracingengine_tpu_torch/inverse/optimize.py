@@ -6,13 +6,14 @@ intersection -> shading -> integrator -> optional tonemap; with
 `use_pallas=True` a trace kernel forward and its adjoint kernel backward)
 and lets the optimizer update the params in place.
 
-Use a differentiable configuration at spp=1: an opaque scene with
-shadow_mode="binary" (the chain kernels, or the chain integrator), or a
-glass scene with `use_pallas=True` and binary or march shadows (the
-wavefront trace kernel and the glass adjoint, at most 512 primitives).
-With `use_pallas=False` glass scenes differentiate the fixed-trip
-integrate_wavefront (`differentiable=True`), which runs every
-`cfg.budget()` iteration.
+Every route renders with gradients: the kernels (binary shadows in chain
+mode; binary or march shadows on glass scenes of at most 512 primitives)
+and the integrators (`use_pallas=False`, march or soft shadows,
+`soft_primary`). At spp > 1 each sample is traced and differentiated on
+its own (render/pipeline.py's per-sample loop); through the kernels that
+takes `differentiable=True`, since the in-kernel AA has no backward. A
+step's `seed` keys the samples' jitter: `fit` draws one per step from its
+own generator, as the JAX package splits its key per step.
 """
 
 from __future__ import annotations
@@ -62,14 +63,15 @@ def make_train_step(
     loss_fn: Callable = l2_image_loss,
     tonemap: Callable | None = None,
 ):
-    """-> step(params, static, target) -> (loss, grads): one forward,
-    backward and optimizer update; `grads` maps each param path to its
-    gradient (None for a frozen leaf). Camera tensors that require grad get
-    their `.grad` too (add them to the optimizer to train them)."""
+    """-> step(params, static, target, seed=None) -> (loss, grads): one
+    forward, backward and optimizer update; `grads` maps each param path to
+    its gradient (None for a frozen leaf). Camera tensors that require grad
+    get their `.grad` too (add them to the optimizer to train them). `seed`
+    keys the AA jitter at spp > 1 (render_hdr's; None is seed 0)."""
 
-    def step(params, static, target):
+    def step(params, static, target, seed: int | None = None):
         optimizer.zero_grad(set_to_none=True)
-        img = render_hdr(combine(params, static), camera, cfg)
+        img = render_hdr(combine(params, static), camera, cfg, seed=seed)
         if tonemap is not None:
             img = tonemap(img)
         loss = loss_fn(img, target)
@@ -91,18 +93,22 @@ def fit(
     mask: dict[str, bool] | None = None,
     loss_fn: Callable = l2_image_loss,
     callback: Callable[[int, float], None] | None = None,
+    seed: int = 0,
 ):
     """Run the optimization loop -> (fitted scene, loss curve). The default
     optimizer is Adam(learning_rate); `mask` freezes the params where it is
-    False (see masked_optimizer)."""
+    False (see masked_optimizer). Each step's jitter seed comes from a
+    torch.Generator seeded with `seed`, so a fit is reproducible."""
     if optimizer is None:
         optimizer = lambda ps: torch.optim.Adam(ps.values(), lr=learning_rate)  # noqa: E731
     params, static = partition(scene_init)
     state = TrainState(params, static, masked_optimizer(params, mask, optimizer))
     train_step = make_train_step(camera, cfg, state.optimizer, loss_fn=loss_fn)
+    generator = torch.Generator().manual_seed(seed)
     losses = []
     for i in range(steps):
-        loss, _ = train_step(state.params, state.static, target)
+        step_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+        loss, _ = train_step(state.params, state.static, target, step_seed)
         state.step += 1
         losses.append(float(loss))
         if callback is not None:

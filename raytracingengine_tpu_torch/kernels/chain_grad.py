@@ -625,7 +625,7 @@ def small_table_shapes(tables: SceneTables) -> tuple[tuple[int, int], ...]:
         raise NotImplementedError(
             f"not ported yet: the dense adjoint keeps the sphere, plane and light cotangents "
             f"in one block's shared memory, and {4 * total} bytes exceed its "
-            f"{room} (ROADMAP queue 2 item 10)"
+            f"{room} (ROADMAP queue 2 item 4)"
         )
     return shapes
 

@@ -831,7 +831,7 @@ def check_no_grad(*tensors: torch.Tensor) -> None:
         raise NotImplementedError(
             "the CUDA trace kernels are forward-only: a CUDA input requires "
             "grad; differentiate through kernels.chain_grad.chain_trace_fused "
-            "(spp=1), whose backward is the adjoint kernel"
+            "(render_hdr's per-sample loop at spp > 1), whose backward is the adjoint kernel"
         )
 
 

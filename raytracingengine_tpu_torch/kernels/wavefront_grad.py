@@ -333,7 +333,7 @@ def _check_scope(tables: SceneTables) -> None:
     if tables.n_primitives > MAX_PRIMS:
         raise NotImplementedError(
             f"not ported yet: the glass adjoint for {tables.n_primitives} > {MAX_PRIMS} "
-            "primitives (the JAX package's XLA-autodiff route, ROADMAP queue 1 item 9)"
+            "primitives (the JAX package's XLA-autodiff route, ROADMAP queue 1 item 4)"
         )
 
 

@@ -324,9 +324,8 @@ def check_no_grad(*tensors: torch.Tensor) -> None:
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             "the wavefront trace kernels are forward-only: differentiate through "
-            "kernels.wavefront_grad.wavefront_trace_fused (spp=1), whose backward is "
-            "the glass adjoint kernel; the differentiable spp > 1 loop is not ported "
-            "yet (ROADMAP queue 1 item 13)"
+            "kernels.wavefront_grad.wavefront_trace_fused, whose backward is the glass "
+            "adjoint kernel (render_hdr's per-sample loop at spp > 1)"
         )
 
 

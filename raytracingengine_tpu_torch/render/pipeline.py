@@ -3,41 +3,39 @@
 The reference's RenderImage is one parallel loop over the flat pixel
 index with an AA loop per pixel (Scene.h:283-328). Here pixels are traced
 in chunks of `cfg.chunk_size`. The mode is "chain" for opaque scenes and
-"wavefront" when a material transmits (or as `cfg.mode` forces). Where a
-kernel covers the mode and shadows (`kernels.chain_trace.
-pallas_applicable`) and `use_pallas=True`, the routes are, as the JAX
-package's `_render_chunk`:
+"wavefront" when a material transmits (or as `cfg.mode` forces). Each
+chunk runs the JAX package's `_render_chunk`:
 
-  * chain, spp == 1: camera rays (Camera.rays_for_pixels) ->
-    kernels.chain_grad.chain_trace_fused: the chain trace kernel forward
-    and, when a scene or camera tensor requires grad, an adjoint kernel
-    backward (`chain_grad`, or `chain_grad_dense` for dense scenes);
-  * chain, spp > 1: pixel coordinates -> kernels.spp_trace, the whole AA
-    loop per pixel;
+  * spp > 1 through the kernels (`uses_kernels`) without
+    `cfg.differentiable`: pixel coordinates -> the in-kernel AA,
+    kernels.spp_trace (chain) or wavefront_spp_trace, the whole sample loop
+    per pixel. It is forward-only: with gradients this route raises
+    ValueError and asks for `differentiable=True`;
+  * otherwise the per-sample loop: sample 0 is the centre ray
+    (Camera.rays_for_pixels), sample s >= 1 the ray jittered by
+    `pixel_jitter(seed, pixel ids, s)`, the in-kernel AA's Philox stream,
+    keyed by the row-major pixel id, so a pixel draws the same jitter
+    whatever the chunking. Each sample goes through `_trace` and the chunk
+    is their mean. `_trace` is, where `uses_kernels` holds, the kernels'
+    autograd Functions: kernels.chain_grad.chain_trace_fused (the chain
+    trace kernel forward and, when a scene or camera tensor requires grad,
+    an adjoint kernel backward: `chain_grad`, or `chain_grad_dense` for
+    culled tables) or kernels.wavefront_grad.wavefront_trace_fused (the
+    wavefront trace kernel and the glass adjoint). Else the all-pairs
+    integrators that autograd differentiates: render.integrator.
+    integrate_chain or integrate_wavefront, or render.soft_primary.
+    integrate_chain_soft for `soft_primary` in chain mode (wavefront mode
+    ignores `soft_primary`, as the JAX package does).
 
-above TRI_BLOCK triangles the chain kernels take culled tables
-(`pack_forward_tables_perm`), ordered front to back along the chunk's mean
-ray direction at spp == 1 (in no particular order at spp > 1, as the JAX
-package's spp kernel);
-  * wavefront, spp == 1: camera rays -> kernels.wavefront_grad.
-    wavefront_trace_fused: the wavefront trace kernel forward and, when a
-    scene or camera tensor requires grad, the glass adjoint kernel
-    backward;
-  * wavefront, spp > 1: pixel coordinates -> wavefront_spp_trace.
-
-Otherwise (`use_pallas=False`, chain mode with march shadows, or a glass
-tree deeper than the wavefront kernels' stack) camera rays go to
-render.integrator.integrate_chain or integrate_wavefront, the all-pairs
-integrators that autograd differentiates: no kernel covers that case in
-either package. The AA loops key their jitter by (seed, pixel id,
-sample), so a render does not depend on how the frame is chunked; they are
-forward-only, so spp > 1 with gradients raises.
+Above TRI_BLOCK triangles the chain kernels take culled tables
+(`pack_forward_tables_perm`): in the loop they are packed once per chunk,
+ordered front to back along the chunk's centre rays' mean direction, and
+reused by every sample; the in-kernel AA takes them in no particular order,
+as the JAX package's spp kernel does.
 
 The chunks are joined with torch.cat, so gradients flow through the frame.
 The device of the scene decides: CUDA tensors launch the CUDA kernels, CPU
-tensors run their plain PyTorch versions. Paths of the JAX pipeline that
-have no port yet raise NotImplementedError naming the ROADMAP item that
-brings them.
+tensors run their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -54,12 +52,15 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     pack_scene_tables,
     pallas_applicable,
 )
-from raytracingengine_tpu_torch.kernels.spp_trace import spp_trace
+from raytracingengine_tpu_torch.kernels.spp_trace import pixel_jitter, spp_trace
 from raytracingengine_tpu_torch.kernels.wavefront_grad import wavefront_trace_fused
 from raytracingengine_tpu_torch.kernels.wavefront_trace import wavefront_spp_trace
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.integrator import integrate_chain, integrate_wavefront
+from raytracingengine_tpu_torch.render.soft_primary import integrate_chain_soft
 from raytracingengine_tpu_torch.scene import Scene, tensor_leaves
+
+SHADOW_MODES = ("march", "binary", "soft")
 
 
 def resolve_mode(scene: Scene, cfg: RenderConfig) -> str:
@@ -76,25 +77,35 @@ def _requires_grad(*objs) -> bool:
     )
 
 
+def _soft_primary(mode: str, cfg: RenderConfig) -> bool:
+    return cfg.soft_primary and mode == "chain"
+
+
 def uses_kernels(mode: str, cfg: RenderConfig) -> bool:
-    return cfg.use_pallas and pallas_applicable(cfg, mode)
+    """Do the trace kernels take the mode's rays? `soft_primary` in chain
+    mode takes the integrator whatever `use_pallas` says."""
+    return cfg.use_pallas and pallas_applicable(cfg, mode) and not _soft_primary(mode, cfg)
+
+
+def in_kernel_aa(mode: str, cfg: RenderConfig, spp: int) -> bool:
+    """Does a frame at `spp` take the in-kernel AA (spp_trace,
+    wavefront_spp_trace) rather than the per-sample loop?"""
+    return spp > 1 and uses_kernels(mode, cfg) and not cfg.differentiable
 
 
 def check_supported(mode: str, cfg: RenderConfig, spp: int = 1, grad: bool = False) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
+    """Raise ValueError for a configuration no route runs."""
     if mode not in ("chain", "wavefront"):
         raise ValueError(f"mode {mode!r}: expected 'auto', 'chain' or 'wavefront'")
-    kernels = uses_kernels(mode, cfg)
-    todo = None
-    if cfg.shadow_mode not in ("binary", "march"):
-        todo = f"shadow_mode={cfg.shadow_mode!r}: soft visibility (ROADMAP queue 1 item 3)"
-    elif cfg.soft_primary:
-        todo = "soft_primary: render/soft_primary.py (ROADMAP queue 1 item 11)"
-    elif spp > 1 and (grad or cfg.differentiable or not kernels):
-        todo = ("spp > 1 with gradients, differentiable=True or no kernel for the mode "
-                "and shadows: the per-sample differentiable loop (ROADMAP queue 1 item 13)")
-    if todo is not None:
-        raise NotImplementedError(f"not ported yet: {todo}")
+    if cfg.shadow_mode not in SHADOW_MODES:
+        raise ValueError(f"shadow_mode {cfg.shadow_mode!r}: expected one of {SHADOW_MODES}")
+    if grad and in_kernel_aa(mode, cfg, spp):
+        raise ValueError(
+            "spp > 1 with gradients through the kernels needs differentiable=True: the "
+            "in-kernel AA (spp_trace, wavefront_spp_trace) draws its jitter inside the kernel "
+            "and has no backward; differentiable=True traces each sample through the fused "
+            "forward and adjoint kernels"
+        )
 
 
 def _culled(flat: FlatScene, mode: str, cfg: RenderConfig) -> bool:
@@ -126,6 +137,8 @@ def _trace(flat: FlatScene, tables: SceneTables | None, mode: str, o, d, cfg,
     """Camera or arbitrary rays [R,3] -> HDR [R,3] by the mode's route;
     `width` is the image width of the rays' rows, or 0 (chain_trace_fused)."""
     if tables is None:
+        if _soft_primary(mode, cfg):
+            return integrate_chain_soft(flat, o, d, cfg)
         integrate = integrate_wavefront if mode == "wavefront" else integrate_chain
         return integrate(flat, o, d, cfg)
     if mode == "wavefront":
@@ -141,8 +154,7 @@ def render_rays(
 ) -> torch.Tensor:
     """Trace an arbitrary ray block [R,3] x [R,3] -> HDR [R,3]."""
     mode = resolve_mode(scene, cfg)
-    grad = _requires_grad(scene) or (torch.is_grad_enabled() and (o.requires_grad or d.requires_grad))
-    check_supported(mode, cfg, 1, grad)
+    check_supported(mode, cfg)
     flat = flatten_scene(scene)
     return _trace(flat, _tables(flat, mode, cfg, d), mode, o, d, cfg)
 
@@ -169,9 +181,10 @@ def render_hdr(
             torch.randint(0, 2**31 - 1, (), generator=generator, device=generator.device)
         )
     flat = flatten_scene(scene)
-    per_chunk = camera.spp == 1 and _culled(flat, mode, cfg)  # ordered by each chunk's rays
+    aa = in_kernel_aa(mode, cfg, camera.spp)
+    per_chunk = not aa and _culled(flat, mode, cfg)  # ordered by each chunk's centre rays
     tables = None if per_chunk else _tables(flat, mode, cfg)
-    aa = wavefront_spp_trace if mode == "wavefront" else spp_trace
+    aa_trace = wavefront_spp_trace if mode == "wavefront" else spp_trace
     r = camera.num_pixels
     chunk = max(1, min(cfg.chunk_size, r))
     # Chunks of whole rows start at a row: the chain adjoint can then map its
@@ -181,10 +194,14 @@ def render_hdr(
     for start in range(0, r, chunk):
         pid = torch.arange(start, min(start + chunk, r), dtype=torch.int32, device=device)
         px, py = pid % camera.width, pid // camera.width
-        if camera.spp > 1:
-            parts.append(aa(tables, camera, px, py, cfg, seed=seed))
+        if aa:
+            parts.append(aa_trace(tables, camera, px, py, cfg, seed=seed))
             continue
-        o, d = camera.rays_for_pixels(px, py)
+        o, d = camera.rays_for_pixels(px, py)  # sample 0: the centre ray
         chunk_tables = _tables(flat, mode, cfg, d) if per_chunk else tables
-        parts.append(_trace(flat, chunk_tables, mode, o, d, cfg, width))
+        acc = _trace(flat, chunk_tables, mode, o, d, cfg, width)
+        for sample in range(1, camera.spp):
+            o, d = camera.rays_for_pixels(px, py, pixel_jitter(seed, pid, sample))
+            acc = acc + _trace(flat, chunk_tables, mode, o, d, cfg, width)
+        parts.append(acc / camera.spp)
     return torch.cat(parts).reshape(camera.height, camera.width, 3)

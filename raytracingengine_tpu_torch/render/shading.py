@@ -8,13 +8,14 @@ The same formulas as the JAX package's render/shading.py, on tensors:
     which every lane steps in lockstep until all are done,
   * `transmittance_binary` — hard visibility in one any-hit pass, equal to
     the march on opaque scenes,
+  * `visibility_soft` — sigmoid visibility over sphere clearance
+    (`shadow_mode="soft"`), smooth in the sphere parameters,
   * `direct_light` — per-light diffuse + Blinn-Phong specular with 1/d^2
     falloff (Scene.h:79-129).
 
 Every guard that keeps the JAX backward pass NaN-free is kept: square
 roots and reciprocals are taken on masked-safe operands, so a masked lane
-never feeds inf into a zero cotangent. Soft shadows (`shadow_mode="soft"`)
-are not ported yet.
+never feeds inf into a zero cotangent.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from raytracingengine_tpu_torch.geometry.intersect import (
     Hit,
     all_distances,
     closest_hit,
+    intersect_planes,
+    intersect_triangles,
 )
 
 
@@ -96,6 +99,45 @@ def transmittance_binary(
     return torch.where(occluded, 0.0, 1.0).to(max_dist.dtype)
 
 
+def visibility_soft(
+    flat: FlatScene,
+    origin: torch.Tensor,  # [B,3]
+    direction: torch.Tensor,  # [B,3] unit
+    max_dist: torch.Tensor,  # [B]
+    cfg,
+) -> torch.Tensor:
+    """Differentiable visibility in [0,1] -> [B].
+
+    Each sphere gives tr + (1 - tr) * sigmoid(delta / soft_sigma), where
+    delta is the signed clearance of the shadow segment past the sphere
+    (distance of its closest approach on [0, max_dist] to the centre, minus
+    the radius) and tr its clipped transparency: sigma -> 0 recovers the
+    hard shadow. Planes and triangles give the hard crossing at 0 < t <
+    max_dist, with no gradient (their silhouettes are not the inverse
+    rendering's target)."""
+    v = torch.ones_like(max_dist)
+    if flat.n_spheres > 0:
+        oc = flat.sph_centers[None, :, :] - origin[:, None, :]  # [B,S,3]
+        t_along = (oc * direction[:, None, :]).sum(-1)
+        # jnp.clip's form (and subgradient) with a per-ray upper bound
+        t_close = torch.minimum(torch.maximum(t_along, torch.zeros_like(t_along)), max_dist[:, None])
+        closest = origin[:, None, :] + direction[:, None, :] * t_close[..., None]
+        delta = torch.linalg.vector_norm(closest - flat.sph_centers[None, :, :], dim=-1) \
+            - flat.sph_radii[None, :]
+        soft = torch.sigmoid(delta / cfg.soft_sigma)
+        tr = vm.clip(flat.transparency[: flat.n_spheres], 0.0, 1.0)[None, :]
+        factor = tr + (1.0 - tr) * soft
+        factor = torch.where(flat.sph_active[None, :], factor, torch.ones_like(factor))
+        v = v * torch.prod(factor, dim=1)
+    if flat.n_planes + flat.n_triangles > 0:
+        with torch.no_grad():
+            t_all = torch.cat([intersect_planes(flat, origin, direction),
+                               intersect_triangles(flat, origin, direction)], dim=0)  # [P+T, B]
+            blocked = ((t_all > 0.0) & (t_all < max_dist[None, :])).any(dim=0)
+        v = v * torch.where(blocked, 0.0, 1.0).to(v.dtype)
+    return v
+
+
 def direct_light(
     flat: FlatScene,
     hit: Hit,
@@ -111,11 +153,6 @@ def direct_light(
     emitted / d^2 * N.L * T; Blinn-Phong specular (opaque materials with
     specular > 0) shares the falloff and T. Result = albedo * sum(diffuse)
     + sum(spec) * specular."""
-    if cfg.shadow_mode not in ("binary", "march"):
-        raise NotImplementedError(
-            f"not ported yet: shadow_mode={cfg.shadow_mode!r} (soft visibility, "
-            "ROADMAP queue 1 item 3)"
-        )
     bias = cfg.bias
     r = hit.point.shape[0]
     zeros3 = torch.zeros((r, 3), dtype=hit.point.dtype, device=hit.point.device)
@@ -141,7 +178,9 @@ def direct_light(
         ok0 = (
             active & flat.light_active[li] & (dist > 0.0) & (ndotl > 0.0) & (dist > bias)
         )
-        if cfg.shadow_mode == "binary":
+        if cfg.shadow_mode == "soft":
+            T = visibility_soft(flat, shadow_o, ldir, dist - bias, cfg)
+        elif cfg.shadow_mode == "binary":
             T = transmittance_binary(flat, shadow_o, ldir, dist - bias, cfg)
         else:
             T = transmittance_hard(flat, shadow_o, ldir, dist - bias, ok0, cfg)

@@ -7,9 +7,10 @@ from raytracingengine_tpu_torch.scenes.builders import (
     mixed_dense_scene,
     stress_scene,
 )
+from raytracingengine_tpu_torch.scenes.config import load_scene_json, scene_from_dict
 
 __all__ = [
     "bumpy_sphere_mesh", "cube_mesh", "head_box_scene", "baseline_sphere_scene",
     "glass_sphere_scene", "dense_mesh_scene", "mixed_dense_scene",
-    "stress_scene",
+    "stress_scene", "load_scene_json", "scene_from_dict",
 ]

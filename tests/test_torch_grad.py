@@ -231,13 +231,19 @@ def test_focal_grad_through_render_hdr_matches_jax():
 
 
 def test_spp_with_grad_raises():
+    """spp > 1 with gradients through the in-kernel AA raises ValueError
+    (it has no backward) and asks for differentiable=True, which trains
+    through the per-sample loop; forward-only spp > 1 takes the AA."""
     scene, cam = builders.head_box_scene(width=8, height=8, spp=2, device="cpu")
     params, static = partition(scene)
     cfg = RenderConfig(shadow_mode="binary", use_pallas=True)
-    with pytest.raises(NotImplementedError, match="per-sample differentiable loop"):
+    with pytest.raises(ValueError, match="differentiable=True"):
         render_hdr(combine(params, static), cam, cfg)
     with torch.no_grad():  # forward-only spp > 1 still renders
         assert torch.isfinite(render_hdr(combine(params, static), cam, cfg)).all()
+    img = render_hdr(combine(params, static), cam, dataclasses.replace(cfg, differentiable=True))
+    (img * img).mean().backward()
+    assert float(params["triangles.v0"].grad.abs().max()) > 0
 
 
 def test_grad_above_adjoint_scope_raises(monkeypatch):

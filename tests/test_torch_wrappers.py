@@ -26,6 +26,7 @@ import raytracingengine_tpu_torch.kernels.wavefront_trace as wt
 import raytracingengine_tpu_torch.render.pipeline as pipeline
 import raytracingengine_tpu_torch.roofline as rl
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+from raytracingengine_tpu_torch.inverse import combine, partition
 from raytracingengine_tpu_torch.parity import (
     TABLE_ROWS,
     f64_factors_needed,
@@ -87,16 +88,16 @@ def test_render_routes_cpu_to_plain_versions(monkeypatch, spp):
     assert calls == ({"chain": n_chunks, "spp": 0} if spp == 1 else {"chain": 0, "spp": n_chunks})
 
 
-#: name -> (config overrides, spp). At spp=1 the wavefront mode, march
-#: shadows, differentiable=True, use_pallas=False and the defaults all run
-#: (kernels or integrators); at spp > 1 every path without an AA kernel
-#: (chain mode with march shadows, use_pallas=False, the defaults) and every
-#: differentiable one needs the per-sample loop, which is not ported.
+#: name -> (config overrides, spp): the configurations that raised before
+#: the per-sample loop, soft visibility and soft_primary were ported. At
+#: spp > 1 every path without an AA kernel (chain mode with march or soft
+#: shadows, soft_primary, use_pallas=False, the defaults) and every
+#: differentiable one runs the loop.
 UNSUPPORTED = {
     "wavefront": (dict(mode="wavefront", use_pallas=False), 3),
     "march": (dict(shadow_mode="march"), 3),
-    "soft": (dict(shadow_mode="soft"), 1),
-    "soft_primary": (dict(soft_primary=True), 1),
+    "soft": (dict(shadow_mode="soft"), 3),
+    "soft_primary": (dict(soft_primary=True), 3),
     "differentiable": (dict(differentiable=True), 3),
     "no_kernels": (dict(use_pallas=False), 3),
     "defaults": (None, 3),
@@ -104,16 +105,36 @@ UNSUPPORTED = {
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
-def test_unsupported_configs_raise(name):
+def test_unsupported_configs_raise(monkeypatch, name):
+    """Each formerly unsupported configuration now renders, with gradients
+    in the scene and through render_rays at spp=1, and reaches no in-kernel
+    AA. What still raises: spp > 1 with gradients through the in-kernel
+    AA (ValueError: it asks for differentiable=True), and a shadow mode or
+    a render mode that does not exist."""
     overrides, spp = UNSUPPORTED[name]
     cfg = RenderConfig() if overrides is None else dataclasses.replace(CFG, **overrides)
     scene, cam, _ = small_head_box(spp=spp)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pipeline.render_hdr(scene, cam, cfg)
+    aa_calls = []
+    for module, fn in ((st, "spp_trace_plain"), (wt, "wavefront_spp_trace_plain")):
+        monkeypatch.setattr(module, fn, lambda *a, **k: aa_calls.append(a))
+    params, static = partition(scene)
+    img = pipeline.render_hdr(combine(params, static), cam, cfg, seed=5)
+    (img * img).mean().backward()
+    assert img.shape == (6, 8, 3) and torch.isfinite(img).all() and not aa_calls
+    assert all(p.grad is None or torch.isfinite(p.grad).all() for p in params.values())
+    assert float(params["triangles.materials.color"].grad.abs().max()) > 0
     if spp == 1:
         o, d = cam.rays_for_pixels(*cam.pixel_grid())
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            pipeline.render_rays(scene, o, d, cfg)
+        with torch.no_grad():
+            torch.testing.assert_close(pipeline.render_rays(scene, o, d, cfg), img.detach().reshape(-1, 3),
+                                       rtol=1e-6, atol=1e-6)
+    scene3, cam3, _ = small_head_box(spp=3)
+    params, static = partition(scene3)
+    with pytest.raises(ValueError, match="differentiable=True"):
+        pipeline.render_hdr(combine(params, static), cam3, CFG)
+    for bad in (dict(shadow_mode="hard"), dict(mode="path")):
+        with pytest.raises(ValueError):
+            pipeline.render_hdr(scene, cam, dataclasses.replace(CFG, **bad))
 
 
 def test_bad_inputs_raise():
