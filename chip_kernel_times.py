@@ -33,8 +33,9 @@ a stack or spills), the fp32 arithmetic (FMUL, FADD, FFMA), MUFU and
 branches, over the function and over each innermost loop of at least
 30 fp32 instructions (the triangle tests' loops), so that two versions'
 code can be told apart beside their times. Beside each head-box time it
-prints a hash of the kernel's output (the adjoints: of d_o and d_d; the
-counting wavefront_trace: of its frame and its counts), so
+prints a hash of the kernel's output (the adjoints: of d_o and d_d, the
+dense meshes' chain_grad_dense too; the counting wavefront_trace: of its
+frame and its counts), so
 that two versions' outputs can be seen to be bit-identical.
 
 The script uses only the package's public wrappers, so it runs the same in
@@ -50,6 +51,7 @@ Run on a machine with one CUDA card:
     python3 chip_kernel_times.py --adjoints   # the adjoints, their forwards, the steps
     python3 chip_kernel_times.py --chain-grad # chain_trace and chain_grad only, no reports
     python3 chip_kernel_times.py --glass-step # the glass training step only, no reports
+    python3 chip_kernel_times.py --dense-sinks # chain_grad_dense's two sinks in turns
     python3 chip_kernel_times.py --sphere-rows 7,8,9  # no timing: the stress
                                               # scene's sphere rows vs float64
 """
@@ -318,6 +320,74 @@ def sphere_rows(dev, seeds) -> None:
                   f"{row.err / row.bound:.4f}; factor needed {need:.4f}", flush=True)
 
 
+def time_dense_sinks(dev, show, time_ms, turns: int = 3) -> None:
+    """chain_grad_dense on each of its two sinks (kernels/chain_grad.py::
+    DENSE_SINKS), in turns (shared, global, global, shared, `turns` times)
+    on the scenes the dense adjoint takes and on the head box: per scene
+    the CTAs per SM each sink's kernel keeps with its accumulator, each
+    sink's median ms and its spread, which sink dense_sink picks, whether
+    the two sinks' d_o and d_d are bit for bit equal, and the largest
+    difference between their table cotangents over that table's largest
+    entry (the atomics' order)."""
+    import statistics
+
+    import torch
+
+    from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+    from raytracingengine_tpu_torch.kernels import _build
+    from raytracingengine_tpu_torch.kernels import chain_grad as cg
+    from raytracingengine_tpu_torch.kernels import chain_trace as ct
+    from raytracingengine_tpu_torch.render.config import RenderConfig
+    from raytracingengine_tpu_torch.render.pipeline import mean_direction
+    from raytracingengine_tpu_torch.scenes import (
+        dense_mesh_scene,
+        head_box_scene,
+        mixed_dense_scene,
+        stress_scene,
+    )
+
+    lib = _build.load_library()
+
+    def scenes():
+        yield "head box 1920x1080", head_box_scene(width=W1080, height=H1080, device=dev), W1080 * H1080
+        for label, kw in (("6016 triangles", {}), ("50800 triangles", dict(ni=128, nj=200))):
+            yield f"dense mesh {label} 512x512", dense_mesh_scene(SIZE, SIZE, device=dev, **kw), SIZE * SIZE
+        yield "mixed dense 512x512", mixed_dense_scene(SIZE, SIZE, device=dev), SIZE * SIZE
+        for n in (250, 500, 1000, 1500, 2000, 3000, 4000, 5281):
+            yield (f"stress_scene {n} spheres, one light, 512x512",
+                   stress_scene(n, n_lights=1, width=SIZE, height=SIZE, pad_multiple=None, device=dev),
+                   SIZE * SIZE)
+
+    for label, (scene, cam), chunk in scenes():
+        cfg = RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=chunk)
+        flat = flatten_scene(scene)
+        o, d = cam.rays_for_pixels(*cam.pixel_grid())
+        o = o.contiguous()
+        tables = (ct.pack_forward_tables_perm(flat, mean_direction(d)) if flat.n_triangles > 128
+                  else ct.pack_scene_tables(flat))
+        g = (2.0 * ct.chain_trace(tables, o, d, cfg) / (3 * o.shape[0])).contiguous()
+        shared_bytes = 4 * sum(a * b for a, b in cg.small_table_shapes(tables))
+        occ = {"shared": lib.rte_chain_grad_dense_occupancy(int(tables.culled), shared_bytes, 0),
+               "global": lib.rte_chain_grad_dense_occupancy(int(tables.culled), 4 * tables.light.numel(), 1)}
+        outs = {k: cg.chain_grad_dense(tables, o, d, g, cfg, sink=k) for k in cg.DENSE_SINKS}
+        rays_equal = all(torch.equal(a, b) for a, b in zip(outs["shared"][1:], outs["global"][1:]))
+        table_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                        for a, b in zip(outs["global"][0], outs["shared"][0]) if b.numel())
+        del outs
+        runs = {k: [] for k in cg.DENSE_SINKS}
+        for _ in range(turns):
+            for k in ("shared", "global", "global", "shared"):
+                runs[k].append(time_ms(lambda: cg.chain_grad_dense(tables, o, d, g, cfg, sink=k), 3))
+        print(f"  {label}: {tables.n_spheres} spheres, {tables.n_planes} planes, {tables.n_triangles} "
+              f"triangles, culled {tables.culled}; shared accumulator {shared_bytes} bytes; CTAs per SM "
+              f"{occ}; dense_sink picks {cg.dense_sink(tables)}; d_o, d_d bit for bit equal {rays_equal}; "
+              f"table cotangents' largest |global - shared| / max|shared| {table_rel:.3e}", flush=True)
+        for k, ms in runs.items():
+            show(f"chain_grad_dense {k} sink, {label}", statistics.median(ms))
+            print(f"    {k} sink turns {', '.join(f'{x:.3f}' for x in ms)} ms", flush=True)
+        del scene, cam, flat, o, d, tables, g
+
+
 def time_steps(dev, show, time_ms, loss_fn, steps) -> None:
     """Each training step of `steps` ((label, scene builder, config)) at
     1080p after an 8-step warm-up: wall time with the host running ahead
@@ -384,6 +454,8 @@ def main() -> int:
     parser.add_argument("--chain-grad", action="store_true",
                         help="time chain_trace and chain_grad on the head box only, without the "
                              "build and SASS reports (for many runs in turns)")
+    parser.add_argument("--dense-sinks", action="store_true",
+                        help="time chain_grad_dense's shared and global sinks in turns only")
     parser.add_argument("--sphere-rows", metavar="SEEDS",
                         help="no timing: the stress scene's adjoint sphere rows against float64 for "
                              "these comma-separated seeds (chip_smoke.py phase 18's check)")
@@ -406,7 +478,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     lib_path, log = _build.build()
-    quiet = args.chain_grad or args.glass_step or args.sphere_rows
+    quiet = args.chain_grad or args.glass_step or args.sphere_rows or args.dense_sinks
     for line in log.splitlines() if not quiet else ():
         if "Compiling entry function" in line or "registers" in line or "stack frame" in line:
             print("  ptxas " + line.strip())
@@ -441,6 +513,11 @@ def main() -> int:
     if args.sphere_rows:
         sphere_rows(dev, [int(x) for x in args.sphere_rows.split(",")])
         print(card)
+        return 0
+    if args.dense_sinks:
+        time_dense_sinks(dev, show, time_ms)
+        print(card)
+        print(json.dumps({"ms": times, "card": card}))
         return 0
     if args.glass:
         time_glass(dev, show, time_ms)
@@ -504,7 +581,8 @@ def main() -> int:
         show(f"chain_trace {label} triangles 512x512",
              time_ms(lambda: ct.chain_trace(tables, o, d, cfg), 10))
         show(f"chain_grad_dense {label} triangles 512x512",
-             time_ms(lambda: cg.chain_grad_dense(tables, o, d, g, cfg), 5))
+             time_ms(lambda: cg.chain_grad_dense(tables, o, d, g, cfg), 5),
+             *cg.chain_grad_dense(tables, o, d, g, cfg)[1:])
         show(f"spp_trace {label} triangles 512x512 spp=8",
              time_ms(lambda: st.spp_trace(tables8, cam8, px, py, cfg, seed=1234), 3))
     print(card)

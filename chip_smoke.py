@@ -24,8 +24,8 @@ training step at full resolution, and times kernels against plain versions:
                 the taping chain_trace and the counting wavefront_trace; the
                 training steps (phase 19's spp=4 steps too) with the host
                 running ahead and synchronised after every step, and their
-                peak device memory; each step's
-                device time by kernel from the profiler (the glass step runs
+                peak device memory; each step's device time by kernel
+                (utils/profiling.py::profile_step) (the glass step runs
                 no counting kernel of its own); each kernel's roofline bound
                 from this run's work counts; chain_grad_dense on the head
                 box's tables (not culled) held to chain_grad and timed beside
@@ -130,7 +130,36 @@ training step at full resolution, and times kernels against plain versions:
                 1080p spp=8, render at its defaults, aov, fit --steps 8, a JSON
                 scene with refbuild/box.obj; files to out/cli_*); soft shadows
                 and soft primary at 512x512 spp=2, one training step each, and
-                soft shadows on stress_scene (64 spheres) with its peak memory
+                soft shadows on stress_scene (64 spheres) with its peak memory;
+                the loop's flipped pixels against spp_trace pinned
+                (LOOP_AA_FLIPS)
+ 20. past smem  chain_grad_dense past one block's shared memory, its global
+                sink (kernels/chain_grad.py::dense_sink): 3 training steps on
+                stress_scene with 6,000 spheres (4 lights, 128 slots a family)
+                at 512x512 through the entry points, the launch counters reset
+                before and read after (3 linear chain_trace in place, 3
+                chain_grad_dense on the global sink, no chain_grad); the
+                kernel vs chain_grad_dense_plain on those tables and on the
+                same spheres with dense_mesh_scene's mesh (culled), on 16,384
+                of the rays at max_depth 2: ray cotangents, table rows (the
+                sphere rows with g zeroed on the flipped rays), run-to-run
+                spread (<= 1e-4); its time on the whole frame beside its bound
+                (the work of those rays, scaled); its time at 5,281 spheres
+                (one light, the shared sink's last count) and 5,282 (the
+                global sink's first)
+ 21. glass >512 the glass sphere and a transparent mesh (563 primitives) at
+                256x256: 3 training steps through the entry points, the
+                forward on wavefront_trace (one launch per chunk and step, no
+                counting kernel, no wavefront_grad), the backward autograd of
+                integrate_wavefront's replay with its warning; step time and
+                peak memory; the gradient at 16x16 vs the CPU port's
+ 22. sharded    a one-rank NCCL group: render_hdr_sharded at 1080p spp=1 and
+                spp=8 equal to render_hdr bit for bit; one make_sharded_loss
+                step on the head box at 1080p vs the one-process step;
+                render_hdr_faulttolerant at 1080p with an injected fault (a
+                retry, render_hdr's frame); cli render --mesh; the kernel
+                frames of the head box and the glass sphere at 32x24 vs the
+                float64 oracle (golden/) at rtol 2e-3 / atol 3e-3
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -152,7 +181,8 @@ difference below 5e-5 and at most 2e-5 of the LDR subpixels more than one
 byte off (tests/test_reference_parity.py).
 
 Run with no arguments on a machine with one CUDA card:  python3 chip_smoke.py
-Any failed phase raises and the script exits non-zero. The last line is
+Any failed phase raises and the script exits non-zero. It prints its total
+time before the card's line. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel's launch
 count on the main path, error against its plain version, and times.
 """
@@ -176,6 +206,11 @@ W1080, H1080 = 1920, 1080
 #: 700 W; PERF.md §6).
 PARENT_FLIPS = {"head box": (12, 12), "spheres": (0, 0), "glass march": (0, 0),
                 "glass binary": (0, 0), "glass deep TIR": (0, 0)}
+#: Phase 19's flipped pixels of the per-sample loop's 1080p spp=4 frame
+#: against spp_trace at seed 77 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6):
+#: the camera divides by a square root where the kernel multiplies by rsqrt,
+#: so seam rays fall either side. A rise past it fails the phase.
+LOOP_AA_FLIPS = 210
 
 
 def card_line() -> str:
@@ -195,6 +230,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test needs a CUDA card")
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
     from raytracingengine_tpu_torch.imageio import read_hdr64, read_png, read_ppm, write_png
@@ -781,6 +817,18 @@ def main() -> int:
         end.synchronize()
         return out, start.elapsed_time(end)
 
+    def in_turns(kernel, plain, k_iters: int, p_iters: int):
+        """plain, kernel, kernel, plain -> (kernel ms, plain ms), each the
+        mean of its two turns."""
+        p1 = time_ms(plain, p_iters)
+        k1 = time_ms(kernel, k_iters)
+        k2 = time_ms(kernel, k_iters)
+        p2 = time_ms(plain, p_iters)
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    def report(label: str, ms: float, rays: int) -> None:
+        print(f"  {label}: {ms:.3f} ms, {rays / ms / 1e3:.1f} Mrays/s [{card}]", flush=True)
+
     # 15. the dense forward: the culled kernels vs their plain versions
     print("[15 dense] dense_mesh_scene 512x512, culled tables ordered along the mean ray", flush=True)
     W512 = 512
@@ -1081,6 +1129,7 @@ def main() -> int:
             fn.launches = 0
         ct.chain_trace.tape_launches = 0
         wt.wavefront_trace.count_launches = 0
+        cg.chain_grad_dense.routes = dict.fromkeys(cg.DENSE_SINKS, 0)
 
     def read_counts() -> dict:
         sync()
@@ -1157,6 +1206,11 @@ def main() -> int:
         aa_frame = st.spp_trace(ct.pack_scene_tables(flatten_scene(hb4)), hb4_cam, px4, py4, cfg, seed=77)
     print(f"  the loop's 1080p spp=4 frame (no grad; launches {frame_counts}) vs spp_trace, seed 77:", flush=True)
     loop_aa_report = budget("loop vs spp_trace, head box 1080p spp=4", loop_frame.reshape(-1, 3), aa_frame)
+    print(f"  {'PASS' if loop_aa_report.flips <= LOOP_AA_FLIPS else 'FAIL'} the loop's flipped pixels "
+          f"{loop_aa_report.flips} (pinned: at most {LOOP_AA_FLIPS})", flush=True)
+    if loop_aa_report.flips > LOOP_AA_FLIPS:
+        raise AssertionError(f"the loop's frame flips {loop_aa_report.flips} pixels against spp_trace, "
+                             f"past the pinned {LOOP_AA_FLIPS}")
     if frame_counts["chain_trace"] != 4 or frame_counts["spp_trace"] != 0:
         raise AssertionError(f"the loop's frame did not take 4 chain_trace launches: {frame_counts}")
     del loop_frame, aa_frame
@@ -1280,19 +1334,369 @@ def main() -> int:
     phase19_s = time.perf_counter() - t19
     print(f"  phase 19 took {phase19_s:.1f} s (target: 90 s)", flush=True)
 
+    # 20. the dense adjoint past one block's shared memory: the global sink
+    t20 = time.perf_counter()
+    print("[20 dense past shared memory] chain_grad_dense's global sink (kernels/chain_grad.py::dense_sink)",
+          flush=True)
+    s6k, c6k = stress_scene(6000, width=W512, height=W512, device=dev)  # 4 lights, 128 slots a family
+    t6k = ct.pack_scene_tables(flatten_scene(s6k))
+    small_bytes = 4 * sum(a * b for a, b in cg.small_table_shapes(t6k))
+    print(f"  stress_scene 6000 spheres: {t6k.n_spheres} sphere, {t6k.n_planes} plane, {t6k.n_lights} light "
+          f"slots; sphere, plane and light cotangents {small_bytes} bytes against {cg.MAX_SMEM_BYTES} of "
+          f"one block: sink {cg.dense_sink(t6k)}", flush=True)
+    if cg.dense_sink(t6k) != "global":
+        raise AssertionError("the 6000-sphere stress scene did not take the global sink")
+    p6k, st6k = partition(s6k)
+    step6k = make_train_step(c6k, cfg_for(W512, W512), torch.optim.SGD(p6k.values(), lr=1e-6), loss_fn=mean_sq)
+    reset_counts()
+    ct.chain_trace.routes = ct.new_route_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses6k = [float(step6k(p6k, st6k, None)[0]) for _ in range(3)]
+    step6k_ms = (time.perf_counter() - t0) * 1e3 / 3
+    global_launches = read_counts()
+    dense_routes = dict(cg.chain_grad_dense.routes)
+    grads6k = {k: p.grad for k, p in p6k.items()}
+    finite = all(np.isfinite(losses6k)) and all(v is None or bool(torch.isfinite(v).all())
+                                                for v in grads6k.values())
+    moved = bool((grads6k["spheres.centers"] != 0).any())
+    expect = {"chain_trace": 3, "chain_grad_dense": 3, "chain_grad": 0, "taping": 0}
+    ok = (finite and moved and all(global_launches[k] == v for k, v in expect.items())
+          and dense_routes == {"shared": 0, "global": 3} and ct.chain_trace.routes["in_place"] == 3)
+    print(f"  {'PASS' if ok else 'FAIL'} 3 training steps at 512x512 (SGD lr=1e-6 on mean(img^2)): launches "
+          f"{global_launches} (expected {expect}), chain_grad_dense per sink {dense_routes}, chain_trace per "
+          f"route {ct.chain_trace.routes}; losses {losses6k[0]:.6f} -> {losses6k[-1]:.6f}; finite={finite}; "
+          f"sphere centres moved={moved}; {step6k_ms:.3f} ms per step (host clock, first step included); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"the 6000-sphere training steps: launches {global_launches}, sinks {dense_routes}, "
+                             f"finite={finite}, moved={moved}")
+    o6k, d6k = c6k.rays_for_pixels(*c6k.pixel_grid())
+    o6k = o6k.contiguous()
+    g6k = (2.0 * ct.chain_trace(t6k, o6k, d6k, cfg) / (3 * W512 * W512)).contiguous()
+    # The plain version steps through 6,144 sphere and plane slots per scan
+    # and through 128 light slots per bounce, at a cost set by its tensor
+    # ops rather than its rays: the kernel is held to it at the training
+    # steps' config (max_depth 10) on every 8th pixel of every 8th row
+    # (4,096 rays of the frame), and the kernels line times both on those
+    # rays; the whole frame is timed beside its own bound.
+    every8 = (torch.arange(0, W512, 8, device=dev)[:, None] * W512
+              + torch.arange(0, W512, 8, device=dev)[None, :]).reshape(-1)
+    n_sub = every8.numel()
+
+    def subset_g(tb, o_, d_):
+        so_, sd_ = o_[every8].contiguous(), d_[every8].contiguous()
+        return so_, sd_, (2.0 * ct.chain_trace(tb, so_, sd_, cfg) / (3 * n_sub)).contiguous()
+
+    def sphere_rows_off_flips(label, tb, rays, keep):
+        """The sphere rows with g zeroed on the rays whose cotangents flip
+        (held above under the seam budget): each sphere column sums a few
+        rays here, so one ray that took the other side of a seam moves it by
+        that ray's whole share, past table_cot_rows' bound (as phase 18's
+        stress scene does). A table cotangent is a sum of each ray's share,
+        linear in its g, so each side subtracts its own call on the flipped
+        rays alone (the plain version's cost is its bounces, not its rays)."""
+        (ours, ref), = keep
+        flips = torch.stack([((a - b).abs() > 1e-3 * b.abs().max()).any(1)
+                             for a, b in ((ours[1], ref[1]), (ours[2], ref[2]))]).any(0)
+        a, b = ours[0][0], ref[0][0]
+        if bool(flips.any()):
+            fr = [x[flips].contiguous() for x in rays]
+            a = a - cg.chain_grad_dense(tb, *fr, cfg)[0][0]
+            b = b - cg.chain_grad_dense_plain(tb, *fr, cfg)[0][0]
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        bad = []
+        for row in table_cot_rows("sph", a, b):
+            print(f"  {'PASS' if row.ok else 'FAIL'} {label}, less its {int(flips.sum())} flipped rays' share: "
+                  f"table {row}", flush=True)
+            bad += [] if row.ok else [str(row)]
+        if bad:
+            raise AssertionError(f"{label}: sphere rows out of budget off the flipped rays: {bad}")
+
+    global_label = f"stress_scene 6000 spheres, {n_sub:,} rays of 512x512, max_depth {cfg.max_depth}, global sink"
+    rays6k, keep = subset_g(t6k, o6k, d6k), []
+    global_reports, global_err = check_grad(global_label, cg.chain_grad_dense, cg.chain_grad_dense_plain, t6k,
+                                            *rays6k, cfg, spread_rtol=1e-4, skip_rows=("sph",), keep=keep)
+    sphere_rows_off_flips(global_label, t6k, rays6k, keep)
+    # the culled instantiation: the same spheres and dense_mesh_scene's mesh
+    dm6, dc6 = dense_mesh_scene(W512, W512, device=dev)
+    mixed6k = flatten_scene(dataclasses.replace(s6k, triangles=dm6.triangles))
+    mo, md = dc6.rays_for_pixels(*dc6.pixel_grid())
+    mo = mo.contiguous()
+    tm6k = ct.pack_forward_tables_perm(mixed6k, mean_direction(md))
+    if not tm6k.culled or cg.dense_sink(tm6k) != "global":
+        raise AssertionError("the spheres-and-mesh tables are not culled on the global sink")
+    gm6k = (2.0 * ct.chain_trace(tm6k, mo, md, cfg) / (3 * W512 * W512)).contiguous()
+    culled_label = (f"6000 spheres and {tm6k.n_triangles} triangles, {n_sub:,} rays of 512x512, max_depth "
+                    f"{cfg.max_depth}, culled, global sink")
+    rays_m, keep = subset_g(tm6k, mo, md), []
+    culled_reports, culled_err = check_grad(culled_label, cg.chain_grad_dense, cg.chain_grad_dense_plain, tm6k,
+                                            *rays_m, cfg, spread_rtol=1e-4, skip_rows=("sph",), keep=keep)
+    sphere_rows_off_flips(culled_label, tm6k, rays_m, keep)
+    global_err = max(global_err, culled_err)
+    print(f"  seam-flip pixels (d_o, d_d): {global_label} {global_reports['d_o'].flips}, "
+          f"{global_reports['d_d'].flips}; {culled_label} {culled_reports['d_o'].flips}, "
+          f"{culled_reports['d_d'].flips}", flush=True)
+    # the kernels line's numbers, all on the 4,096 rays the plain version ran
+    sub_ms = time_ms(lambda: cg.chain_grad_dense(t6k, *rays6k, cfg), 3)
+    w_sub = chain_work(t6k, *rays6k[:2], cfg)
+    sub_bound = bound_ms(work_ops(w_sub), adjoint_bytes(n_sub, t6k))
+    print(f"  {global_label}: kernel {sub_ms:.3f} ms, plain version {plain_call_ms[global_label]:.3f} ms, "
+          f"bound {sub_bound[0]:.4f} ms ({sub_bound[1]}; {w_sub.bounces / n_sub:.3f} bounces/ray, "
+          f"{w_sub.shadow_rays / n_sub:.3f} shadow rays/ray to its 4 lights; its 124 padded light slots "
+          f"send none) [H100 SXM peaks; {card}]", flush=True)
+    # the whole frame, at the training steps' config
+    global_ms = time_ms(lambda: cg.chain_grad_dense(t6k, o6k, d6k, g6k, cfg), 3)
+    culled_global_ms = time_ms(lambda: cg.chain_grad_dense(tm6k, mo, md, gm6k, cfg), 2)
+    report("chain_grad_dense kernel, stress_scene 6000 spheres 512x512, global sink", global_ms, W512 * W512)
+    report("chain_grad_dense kernel, 6000 spheres and the mesh 512x512, culled, global sink", culled_global_ms,
+           W512 * W512)
+    scale = W512 * W512 / n_sub
+    frame_bound = bound_ms(scale * work_ops(w_sub), adjoint_bytes(W512 * W512, t6k))
+    print(f"  bound, stress_scene 6000 spheres 512x512 (the work of those {n_sub:,} rays times {scale:g}): "
+          f"{frame_bound[0]:.4f} ms ({frame_bound[1]}); the kernel at {global_ms / frame_bound[0]:.1f}x it "
+          f"[H100 SXM peaks; {card}]", flush=True)
+    # the two sinks on the same inputs where both fit (one light, unpadded,
+    # 5,281 spheres: the last count the shared sink fits; and phase 16's
+    # mixed scene, culled), at the whole frame and max_depth 10: the global
+    # sink against the shared one, whose outputs are the parent's; and the
+    # cost of crossing the limit (5,282 spheres, global only)
+    def sinks_agree(label, tb, o_, d_, g_):
+        ours = cg.chain_grad_dense(tb, o_, d_, g_, cfg, sink="global")
+        ref = cg.chain_grad_dense(tb, o_, d_, g_, cfg, sink="shared")
+        rays_equal = all(torch.equal(a, b) for a, b in zip(ours[1:], ref[1:]))
+        bad = [f"{cot}: {r}" for cot, a, b in (("d_o", ours[1], ref[1]), ("d_d", ours[2], ref[2]))
+               for r in [ray_cot_seam_budget(a.cpu().numpy(), b.cpu().numpy())] if not r.ok]
+        for name, a, b in zip(("sph", "pl", "tri", "mat", "light"), ours[0], ref[0]):
+            if name == "tri" and tb.culled:  # row 12, the original index, carries none
+                bad += ["tri row 12 carries a cotangent"] if a[12].any() or b[12].any() else []
+                a, b = a[:12], b[:12]
+            bad += [str(r) for r in table_cot_rows(name, a.cpu().numpy(), b.cpu().numpy()) if not r.ok]
+        err = max(float((a - b).abs().max()) for a, b in zip((*ours[0], *ours[1:]), (*ref[0], *ref[1:])))
+        print(f"  {'PASS' if not bad else 'FAIL'} global sink vs shared sink, {label}: d_o, d_d bit for bit "
+              f"equal {rays_equal}; max|diff| over all outputs {err:.3e}; ray cotangents and every table row "
+              "in budget", flush=True)
+        if bad:
+            raise AssertionError(f"the global sink disagrees with the shared one on {label}: {bad}")
+        return err
+
+    m_tb, m_o_, m_d_, m_g, _, _ = next(v for k, v in dense_grad.items() if k.startswith("mixed"))
+    global_err = max(global_err, sinks_agree(f"mixed {m_tb.n_primitives} primitives 512x512, culled",
+                                             m_tb, m_o_, m_d_, m_g))
+    edge_ms = {}
+    for n in (5281, 5282):
+        es, ec = stress_scene(n, n_lights=1, width=W512, height=W512, pad_multiple=None, device=dev)
+        et = ct.pack_scene_tables(flatten_scene(es))
+        eo, ed = ec.rays_for_pixels(*ec.pixel_grid())
+        eo = eo.contiguous()
+        eg = (2.0 * ct.chain_trace(et, eo, ed, cfg) / (3 * W512 * W512)).contiguous()
+        if n == 5281:
+            global_err = max(global_err, sinks_agree("stress_scene 5281 spheres, one light, 512x512", et, eo,
+                                                     ed, eg))
+        else:
+            try:
+                cg.chain_grad_dense(et, eo, ed, eg, cfg, sink="shared")
+            except RuntimeError as e:
+                print(f"  PASS 5282 spheres: the shared sink refused ({e})", flush=True)
+            else:
+                raise AssertionError("the shared sink took an accumulator past one block's shared memory")
+        cg.chain_grad_dense.routes = dict.fromkeys(cg.DENSE_SINKS, 0)
+        edge_ms[n] = (cg.dense_sink(et), time_ms(lambda: cg.chain_grad_dense(et, eo, ed, eg, cfg), 5),
+                      dict(cg.chain_grad_dense.routes))
+        del es, et, eo, ed, eg
+    print("  chain_grad_dense at the limit, one light, 512x512: " + "; ".join(
+        f"{n} spheres sink {v[0]} {v[1]:.3f} ms (launches per sink {v[2]})" for n, v in edge_ms.items())
+        + f" [{card}]", flush=True)
+    if [v[0] for v in edge_ms.values()] != ["shared", "global"] or any(
+            v[2][v[0]] != 6 for v in edge_ms.values()):
+        raise AssertionError(f"the limit's two sides took other sinks: {edge_ms}")
+    occ_global = {"linear": lib.rte_chain_grad_dense_occupancy(0, 4 * t6k.light.numel(), 1),
+                  "culled": lib.rte_chain_grad_dense_occupancy(1, 4 * tm6k.light.numel(), 1)}
+    phase20_s = time.perf_counter() - t20
+    print(f"  the global sink's CTAs per SM {occ_global}; phase 20 took {phase20_s:.1f} s", flush=True)
+    del s6k, t6k, p6k, st6k, step6k, grads6k, o6k, d6k, g6k, dm6, mixed6k, mo, md, tm6k, gm6k
+
+    # 21. glass past the glass adjoint's 512 primitives
+    import warnings
+
+    from raytracingengine_tpu_torch.geometry.materials import Material
+    from raytracingengine_tpu_torch.scene import SceneBuilder
+    from raytracingengine_tpu_torch.scenes.assets import bumpy_sphere_mesh
+    from raytracingengine_tpu_torch.render.pipeline import REPLAY_WARNING
+
+    t21 = time.perf_counter()
+
+    def glass_mesh_scene(w_, h_, device):
+        """The glass sphere scene and a transparent bumpy mesh of 560
+        triangles in front of it: 563 primitives."""
+        b = SceneBuilder()
+        b.add_sphere((0.0, 0.0, 5.0), 1.5, Material(color=(1, 1, 1), transparency=0.9, refractive_index=1.5))
+        b.add_sphere((1.5, -0.8, 9.0), 1.0, Material(color=(0.9, 0.4, 0.1)))
+        b.add_plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0), Material(color=(0.8, 0.8, 0.8)))
+        verts, idx = bumpy_sphere_mesh(radius=1.2, ni=8, nj=40)
+        b.add_model(verts, idx, Material(color=(0.6, 0.9, 0.7), transparency=0.7, refractive_index=1.3),
+                    translation=(-0.3, 0.2, 3.0))
+        b.add_light((-3.0, 5.0, -1.0), (1, 1, 1), 60.0)
+        return b.build(device=device), glass_sphere_scene(w_, h_, device=device)[1]
+
+    gm_scene, gm_cam = glass_mesh_scene(256, 256, dev)
+    gm_cfg = RenderConfig(use_pallas=True, shadow_mode="binary", max_depth=4, wavefront_budget=10,
+                          chunk_size=128 * 128)
+    gm_prims = flatten_scene(gm_scene).n_primitives
+    print(f"[21 glass past 512] glass sphere and a transparent mesh, {gm_prims} primitives, 256x256; "
+          f"{gm_cfg.shadow_mode} shadows, max_depth {gm_cfg.max_depth}, wavefront_budget "
+          f"{gm_cfg.wavefront_budget}, chunk_size {gm_cfg.chunk_size}", flush=True)
+    if not gm_prims > cg.MAX_PRIMS:
+        raise AssertionError(f"the glass mesh scene has {gm_prims} primitives")
+    gmp, gms = partition(gm_scene)
+    gm_step = make_train_step(gm_cam, gm_cfg, torch.optim.SGD(gmp.values(), lr=1e-6), loss_fn=mean_sq)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        gm_losses = [float(gm_step(gmp, gms, None)[0]) for _ in range(3)]
+        gm_ms = (time.perf_counter() - t0) * 1e3 / 3
+    gm_counts = read_counts()
+    gm_peak = torch.cuda.max_memory_allocated() / 2**20
+    warned = sum(str(w.message) == REPLAY_WARNING for w in caught)
+    chunks = -(-256 * 256 // gm_cfg.chunk_size)
+    gm_grads = {k: p.grad for k, p in gmp.items()}
+    finite = all(np.isfinite(gm_losses)) and all(v is None or bool(torch.isfinite(v).all())
+                                                 for v in gm_grads.values())
+    moved = bool((gm_grads["triangles.materials.transparency"] != 0).any())
+    expect = {"wavefront_trace": 3 * chunks, "counting": 0, "wavefront_grad": 0}
+    ok = finite and moved and warned == 3 * chunks and all(gm_counts[k] == v for k, v in expect.items())
+    print(f"  {'PASS' if ok else 'FAIL'} 3 training steps (SGD lr=1e-6 on mean(img^2)): launches {gm_counts} "
+          f"(expected {expect}: the forward kernel per chunk and step, the backward autograd of "
+          f"integrate_wavefront's replay); the replay's warning {warned} times; losses {gm_losses[0]:.6f} -> "
+          f"{gm_losses[-1]:.6f}; finite={finite}; mesh transparency moved={moved}; {gm_ms:.1f} ms per step "
+          f"(host clock, first step included); peak device memory {gm_peak:.1f} MiB [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"glass past 512: launches {gm_counts}, warned {warned}, finite={finite}")
+    gm_step_ms = time_ms(lambda: gm_step(gmp, gms, None), 3)
+    report("glass past 512 training step, 256x256, host running ahead (CUDA events)", gm_step_ms, 256 * 256)
+    # the gradient at 16x16 on the card against the CPU port's
+    small_grads = {}
+    for where in (dev, torch.device("cpu")):
+        ss_, sc_ = glass_mesh_scene(16, 16, where)
+        sp_, sst_ = partition(ss_)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            img = render_hdr(combine(sp_, sst_), sc_, dataclasses.replace(gm_cfg, chunk_size=256))
+            (img * img).mean().backward()
+        small_grads[where.type] = {k: np.zeros(tuple(p.shape), np.float32) if p.grad is None
+                                   else p.grad.cpu().numpy() for k, p in sp_.items()}
+    gm_errors = grad_leaf_mismatches(small_grads["cuda"], small_grads["cpu"])
+    phase21_s = time.perf_counter() - t21
+    print(f"  {'PASS' if not gm_errors else 'FAIL'} 16x16: the card's gradient (the kernel forward, the replay "
+          "backward) vs the CPU port's (plain forward), parity.grad_leaf_mismatches: "
+          f"{gm_errors or 'every leaf in budget'}; phase 21 took {phase21_s:.1f} s", flush=True)
+    if gm_errors:
+        raise AssertionError(f"glass past 512: the card's gradient differs from the CPU port's: {gm_errors}")
+    del gm_scene, gmp, gms, gm_step, gm_grads
+
+    # 22. sharded and fault-tolerant rendering, sharded training, the oracle
+    import socket
+
+    import torch.distributed as dist
+
+    from raytracingengine_tpu_torch.golden import golden_from_scene
+    from raytracingengine_tpu_torch.parallel import fault, make_mesh, make_sharded_loss, render_hdr_sharded
+
+    t22 = time.perf_counter()
+    with socket.socket() as sock:  # a free port on this host for the rendezvous
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        print(f"[22 sharded] a one-rank NCCL group (backend {dist.get_backend()}), mesh {mesh.shape}", flush=True)
+        for spp in (1, 8):
+            hs, hc = head_box_scene(width=W1080, height=H1080, spp=spp, device=dev)
+            one = render_hdr(hs, hc, cfg_for(W1080, H1080), seed=2024)
+            reset_counts()
+            sharded = render_hdr_sharded(hs, hc, cfg_for(W1080, H1080), mesh, seed=2024)
+            counts = {k: v for k, v in read_counts().items() if v}
+            same = torch.equal(sharded, one)
+            print(f"  {'PASS' if same else 'FAIL'} render_hdr_sharded head box 1080p spp={spp}: launches {counts}; "
+                  f"equal to render_hdr bit for bit {same}", flush=True)
+            if not same or not counts:
+                raise AssertionError(f"render_hdr_sharded at spp={spp} differs from render_hdr or ran no kernel")
+        hs, hc = head_box_scene(width=W1080, height=H1080, spp=1, device=dev)
+        hp, hst = partition(hs)
+        ho, hd = hc.rays_for_pixels(*hc.pixel_grid())
+        ho = ho.contiguous()
+        target = torch.zeros_like(ho)
+        reset_counts()
+        make_sharded_loss(hst, cfg, mesh)(hp, ho, hd, target).backward()
+        loss_counts = {k: v for k, v in read_counts().items() if v}
+        hp1, _ = partition(hs)
+        img = cg.chain_trace_fused(ct.pack_scene_tables(flatten_scene(combine(hp1, hst))), ho, hd, cfg)
+        ((img - target) ** 2).mean().backward()
+        zero_or = lambda p: torch.zeros_like(p) if p.grad is None else p.grad  # noqa: E731
+        off = [k for k, p in hp.items() if p.numel() and not bool(
+            ((zero_or(p) - zero_or(hp1[k])).abs()
+             <= 1e-4 * zero_or(hp1[k]).abs().max() + 1e-4 * zero_or(hp1[k]).abs()).all())]
+        print(f"  {'PASS' if not off else 'FAIL'} make_sharded_loss, one step's gradients, head box 1080p: "
+              f"launches {loss_counts}; every leaf within 1e-4 of its largest entry (+ 1e-4 relative; the "
+              f"adjoint's atomics) of the one-process step's: {off or 'yes'}", flush=True)
+        if off or loss_counts.get("chain_grad") != 1:
+            raise AssertionError(f"make_sharded_loss: gradients off {off}, launches {loss_counts}")
+        del hp, hp1, img
+        real, events = fault.render_pixels, []
+
+        def flaky(*a, **k):
+            if not events:
+                events.append(("injected", {}))
+                raise RuntimeError("injected device fault")
+            return real(*a, **k)
+
+        fault.render_pixels = flaky
+        try:
+            banded = fault.render_hdr_faulttolerant(hs, hc, cfg_for(W1080, H1080), seed=2024, tile_rows=8,
+                                                    on_event=lambda e, f: events.append((e, f)))
+        finally:
+            fault.render_pixels = real
+        names = [e for e, _ in events[1:]]
+        one = render_hdr(hs, hc, cfg_for(W1080, H1080), seed=2024)
+        ok = names == ["band_retry"] + ["band_ok"] * 8 and torch.equal(banded, one)
+        print(f"  {'PASS' if ok else 'FAIL'} render_hdr_faulttolerant 1080p, 8 bands, a fault injected: events "
+              f"{names}; equal to render_hdr bit for bit {torch.equal(banded, one)}", flush=True)
+        if not ok:
+            raise AssertionError(f"render_hdr_faulttolerant: events {names}")
+        del banded, one
+        cli("render --mesh --use-pallas 1080p spp=8", [
+            "render", "--mesh", "--use-pallas", "--shadow-mode", "binary", "--width", str(W1080), "--height",
+            str(H1080), "--spp", "8", "--out", str(out_dir / "cli_render_mesh")])
+    finally:
+        dist.destroy_process_group()
+    # The oracle (golden/, float64, recursive) against the kernels' frames at
+    # tests/test_integrator_golden.py's budget: rtol 2e-3, atol 3e-3.
+    for label, make, ocfg, kernel in (
+        ("head box 32x24, chain_trace", lambda: head_box_scene(width=32, height=24, spp=1, device=dev),
+         RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=32 * 24), "chain_trace"),
+        ("glass sphere 32x24, wavefront_trace (march, max_depth 6)",
+         lambda: glass_sphere_scene(32, 24, spp=1, device=dev),
+         RenderConfig(use_pallas=True, max_depth=6, chunk_size=32 * 24), "wavefront_trace"),
+    ):
+        os_, oc_ = make()
+        reset_counts()
+        img = render_hdr(os_, oc_, ocfg).cpu().numpy().astype(np.float64)
+        counts = read_counts()
+        t0 = time.perf_counter()
+        gold = golden_from_scene(os_, oc_, max_depth=ocfg.max_depth, bias=ocfg.bias).render()
+        bad = int((~np.isclose(img, gold, rtol=2e-3, atol=3e-3)).sum())
+        print(f"  {'PASS' if not bad and counts[kernel] == 1 else 'FAIL'} oracle, {label}: {counts[kernel]} "
+              f"{kernel} launch; entries outside rtol 2e-3 / atol 3e-3 {bad} of {img.size}, max|diff| "
+              f"{float(np.abs(img - gold).max()):.3e}; the oracle took {time.perf_counter() - t0:.2f} s", flush=True)
+        if bad or counts[kernel] != 1:
+            raise AssertionError(f"oracle {label}: {bad} entries out of budget, launches {counts}")
+    phase22_s = time.perf_counter() - t22
+    print(f"  phase 22 took {phase22_s:.1f} s; phases 20-22 {phase20_s + phase21_s + phase22_s:.1f} s "
+          "(target: 90 s)", flush=True)
+
     # 8. timing: CUDA events around `iters` calls after one warm-up call
-
-    def in_turns(kernel, plain, k_iters: int, p_iters: int):
-        """plain, kernel, kernel, plain -> (kernel ms, plain ms), each the
-        mean of its two turns."""
-        p1 = time_ms(plain, p_iters)
-        k1 = time_ms(kernel, k_iters)
-        k2 = time_ms(kernel, k_iters)
-        p2 = time_ms(plain, p_iters)
-        return (k1 + k2) / 2, (p1 + p2) / 2
-
-    def report(label: str, ms: float, rays: int) -> None:
-        print(f"  {label}: {ms:.3f} ms, {rays / ms / 1e3:.1f} Mrays/s [{card}]", flush=True)
 
     print("[8 timing]", flush=True)
     rays1 = W1080 * H1080
@@ -1424,7 +1828,7 @@ def main() -> int:
     occ = {}
     for label, tb in (("head box", tables), ("6016", dense["6016"][0]), ("50800", dense["50800"][0])):
         smem = 4 * sum(a * b for a, b in cg.small_table_shapes(tb))
-        occ[label] = lib.rte_chain_grad_dense_occupancy(int(tb.culled), smem)
+        occ[label] = lib.rte_chain_grad_dense_occupancy(int(tb.culled), smem, 0)
     hb_acc = 4 * cg.table_entries(tables, "chain_grad")
     occ["chain_grad head box, staged"] = lib.rte_chain_grad_occupancy(2, hb_acc)
     occ["chain_grad head box, in place"] = lib.rte_chain_grad_occupancy(0, hb_acc)
@@ -1452,51 +1856,37 @@ def main() -> int:
         time_step(f"dense training step (forward, backward, SGD), {label} triangles 512x512",
                   lambda: dstep(dp, dst, None), rays512)
 
-    # The training steps' device time by kernel, from the profiler.
+    # The training steps' device time by kernel, from the profiler
+    # (utils/profiling.py: the Chrome trace of three steps after a warm-up,
+    # read back by kernel name and by top-level host range).
     import re
-    import warnings
 
-    from torch.profiler import ProfilerActivity, profile
+    from raytracingengine_tpu_torch.utils.profiling import profile_step as traced
 
     def profile_step(label: str, step) -> list[str]:
-        """Prints the step's device time by kernel -> the names of the device
-        events (kernels) it ran."""
-        step()
-        sync()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    step()
-                sync()
-                wall = (time.perf_counter() - t0) * 1e3 / 3
-            events = prof.key_averages()
-            # the packing's span (render/pipeline.py) also shows as a device-side
-            # annotation, which is no kernel
-            dev_us = {e.key: getattr(e, "device_time_total", 0.0) / 3 for e in events
-                      if str(e.device_type).endswith("CUDA") and getattr(e, "device_time_total", 0.0) > 0
-                      and e.key != "pack_forward_tables_perm"}
-        if not dev_us:
+        """Prints the step's device time by kernel -> the names of the
+        kernels it ran."""
+        rep = traced(lambda: [step() for _ in range(3)], trace_dir=str(out_dir / "traces"))
+        if not rep.op_ms:
             print(f"  {label} under the profiler: no device time recorded (not measured)")
             return []
-        total_ms = sum(dev_us.values()) / 1e3
-        pack = [e for e in events
-                if e.key == "pack_forward_tables_perm" and str(e.device_type).endswith("CPU")]
-        pack_note = (f"; the packing span (render/pipeline.py) {pack[0].count // 3} per step, host "
-                     f"{pack[0].cpu_time_total / 3e3:.3f} ms per step" if pack else "")
         ours = {}
-        for k, v in dev_us.items():
+        for k, v in rep.op_ms.items():
             m = re.search(r"(chain|wavefront|partials)_\w*kernel", k)
             if m:
-                ours[m.group(0)] = ours.get(m.group(0), 0.0) + v / 1e3
+                ours[m.group(0)] = ours.get(m.group(0), 0.0) + v / 3
+        total_ms = rep.device_total_ms / 3
         other = total_ms - sum(ours.values())
-        print(f"  {label} under the profiler (it adds host time): wall {wall:.3f} ms, "
+        pack = rep.host_ms.get("pack_forward_tables_perm")
+        pack_note = (f"; the packing span (render/pipeline.py) host {pack / 3:.3f} ms per step, its "
+                     f"kernels {rep.module_ms.get('pack_forward_tables_perm', 0.0) / 3:.3f} device ms"
+                     if pack else "")
+        print(f"  {label} under the profiler (it adds host time): wall {rep.wall_ms / 3:.3f} ms, "
               f"device kernels {total_ms:.3f} ms: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
-              + f", {len(dev_us) - len(ours)} other kernel kinds {other:.3f} ms{pack_note} [{card}]",
+              + f", {len(rep.op_ms) - len(ours)} other kernel kinds {other:.3f} ms{pack_note} [{card}]",
               flush=True)
-        return list(dev_us)
+        return list(rep.op_ms)
 
     profile_step("training step 1080p", lambda: train_step(params, static, None))
     gstep, gp, gst = glass_steps[(W1080, H1080)]
@@ -1672,6 +2062,12 @@ def main() -> int:
          "ms": dense_grad_ms["6016 512x512"], "plain_ms": dense_grad_plain_ms["6016 512x512"],
          "bound_ms": bounds["chain_grad_dense"][0], "bound_by": bounds["chain_grad_dense"][1],
          "library_ms": None},
+        {"name": "chain_grad_dense_global", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/chain_grad_dense.cu",
+         "replaces": "raytracingengine_tpu/kernels/chain_grad.py:1143",
+         "launches": global_launches["chain_grad_dense"], "max_abs_err": global_err, "ms": sub_ms,
+         "plain_ms": plain_call_ms[global_label], "bound_ms": sub_bound[0], "bound_by": sub_bound[1],
+         "library_ms": None},
         {"name": "chain_grad_dense_streamed", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/chain_grad_dense.cu",
          "replaces": "raytracingengine_tpu/kernels/chain_grad.py:1697",
@@ -1700,8 +2096,12 @@ def main() -> int:
           f"glass-path launches {glass_launches}; "
           f"glass training launches {glass_train_launches[(W1080, H1080)]} at 1080p; dense training "
           f"launches {dense_train_launches}; phase 19's launches {loop_launches}; the loop's frame vs "
-          f"spp_trace {loop_aa_report.flips}/{loop_aa_report.pixels}; the dense kernels' plain_ms is one call's; no PyTorch "
-          "call traces rays, so library_ms is null")
+          f"spp_trace {loop_aa_report.flips}/{loop_aa_report.pixels} (pinned: {LOOP_AA_FLIPS}); the global sink "
+          f"(phase 20) {global_reports['d_d'].flips}/{global_reports['d_d'].pixels}, culled "
+          f"{culled_reports['d_d'].flips}/{culled_reports['d_d'].pixels}; the dense kernels' plain_ms is one "
+          "call's (the global sink's on its 16,384 rays at max_depth 2, its ms on the whole frame at max_depth "
+          "10); no PyTorch call traces rays, so library_ms is null")
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,8 @@ import torch
 from raytracingengine_tpu_torch.imageio import write_png, write_ppm
 from raytracingengine_tpu_torch.inverse import fit, masked_optimizer, partition, select
 from raytracingengine_tpu_torch.inverse.checkpoint import save_checkpoint
+from raytracingengine_tpu_torch.parallel import make_mesh, render_hdr_sharded
+from raytracingengine_tpu_torch.parallel.multihost import initialize_distributed
 from raytracingengine_tpu_torch.render.aov import render_aovs
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.pipeline import render_hdr
@@ -64,24 +66,29 @@ def _sync(device: torch.device) -> None:
 
 def cmd_render(args) -> int:
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharding over devices (the JAX package's parallel/) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
-        )
+        # The ranks of torchrun (or one rank without it): each renders its
+        # pixels, the frame is gathered onto every rank, rank 0 writes it.
+        initialize_distributed()
+        mesh = make_mesh()
+        render = lambda s, c, k: render_hdr_sharded(s, c, k, mesh)  # noqa: E731
+    else:
+        mesh, render = None, render_hdr
     scene, camera = _build_scene(args)
     cfg = RenderConfig(max_depth=args.max_depth, chunk_size=args.chunk_size,
                        shadow_mode=args.shadow_mode, use_pallas=args.use_pallas)
     device = scene.device
     with torch.no_grad():
         t0 = time.perf_counter()
-        hdr = render_hdr(scene, camera, cfg)
+        hdr = render(scene, camera, cfg)
         _sync(device)
         t1 = time.perf_counter()
         # The timing printout of RaytracingEngine.cpp:292-299, with the first
         # call (the kernels' build and load) apart.
-        render_hdr(scene, camera, cfg)
+        render(scene, camera, cfg)
         _sync(device)
         t2 = time.perf_counter()
+    if mesh is not None and mesh.rank != 0:
+        return 0
     print(f"render: {camera.width}x{camera.height} spp={camera.spp} first={t1 - t0:.2f}s "
           f"steady={t2 - t1:.3f}s ({camera.num_pixels * camera.spp / max(t2 - t1, 1e-9) / 1e6:.1f} "
           "Mrays/s)")
@@ -164,7 +171,9 @@ def main(argv=None) -> int:
     r.add_argument("--use-pallas", action="store_true",
                    help="the hand-written trace kernels (chain, wavefront, in-kernel AA)")
     r.add_argument("--shadow-mode", choices=["march", "binary", "soft"], default="march")
-    r.add_argument("--mesh", action="store_true", help="shard over all devices (not ported)")
+    r.add_argument("--mesh", action="store_true",
+                   help="shard the pixels over the ranks (torchrun for several cards; one rank "
+                        "without it)")
     r.set_defaults(fn=cmd_render)
 
     a = sub.add_parser("aov", help="depth/normal/albedo/hit maps")

@@ -129,19 +129,22 @@ def load_library() -> ctypes.CDLL:
         _TABLE_ARGTYPES + [_P, _P, _P, _P, _I, _I, _P, _I, _I, _IP] + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad.restype = _I
+    # o, d, g, d_o, d_d, n_rays, states, partials, total, gtri, gmat, gsp
+    # (null on the shared sink), sink (kernels/chain_grad.py::DENSE_SINKS)
     lib.rte_chain_grad_dense.argtypes = (
-        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P]
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I]
         + _TRACE_ARGTYPES
     )
     lib.rte_chain_grad_dense.restype = _I
     # CTAs per SM of each kernel (the trace kernels: by route code,
     # kernels/chain_trace.py::ROUTES, and chain_trace taping or not;
     # chain_grad: by route code and dynamic shared bytes; chain_grad_dense:
-    # culled or not, dynamic shared bytes; wavefront_trace: counting or not;
+    # culled or not, dynamic shared bytes, global sink or not; wavefront_trace:
+    # counting or not;
     # wavefront_spp_trace)
     for name, args in (("rte_chain_trace_occupancy", [_I, _I]), ("rte_spp_trace_occupancy", [_I]),
                        ("rte_chain_grad_occupancy", [_I, _I]),
-                       ("rte_chain_grad_dense_occupancy", [_I, _I]),
+                       ("rte_chain_grad_dense_occupancy", [_I, _I, _I]),
                        ("rte_wavefront_trace_occupancy", [_I]),
                        ("rte_wavefront_spp_trace_occupancy", [])):
         getattr(lib, name).argtypes = args

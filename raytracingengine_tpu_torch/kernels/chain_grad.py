@@ -54,9 +54,9 @@ card, its taping kernel where the backward is `chain_grad`), backward the
 adjoint `adjoint_route` picks; autograd carries the table cotangents
 back through `pack_forward_tables_perm` (the reorder is an index),
 `pack_scene_tables` and `flatten_scene` to the scene leaves, and the ray
-cotangents to the camera. `chain_grad_dense` serves any triangle count (its
-triangle cotangents live in device memory); where its sphere, plane and
-light cotangents do not fit one block's shared memory, it raises.
+cotangents to the camera. `chain_grad_dense` serves any count: its triangle
+cotangents live in device memory, and past one block's shared memory
+(`dense_sink`) the sphere and plane ones do too.
 """
 
 from __future__ import annotations
@@ -613,37 +613,52 @@ chain_grad.routes = dict.fromkeys(ROUTES, 0)
 
 
 def small_table_shapes(tables: SceneTables) -> tuple[tuple[int, int], ...]:
-    """Shapes of the dense adjoint's shared-memory accumulator: sph, pl,
-    the material columns of spheres and planes, light. Raise
-    NotImplementedError where they do not fit one block's shared memory
-    (beside the culled scan's STAGE_BYTES of staging, for culled tables)."""
+    """Shapes of the dense adjoint's shared-memory accumulator on its shared
+    sink: sph, pl, the material columns of spheres and planes, light."""
     nsp = tables.n_spheres + tables.n_planes
-    shapes = ((4, tables.sph.shape[1]), (4, tables.pl.shape[1]), (7, nsp), (7, tables.light.shape[1]))
-    total = sum(r * c for r, c in shapes)
+    return ((4, tables.sph.shape[1]), (4, tables.pl.shape[1]), (7, nsp), (7, tables.light.shape[1]))
+
+
+#: chain_grad_dense's sinks for the sphere, plane, light and sphere/plane
+#: material cotangents, in csrc/chain_grad_dense.cu's order (its `Sink`).
+DENSE_SINKS = ("shared", "global")
+
+
+def dense_sink(tables: SceneTables) -> str:
+    """Where chain_grad_dense sums the sphere, plane, light and sphere/plane
+    material cotangents, the one place that decides it, by bytes: "shared"
+    (one block's shared-memory accumulator, `small_table_shapes`, summed
+    through per-block partials) where they fit one block's shared memory
+    beside the culled scan's STAGE_BYTES of staging, for culled tables;
+    else "global": the lights alone in shared memory and the rest in
+    device memory by atomics, as the triangles' cotangents always are.
+    Monotone in every count: one more primitive or light never moves a
+    scene from "global" back to "shared". With one light and no culling
+    5,281 spheres and planes fit and 5,282 do not."""
+    total = sum(r * c for r, c in small_table_shapes(tables))
     room = MAX_SMEM_BYTES - (STAGE_BYTES if tables.culled else 0)
-    if 4 * total > room:
-        raise NotImplementedError(
-            f"not ported yet: the dense adjoint keeps the sphere, plane and light cotangents "
-            f"in one block's shared memory, and {4 * total} bytes exceed its "
-            f"{room} (ROADMAP queue 2 item 4)"
-        )
-    return shapes
+    return "shared" if 4 * total <= room else "global"
 
 
 def chain_grad_dense(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
-                     gbar: torch.Tensor, cfg):
+                     gbar: torch.Tensor, cfg, sink: str | None = None):
     """The dense adjoint of `chain_trace` -> (table cotangents in the
-    tables' shapes, d_o [R,3], d_d [R,3]), for culled tables or not.
+    tables' shapes, d_o [R,3], d_d [R,3]), for culled tables or not, with
+    no ceiling on any count but the lights' shared accumulator (7 floats a
+    light slot).
 
     CPU tensors run `chain_grad_dense_plain`; CUDA tensors launch
-    csrc/chain_grad_dense.cu: the sphere, plane and light cotangents go
-    through per-block partials and the fixed-order reduction, the triangle
-    rows and the triangles' material columns straight to device memory
-    with atomics."""
+    csrc/chain_grad_dense.cu on `sink`, or where it is None on the sink
+    `dense_sink` picks, counted in `chain_grad_dense.routes` (a "shared"
+    accumulator that does not fit raises): on "shared" the sphere, plane
+    and light cotangents go through per-block partials and the fixed-order
+    reduction; on "global" only the lights' do, and the sphere and plane
+    rows and every material column go to device memory with atomics. The
+    triangle rows and the triangles' material columns go straight to
+    device memory with atomics on both."""
     _check_rays(o, d)
     check_gbar(gbar, o)
     check_tables(tables, o.device, culled_ok=True)
-    shapes = small_table_shapes(tables)
     if o.device.type == "cpu":
         return chain_grad_dense_plain(tables, o, d, gbar, cfg)
     if o.device.type != "cuda":
@@ -654,6 +669,13 @@ def chain_grad_dense(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     if r == 0:
         return tuple(torch.zeros_like(t) for t in tables.tensors()), o.clone(), d.clone()
     lib = _build.load_library()
+    sink = dense_sink(tables) if sink is None else sink
+    if sink not in DENSE_SINKS:
+        raise ValueError(f"chain_grad_dense: unknown sink {sink!r}")
+    shapes = small_table_shapes(tables)
+    if sink == "global":  # the lights alone; the sphere and plane rows in device memory
+        shapes, gsp = shapes[-1:], torch.zeros(4 * (tables.sph.shape[1] + tables.pl.shape[1]),
+                                               dtype=torch.float32, device=o.device)
     total = sum(a * b for a, b in shapes)
     small = torch.empty(total, dtype=torch.float32, device=o.device)
     gtri, gmat = torch.zeros_like(tables.tri), torch.zeros_like(tables.mat)
@@ -667,20 +689,27 @@ def chain_grad_dense(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
             *_build.table_args(tables), *_build.culling_args(tables), o.data_ptr(),
             d.data_ptr(), gbar.data_ptr(), go.data_ptr(), gd.data_ptr(), r,
             states.data_ptr(), partials.data_ptr(), total, gtri.data_ptr(), gmat.data_ptr(),
+            gsp.data_ptr() if sink == "global" else None, DENSE_SINKS.index(sink),
             cfg.max_depth, cfg.bias, cfg.min_weight, stream,
         )
         _build.check(lib, err, "chain_grad_dense")
         err = lib.rte_chain_grad_reduce(partials.data_ptr(), total, n_blocks,
                                         small.data_ptr(), stream)
         _build.check(lib, err, "chain_grad_dense reduce")
+    chain_grad_dense.launches += 1
+    chain_grad_dense.routes[sink] += 1
+    if sink == "global":
+        gsph, gpl = split_table_cots(gsp, (tables.sph, tables.pl))
+        return (gsph, gpl, gtri, gmat, small.view(tables.light.shape)), go, gd
     gsph, gpl, gmat_sp, glight = split_table_cots(small, shapes)
     gmat[:, :gmat_sp.shape[1]] = gmat_sp  # the kernel adds only triangle columns there
-    chain_grad_dense.launches += 1
     return (gsph, gpl, gtri, gmat, glight), go, gd
 
 
-#: Kernel launches since the last reset (the CPU path does not count).
+#: Kernel launches since the last reset (the CPU path does not count), in
+#: all and per sink (DENSE_SINKS).
 chain_grad_dense.launches = 0
+chain_grad_dense.routes = dict.fromkeys(DENSE_SINKS, 0)
 
 
 class ChainTraceFused(torch.autograd.Function):
@@ -729,15 +758,12 @@ def chain_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg
     (its pixel-tile CTAs); the other kernels ignore it.
 
     Without gradients it is `chain_trace`. With them the backward is the
-    adjoint `adjoint_route` picks; a dense one whose sphere, plane and light
-    cotangents do not fit shared memory raises here, before the forward."""
+    adjoint `adjoint_route` picks, at any primitive count."""
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (o, d, *tables.tensors())
     )
     if not needs_grad:
         return chain_trace(tables, o.contiguous(), d.contiguous(), cfg)
-    if adjoint_route(tables) == "chain_grad_dense":
-        small_table_shapes(tables)
     counts = (tables.n_spheres, tables.n_planes, tables.n_triangles, tables.n_lights)
     return ChainTraceFused.apply(counts, (tables.taabb, tables.perm), cfg, width, o, d,
                                  *tables.tensors())

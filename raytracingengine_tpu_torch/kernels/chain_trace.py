@@ -450,16 +450,17 @@ def thread_rays(n_rays: int, width: int, device=None) -> torch.Tensor:
 
 
 class _HostTables:
-    """The tables as Python floats: one device-to-host copy per trace, so
-    the primitive loops read scalars without a sync each. float32 values
-    are exact as Python floats and round back exactly in tensor ops. A
-    culled tri table stays a tensor on the ray device (`tri_t`): its scan
-    goes block by block over [R, TRI_BLOCK] tensors."""
+    """The tables for the plain scans. The light table and a tri table that
+    is not culled as Python floats (one device-to-host copy per trace, so
+    their per-primitive loops read scalars without a sync each; float32
+    values are exact as Python floats and round back exactly in tensor
+    ops); the sphere and plane tables (`sph_t`, `pl_t`, scanned in blocks of
+    columns) and a culled tri table (`tri_t`, block by block over [R,
+    TRI_BLOCK] tensors) stay tensors on the ray device."""
 
     def __init__(self, t: SceneTables):
-        self.sph, self.pl, self.mat, self.light = (
-            x.detach().cpu().tolist() for x in (t.sph, t.pl, t.mat, t.light)
-        )
+        self.light = t.light.detach().cpu().tolist()
+        self.sph_t, self.pl_t = t.sph.detach(), t.pl.detach()
         self.culled = t.culled
         self.tri = None if t.culled else t.tri.detach().cpu().tolist()
         self.tri_t = t.tri.detach()
@@ -537,6 +538,35 @@ def _block_rows(T: _HostTables, b: int) -> list[torch.Tensor]:
     return [T.tri_t[r, cols][None, :] for r in range(13)]
 
 
+#: Ray-primitive pairs per tensor of the plain scans' blocked sphere and
+#: plane tests ([R, b] tensors of b <= 128 columns; fewer columns for many
+#: rays), so a scene of thousands of spheres scans in few tensor ops.
+_SCAN_PAIRS = 1 << 24
+
+
+def prim_blocks(n: int, rays: int) -> list[tuple[int, int]]:
+    """Column ranges [lo, hi) covering n primitives, in order, in blocks of
+    at most 128 and of at most _SCAN_PAIRS // rays."""
+    b = max(1, min(TRI_BLOCK, _SCAN_PAIRS // max(rays, 1)))
+    return [(lo, min(lo + b, n)) for lo in range(0, n, b)]
+
+
+def block_rows(table: torch.Tensor, lo: int, hi: int) -> list[torch.Tensor]:
+    """Rows [1, hi - lo] of the columns lo .. hi - 1 of a table: the
+    per-primitive tests of _sphere_t and _plane_t take them with i = all
+    columns and [R, 1] rays, elementwise the same arithmetic."""
+    return [table[r, lo:hi][None, :] for r in range(table.shape[0])]
+
+
+def first_min(t_new: torch.Tensor, hit: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[R, b] distances and hits -> (each ray's smallest hit distance, _INF
+    on none; its column, the first of a tie): the per-primitive strict <
+    scan's winner within a block."""
+    tb = torch.where(hit, t_new, _INF)
+    j = tb.argmin(1)
+    return tb.gather(1, j[:, None])[:, 0], j
+
+
 def _compact(active, *xs):
     """-> (indices of the active lanes, each x at them); all lanes when
     `active` is None."""
@@ -553,8 +583,10 @@ def _closest_scan_pos(T: _HostTables, ox, oy, oz, dx, dy, dz, active=None):
     Every hit field updates under ONE `closer` predicate, so an exact edge
     hit cannot update t without its normal and material.
 
-    Spheres, planes and the triangles of plain tables go one primitive at a
-    time, strict < first-wins. Culled triangles go one block at a time,
+    Spheres and planes go in blocks of columns (`prim_blocks`), each
+    block's first smallest hit against the best so far, strict < first-wins:
+    the per-primitive scan's winner. The triangles of plain tables go one
+    primitive at a time, the same rule. Culled triangles go one block at a time,
     each lane taking the block's lexicographic minimum of (t, original
     index) against its best so far, so the winner is the authoring-order
     scan's. Only the lanes of `active` scan them (the others keep their
@@ -575,16 +607,19 @@ def _closest_scan_pos(T: _HostTables, ox, oy, oz, dx, dy, dz, active=None):
         gi = torch.where(closer, g, gi)
         pos = torch.where(closer, p, pos)
 
-    for i in range(T.ns):
-        t_new, hit = _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz)
-        gx = ox + dx * t_new - T.sph[0][i]
-        gy = oy + dy * t_new - T.sph[1][i]
-        gz = oz + dz * t_new - T.sph[2][i]
+    rays = tuple(x[:, None] for x in (ox, oy, oz, dx, dy, dz))
+    for lo, hi in prim_blocks(T.ns, ox.shape[0]):
+        t_new, j = first_min(*_sphere_t(block_rows(T.sph_t, lo, hi), slice(None), a_coef[:, None], *rays))
+        c = T.sph_t[:3, lo + j]  # the block winners' centres
+        gx = ox + dx * t_new - c[0]
+        gy = oy + dy * t_new - c[1]
+        gz = oz + dz * t_new - c[2]
         inv = torch.rsqrt((gx * gx + gy * gy + gz * gz).clamp_min(1e-24))
-        upd(t_new, hit, (gx * inv, gy * inv, gz * inv), i)
-    for i in range(T.np):
-        t_new, hit = _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz)
-        upd(t_new, hit, (T.pl[0][i], T.pl[1][i], T.pl[2][i]), T.ns + i)
+        upd(t_new, t_new < _INF, (gx * inv, gy * inv, gz * inv), lo + j)
+    for lo, hi in prim_blocks(T.np, ox.shape[0]):
+        t_new, j = first_min(*_plane_t(block_rows(T.pl_t, lo, hi), slice(None), *rays))
+        n = T.pl_t[:3, lo + j]
+        upd(t_new, t_new < _INF, (n[0], n[1], n[2]), T.ns + lo + j)
     if not T.culled:
         for i in range(T.nt):
             t_new, hit = _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz)
@@ -638,20 +673,21 @@ def _any_hit(T: _HostTables, ox, oy, oz, dx, dy, dz, lo, hi, active=None):
     tensors, for the lanes of `active` only."""
     occ = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
     a_coef = dx * dx + dy * dy + dz * dz
-    scans = [
-        (T.ns, lambda i: _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz)),
-        (T.np, lambda i: _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz)),
-    ]
+    rays = tuple(x[:, None] for x in (ox, oy, oz, dx, dy, dz))
+    col = lambda x: x[:, None] if torch.is_tensor(x) and x.dim() else x  # noqa: E731
+    for table, test in ((T.sph_t, lambda rows: _sphere_t(rows, slice(None), a_coef[:, None], *rays)),
+                        (T.pl_t, lambda rows: _plane_t(rows, slice(None), *rays))):
+        n = T.ns if table is T.sph_t else T.np
+        for b_lo, b_hi in prim_blocks(n, ox.shape[0]):
+            t_new, hit = test(block_rows(table, b_lo, b_hi))
+            occ = occ | (hit & (t_new > col(lo)) & (t_new < col(hi))).any(1)
     if not T.culled:
-        scans.append((T.nt, lambda i: _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz)))
-    for n, prim_t in scans:
-        for i in range(n):
-            t_new, hit = prim_t(i)
+        for i in range(T.nt):
+            t_new, hit = _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz)
             occ = occ | (hit & (t_new > lo) & (t_new < hi))
     if not T.culled:
         return occ
     idx, (box, boy, boz, bdx, bdy, bdz, blo, bhi) = _compact(active, ox, oy, oz, dx, dy, dz, lo, hi)
-    col = lambda x: x[:, None] if torch.is_tensor(x) and x.dim() else x  # noqa: E731
     bocc = torch.zeros(box.shape, dtype=torch.bool, device=ox.device)
     for b in range(T.n_blocks):
         t_new, hit = _tri_t(_block_rows(T, b), slice(None), col(box), col(boy), col(boz),

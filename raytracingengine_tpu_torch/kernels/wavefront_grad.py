@@ -53,8 +53,9 @@ interval instead.
 
 It replaces raytracingengine_tpu/kernels/wavefront_grad.py::
 wavefront_grad_pallas and the custom_vjp of kernels/wavefront_trace.py::
-wavefront_trace (at most 512 primitives; the JAX package's XLA-autodiff
-route for larger scenes is not ported yet).
+wavefront_trace (at most 512 primitives). Past 512 the JAX package
+differentiates its XLA integrator instead; so does the port, in
+render/pipeline.py (`WavefrontReplay`), where the flat scene is at hand.
 """
 
 from __future__ import annotations
@@ -331,9 +332,10 @@ def wavefront_grad_plain(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
 
 def _check_scope(tables: SceneTables) -> None:
     if tables.n_primitives > MAX_PRIMS:
-        raise NotImplementedError(
-            f"not ported yet: the glass adjoint for {tables.n_primitives} > {MAX_PRIMS} "
-            "primitives (the JAX package's XLA-autodiff route, ROADMAP queue 1 item 4)"
+        raise ValueError(
+            f"the glass adjoint covers at most {MAX_PRIMS} primitives ({tables.n_primitives} "
+            "here); past that render/pipeline.py differentiates the integrator's replay "
+            "(render/pipeline.py::WavefrontReplay)"
         )
 
 
@@ -475,7 +477,8 @@ def wavefront_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
     camera).
 
     Without gradients it is `wavefront_trace`. With them the backward is the
-    glass adjoint for at most MAX_PRIMS primitives; a larger scene raises."""
+    glass adjoint, for at most MAX_PRIMS primitives: a larger scene raises
+    ValueError here (render/pipeline.py routes it to `WavefrontReplay`)."""
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (o, d, *tables.tensors())
     )

@@ -15,7 +15,9 @@ sum over nodes of (path weight x local term), run two ways:
     pops one node per lane and pushes up to two children.
 
 These are the JAX package's render/integrator.py, the all-pairs tensor
-form: plain PyTorch that autograd differentiates. They are the route of
+form: plain PyTorch that autograd differentiates. Each takes the JAX
+package's `prim_axis` as `prim_group` (render/shading.py), which every
+closest hit and shadow test of the render passes on. They are the route of
 `render_hdr` with `use_pallas=False` and the references the hand-written
 adjoints are held to (integrate_chain: kernels/chain_grad.py).
 """
@@ -29,12 +31,12 @@ from raytracingengine_tpu_torch.geometry.intersect import FlatScene, Hit, closes
 from raytracingengine_tpu_torch.render.shading import direct_light, sky_color
 
 
-def _shade_node(flat: FlatScene, o, d, active, cfg) -> dict:
+def _shade_node(flat: FlatScene, o, d, active, cfg, prim_group=None) -> dict:
     """Intersect, classify, light and spawn the child rays of one node."""
-    return _shade_from_hit(flat, closest_hit(flat, o, d), d, active, cfg)
+    return _shade_from_hit(flat, closest_hit(flat, o, d, prim_group), d, active, cfg, prim_group)
 
 
-def _shade_from_hit(flat: FlatScene, hit: Hit, d, active, cfg) -> dict:
+def _shade_from_hit(flat: FlatScene, hit: Hit, d, active, cfg, prim_group=None) -> dict:
     """Shading and child rays for a computed hit record -> dict of [R] /
     [R,3] tensors (the refraction child included, for the glass path)."""
     zero = torch.zeros_like(hit.t)
@@ -52,7 +54,7 @@ def _shade_from_hit(flat: FlatScene, hit: Hit, d, active, cfg) -> dict:
     fresnel = f0 + (1.0 - f0) * (1.0 - cos_theta) ** 5
     tau = vm.clip(hit.transparency, 0.0, 1.0)
 
-    local = direct_light(flat, hit, view, normal, shade, cfg)
+    local = direct_light(flat, hit, view, normal, shade, cfg, prim_group)
     local_term = local * (1.0 - tau)[:, None]  # Scene.h:171-173
 
     # Refraction child (Scene.h:175-187)
@@ -80,7 +82,8 @@ def _shade_from_hit(flat: FlatScene, hit: Hit, d, active, cfg) -> dict:
     )
 
 
-def integrate_chain(flat: FlatScene, o: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
+def integrate_chain(flat: FlatScene, o: torch.Tensor, d: torch.Tensor, cfg,
+                    prim_group=None) -> torch.Tensor:
     """Opaque-scene integrator [R,3] x [R,3] -> HDR [R,3]. Requires all
     transparencies == 0: then the refraction branch never spawns and the
     weight update is weight *= specular."""
@@ -88,10 +91,10 @@ def integrate_chain(flat: FlatScene, o: torch.Tensor, d: torch.Tensor, cfg) -> t
     accum0 = torch.zeros((r, 3), dtype=o.dtype, device=o.device)
     w0 = torch.ones((r,), dtype=o.dtype, device=o.device)
     live0 = torch.ones((r,), dtype=torch.bool, device=o.device)
-    return _chain_scan(flat, o, d, w0, live0, accum0, 0, cfg)
+    return _chain_scan(flat, o, d, w0, live0, accum0, 0, cfg, prim_group)
 
 
-def _chain_scan(flat, o, d, w, live, accum, start_depth, cfg):
+def _chain_scan(flat, o, d, w, live, accum, start_depth, cfg, prim_group=None):
     """The reflection chain from depth start_depth; lanes still live at
     max_depth return the sky (Scene.h:132-134). The JAX scan runs every
     depth; a depth where no lane is live adds exact zeros, so the loop
@@ -99,7 +102,7 @@ def _chain_scan(flat, o, d, w, live, accum, start_depth, cfg):
     for _ in range(start_depth, cfg.max_depth):
         if not bool(live.any()):
             return accum
-        nd = _shade_node(flat, o, d, live, cfg)
+        nd = _shade_node(flat, o, d, live, cfg, prim_group)
         accum = accum + torch.where(nd["miss"][:, None], w[:, None] * sky_color(d), 0.0)
         accum = accum + torch.where(nd["shade"][:, None], w[:, None] * nd["local_term"], 0.0)
         # Weight-pruned chains (RenderConfig.min_weight), as the kernels.
@@ -111,7 +114,8 @@ def _chain_scan(flat, o, d, w, live, accum, start_depth, cfg):
     return accum + torch.where(live[:, None], w[:, None] * sky_color(d), 0.0)
 
 
-def integrate_wavefront(flat: FlatScene, o: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
+def integrate_wavefront(flat: FlatScene, o: torch.Tensor, d: torch.Tensor, cfg,
+                        prim_group=None) -> torch.Tensor:
     """General integrator [R,3] x [R,3] -> HDR [R,3]: per-lane DFS over the
     binary recursion tree.
 
@@ -157,7 +161,7 @@ def integrate_wavefront(flat: FlatScene, o: torch.Tensor, d: torch.Tensor, cfg) 
 
         at_max = depth >= cfg.max_depth
         if_max_sky = live & at_max
-        nd = _shade_node(flat, o_c, d_c, live & ~at_max, cfg)
+        nd = _shade_node(flat, o_c, d_c, live & ~at_max, cfg, prim_group)
         sky_lanes = if_max_sky | nd["miss"]
         accum = accum + torch.where(sky_lanes[:, None], w[:, None] * sky_color(d_c), 0.0)
         accum = accum + torch.where(nd["shade"][:, None], w[:, None] * nd["local_term"], 0.0)

@@ -16,6 +16,10 @@ The same formulas as the JAX package's render/shading.py, on tensors:
 Every guard that keeps the JAX backward pass NaN-free is kept: square
 roots and reciprocals are taken on masked-safe operands, so a masked lane
 never feeds inf into a zero cotangent.
+
+`prim_group` (a torch.distributed group, or None) is the prim axis
+(geometry/intersect.py::closest_hit): the march takes the combined closest
+hit, and binary and soft occlusion combine by a max over the group.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from raytracingengine_tpu_torch.geometry.intersect import (
     FlatScene,
     Hit,
     all_distances,
+    any_over,
     closest_hit,
     intersect_planes,
     intersect_triangles,
@@ -49,6 +54,7 @@ def transmittance_hard(
     max_dist: torch.Tensor,  # [B]
     active: torch.Tensor,  # [B] bool, lanes to march
     cfg,
+    prim_group=None,
 ) -> torch.Tensor:
     """computeTransmittance (Scene.h:35-77) for a lane batch -> T [B].
 
@@ -68,7 +74,7 @@ def transmittance_hard(
     for _ in range(cfg.shadow_max_steps):
         if not cfg.differentiable and not bool(live.any()):
             break
-        hit = closest_hit(flat, o, direction)
+        hit = closest_hit(flat, o, direction, prim_group)
         valid = hit.valid
         t = torch.where(valid, hit.t, 0.0)  # keeps the arithmetic NaN-free
         c_zero = valid & (t <= 0.0)
@@ -91,11 +97,14 @@ def transmittance_binary(
     direction: torch.Tensor,  # [B,3]
     max_dist: torch.Tensor,  # [B]
     cfg,
+    prim_group=None,
 ) -> torch.Tensor:
     """Hard binary visibility -> T in {0, 1} [B]: 0 iff any surface lies at
     bias < t < max_dist. Its gradient is the a.e.-zero one of a hard shadow."""
     t_all = all_distances(flat, origin, direction)
     occluded = ((t_all > cfg.bias) & (t_all < max_dist[None, :])).any(dim=0)
+    if prim_group is not None:
+        occluded = any_over(occluded, prim_group)
     return torch.where(occluded, 0.0, 1.0).to(max_dist.dtype)
 
 
@@ -105,6 +114,7 @@ def visibility_soft(
     direction: torch.Tensor,  # [B,3] unit
     max_dist: torch.Tensor,  # [B]
     cfg,
+    prim_group=None,
 ) -> torch.Tensor:
     """Differentiable visibility in [0,1] -> [B].
 
@@ -134,6 +144,8 @@ def visibility_soft(
             t_all = torch.cat([intersect_planes(flat, origin, direction),
                                intersect_triangles(flat, origin, direction)], dim=0)  # [P+T, B]
             blocked = ((t_all > 0.0) & (t_all < max_dist[None, :])).any(dim=0)
+            if prim_group is not None:
+                blocked = any_over(blocked, prim_group)
         v = v * torch.where(blocked, 0.0, 1.0).to(v.dtype)
     return v
 
@@ -145,6 +157,7 @@ def direct_light(
     normal: torch.Tensor,  # [R,3] front-face-flipped unit normal
     active: torch.Tensor,  # [R] bool, lanes being shaded
     cfg,
+    prim_group=None,
 ) -> torch.Tensor:
     """directLightning (Scene.h:79-129) -> [R,3].
 
@@ -179,11 +192,11 @@ def direct_light(
             active & flat.light_active[li] & (dist > 0.0) & (ndotl > 0.0) & (dist > bias)
         )
         if cfg.shadow_mode == "soft":
-            T = visibility_soft(flat, shadow_o, ldir, dist - bias, cfg)
+            T = visibility_soft(flat, shadow_o, ldir, dist - bias, cfg, prim_group)
         elif cfg.shadow_mode == "binary":
-            T = transmittance_binary(flat, shadow_o, ldir, dist - bias, cfg)
+            T = transmittance_binary(flat, shadow_o, ldir, dist - bias, cfg, prim_group)
         else:
-            T = transmittance_hard(flat, shadow_o, ldir, dist - bias, ok0, cfg)
+            T = transmittance_hard(flat, shadow_o, ldir, dist - bias, ok0, cfg, prim_group)
         ok = ok0 & (T > bias)
 
         emitted = flat.light_colors[li] * flat.light_intensities[li]  # [3]

@@ -86,6 +86,9 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     _plane_t,
     _sphere_t,
     _tri_t,
+    block_rows,
+    first_min,
+    prim_blocks,
     thread_rays,
 )
 from raytracingengine_tpu_torch.kernels.wavefront_trace import trace_wavefront_plain
@@ -187,26 +190,39 @@ class ChainWork:
         return self
 
 
-def _past_exit(T: _HostTables, a_coef, ox, oy, oz, dx, dy, dz):
-    """Per family, i -> whether each ray's test of primitive i gets past its
-    first early exit: disc >= 0 for a sphere, |d.n| > EPS for a plane,
-    |e1.(d x e2)| > EPS for a triangle."""
+def _tri_past_exit(T: _HostTables, dx, dy, dz):
+    """i -> whether each ray's test of triangle i of tables that are not
+    culled gets past its first early exit, |e1.(d x e2)| > EPS."""
 
-    def sphere(i):
-        ocx, ocy, ocz = ox - T.sph[0][i], oy - T.sph[1][i], oz - T.sph[2][i]
-        b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
-        c = ocx * ocx + ocy * ocy + ocz * ocz - T.sph[3][i]
-        return b * b - 4.0 * a_coef * c >= 0.0
-
-    def plane(i):
-        return (dx * T.pl[0][i] + dy * T.pl[1][i] + dz * T.pl[2][i]).abs() > EPS
-
-    def tri(i):  # tables that are not culled
+    def tri(i):
         e1x, e1y, e1z, e2x, e2y, e2z = (T.tri[k][i] for k in range(3, 9))
         hx, hy, hz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
         return (e1x * hx + e1y * hy + e1z * hz).abs() > EPS
 
-    return sphere, plane, tri
+    return tri
+
+
+def _families(T: _HostTables, ox, oy, oz, dx, dy, dz):
+    """The spheres' and planes' blocked tests on these rays: per family
+    (table, count, rows -> (t [R, b], hit), rows -> past its first early
+    exit [R, b] (disc >= 0 for a sphere, |d.n| > EPS for a plane), the
+    operations of a test that exits there, those of a full test)."""
+    a_coef = (dx * dx + dy * dy + dz * dz)[:, None]
+    rays = tuple(x[:, None] for x in (ox, oy, oz, dx, dy, dz))
+
+    def sphere_exit(rows):
+        ocx, ocy, ocz = rays[0] - rows[0], rays[1] - rows[1], rays[2] - rows[2]
+        b = 2.0 * (ocx * rays[3] + ocy * rays[4] + ocz * rays[5])
+        c = ocx * ocx + ocy * ocy + ocz * ocz - rows[3]
+        return b * b - 4.0 * a_coef * c >= 0.0
+
+    return (
+        (T.sph_t, T.ns, lambda rows: _sphere_t(rows, slice(None), a_coef, *rays), sphere_exit,
+         SPHERE_MISS, SPHERE_FULL),
+        (T.pl_t, T.np, lambda rows: _plane_t(rows, slice(None), *rays),
+         lambda rows: (rays[3] * rows[0] + rays[4] * rows[1] + rays[5] * rows[2]).abs() > EPS,
+         PLANE_PARALLEL, PLANE_FULL),
+    )
 
 
 def _box_meets(taabb: torch.Tensor, ox, oy, oz, dx, dy, dz, t_hi) -> torch.Tensor:
@@ -340,16 +356,16 @@ def _block_counts(work: "ChainWork", T: _HostTables, taabb, rays, active, warps:
 def _sphere_plane(T: _HostTables, ox, oy, oz, dx, dy, dz, lo=None, hi=None):
     """The spheres' and planes' part of a scan: their best t (closest hit),
     or whether one blocks (lo, hi)."""
-    a_coef = dx * dx + dy * dy + dz * dz
     best = torch.full_like(ox, _INF)
     occ = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
-    tests = [(_sphere_t, (T.sph, i, a_coef)) for i in range(T.ns)] + [(_plane_t, (T.pl, i)) for i in range(T.np)]
-    for fn, args in tests:
-        t_new, hit = fn(*args, ox, oy, oz, dx, dy, dz)
-        if lo is None:
-            best = torch.where(hit & (t_new < best), t_new, best)
-        else:
-            occ = occ | (hit & (t_new > lo) & (t_new < hi))
+    for table, n, test, *_ in _families(T, ox, oy, oz, dx, dy, dz):
+        for b_lo, b_hi in prim_blocks(n, ox.shape[0]):
+            t_new, hit = test(block_rows(table, b_lo, b_hi))
+            if lo is None:
+                tb = first_min(t_new, hit)[0]
+                best = torch.where(tb < best, tb, best)
+            else:
+                occ = occ | (hit & (t_new > lo[:, None]) & (t_new < hi[:, None])).any(1)
     return best if lo is None else occ
 
 
@@ -359,25 +375,39 @@ def _test_ops(T: _HostTables, ox, oy, oz, dx, dy, dz, active, lo=None, hi=None,
     plain version's tests. With lo/hi it is an any-hit scan, which stops at
     the first primitive with lo < t < hi; else a closest-hit scan of every
     primitive. On culled tables (`taabb`) the triangles count as
-    `_culled_ops` on [0, hi], or on [0, t_hit] for a closest-hit scan."""
-    scanning = active.clone()
-    ops = torch.where(active, float(SCAN_SETUP), 0.0)
-    a_coef = dx * dx + dy * dy + dz * dz
-    exits = _past_exit(T, a_coef, ox, oy, oz, dx, dy, dz)
-    scans = (
-        (T.ns, lambda i: _sphere_t(T.sph, i, a_coef, ox, oy, oz, dx, dy, dz), SPHERE_MISS, SPHERE_FULL),
-        (T.np, lambda i: _plane_t(T.pl, i, ox, oy, oz, dx, dy, dz), PLANE_PARALLEL, PLANE_FULL),
-        (0 if taabb is not None else T.nt, lambda i: _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz),
-         TRI_PARALLEL, TRI_FULL),
-    )
-    for (n, test, short, full), past_exit in zip(scans, exits):
-        for i in range(n):
-            cost = torch.where(past_exit(i), float(full), float(short))
-            ops = ops + torch.where(scanning, cost, 0.0)
+    `_culled_ops` on [0, hi], or on [0, t_hit] for a closest-hit scan.
+    Only the active rays are tested, the spheres and planes in blocks
+    (each primitive's operations counted as the per-primitive scan counts
+    them: integers, summed exactly)."""
+    idx = active.nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return 0.0
+    sub = lambda x: x[idx] if torch.is_tensor(x) and x.dim() else x  # noqa: E731
+    ox, oy, oz, dx, dy, dz, lo, hi, t_hit = map(sub, (ox, oy, oz, dx, dy, dz, lo, hi, t_hit))
+    col = lambda x: x[:, None] if torch.is_tensor(x) and x.dim() else x  # noqa: E731
+    scanning = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
+    ops = torch.full_like(ox, float(SCAN_SETUP))
+    for table, n, test, past_exit, short, full in _families(T, ox, oy, oz, dx, dy, dz):
+        for b_lo, b_hi in prim_blocks(n, ox.shape[0]):
+            rows = block_rows(table, b_lo, b_hi)
+            cost = torch.where(past_exit(rows), float(full), float(short))
+            if lo is None:
+                ops = ops + cost.sum(1)
+                continue
+            t_new, hit = test(rows)
+            stop = hit & (t_new > col(lo)) & (t_new < col(hi))
+            earlier = (stop.to(torch.int32).cumsum(1) - stop.to(torch.int32)) > 0
+            ops = ops + torch.where(scanning[:, None] & ~earlier, cost, 0.0).sum(1)
+            scanning = scanning & ~stop.any(1)
+    if taabb is None:
+        past_exit = _tri_past_exit(T, dx, dy, dz)
+        for i in range(T.nt):
+            ops = ops + torch.where(scanning, torch.where(past_exit(i), float(TRI_FULL),
+                                                          float(TRI_PARALLEL)), 0.0)
             if lo is not None:
-                t_new, hit = test(i)
+                t_new, hit = _tri_t(T.tri, i, ox, oy, oz, dx, dy, dz)
                 scanning = scanning & ~(hit & (t_new > lo) & (t_new < hi))
-    if taabb is not None:
+    else:
         seg = hi if lo is not None else t_hit
         ops = ops + _culled_ops(T, taabb, ox, oy, oz, dx, dy, dz, scanning, seg)
     return float(ops.to(torch.float64).sum())
@@ -399,7 +429,10 @@ def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg,
     """Replay the opaque chain (the kernels' per-ray control flow) on these
     rays and count its scans and their operations, culled or linear as the
     tables are; on culled tables also the blocks per lane and, for each
-    thread-to-ray map width in `widths`, per warp."""
+    thread-to-ray map width in `widths`, per warp. A padded light slot
+    (`active` 0: no emission, parked at 1e7) sends no shadow ray here:
+    nothing the scene's gradient or frame reads depends on it, though the
+    chain kernels still scan to it."""
     T = _HostTables(tables)
     one = torch.ones_like(o[:, 0])
     state = (*o.unbind(-1), *d.unbind(-1), one, one)
@@ -424,6 +457,8 @@ def chain_work(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg,
         ts = torch.where(shade, t, 0.0)
         px, py, pz = ox + dx * ts, oy + dy * ts, oz + dz * ts
         for li in range(T.nl):
+            if not T.light[6][li] > 0.0:
+                continue
             vx, vy, vz = T.light[0][li] - px, T.light[1][li] - py, T.light[2][li] - pz
             dist = torch.sqrt((vx * vx + vy * vy + vz * vz).clamp_min(1e-30))
             ldx, ldy, ldz = vx / dist, vy / dist, vz / dist

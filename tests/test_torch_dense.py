@@ -41,15 +41,19 @@ import raytracingengine_tpu_torch.kernels.chain_trace as ct
 import raytracingengine_tpu_torch.kernels.spp_trace as st
 from raytracingengine_tpu.geometry.intersect import flatten_scene as jax_flatten
 from raytracingengine_tpu.render.config import RenderConfig as JaxConfig
+from raytracingengine_tpu.geometry.materials import Material as JaxMaterial
 from raytracingengine_tpu.render.integrator import integrate_chain as jax_integrate_chain
+from raytracingengine_tpu.scene import SceneBuilder as JaxSceneBuilder
 from raytracingengine_tpu.scenes import assets as jax_assets
 from raytracingengine_tpu.scenes import builders as jax_builders
 from raytracingengine_tpu_torch.convert import scene_from_numpy
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+from raytracingengine_tpu_torch.geometry.materials import Material
 from raytracingengine_tpu_torch.inverse import combine, partition
 from raytracingengine_tpu_torch.parity import (
     TABLE_ROWS,
     direction_cot_ok,
+    grad_leaf_mismatches,
     origin_cot_ok,
     ray_cot_seam_budget,
     seam_budget,
@@ -57,6 +61,7 @@ from raytracingengine_tpu_torch.parity import (
 )
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.pipeline import mean_direction, render_hdr, render_rays
+from raytracingengine_tpu_torch.scene import SceneBuilder
 from raytracingengine_tpu_torch.scenes import assets, builders
 from jax_refs import jit_o0
 
@@ -491,16 +496,30 @@ def test_adjoint_routing(monkeypatch, case):
     assert not leaf_errors(ours, ref)
 
 
+def sphere_grid(pkg_builder, pkg_material, n, **build_kw):
+    """n small spheres on a grid 12 units away, and one light: past the
+    dense adjoint's shared memory from n = 5,282."""
+    b = pkg_builder()
+    for i in range(n):
+        b.add_sphere((0.5 * (i % 73) - 18.0, 0.5 * (i // 73) - 18.0, 12.0), 0.2,
+                     pkg_material(color=(0.2 + 0.6 * (i % 7) / 6, 0.5, 0.7), specular=0.2))
+    b.add_light((0.0, 2.0, -5.0), (1.0, 1.0, 1.0), 50.0)
+    return b.build(**build_kw)
+
+
 def test_adjoint_ceilings_route_by_counts(monkeypatch):
     """The routing decision by counts, with no ceiling of the JAX package's
     TPU kernels: any culled table, or more than 512 primitives, takes the
-    dense adjoint, past 131,072 triangles and 8,192 spheres too. With
-    gradients, chain_trace_fused raises NotImplementedError before the
-    forward wherever the sphere, plane and light cotangents exceed one
-    block's shared memory (11 floats per sphere or plane, 7 per light:
-    5,281 spheres, no plane and one light fit), for every count past that,
-    so the rule is monotone. Culled tables refuse more primitives than float32
-    row 12 indexes exactly."""
+    dense adjoint, past 131,072 triangles and 8,192 spheres too. Its sink
+    (cg.dense_sink) is "shared" wherever the sphere, plane and light
+    cotangents fit one block's shared memory (11 floats per sphere or
+    plane, 7 per light: 5,281 spheres, no plane and one light fit) and
+    "global" for every count past that, so the rule is monotone. Past it,
+    on 5,282 spheres, 3x3 rays and one bounce (the plain scans step through
+    the primitives one by one), render_hdr's gradient (the plain dense
+    adjoint) matches jax.grad of JAX integrate_chain leaf by leaf
+    (parity.grad_leaf_mismatches). Culled tables refuse more primitives
+    than float32 row 12 indexes exactly."""
     def tables(ns=0, np_=0, nt=0, culled=False, nl=1):
         cols = lambda n: max(n, 1)  # noqa: E731 (pack_scene_tables' empty families)
         return ct.SceneTables(torch.zeros((4, cols(ns))), torch.zeros((4, cols(np_))),
@@ -516,14 +535,40 @@ def test_adjoint_ceilings_route_by_counts(monkeypatch):
     assert route(tables(ns=8_193)) == "chain_grad_dense"
     for fits in (tables(np_=1, nt=131_073, culled=True), tables(ns=5_281)):
         assert route(fits) == "chain_grad_dense"
-        assert cg.small_table_shapes(fits)
-    o = torch.zeros((2, 3))
-    d = torch.tensor([[0.0, 0.0, 1.0]] * 2, requires_grad=True)
-    cfg = RenderConfig(shadow_mode="binary")
+        assert cg.dense_sink(fits) == "shared"
     for ns, np_, nl in ((5_282, 0, 1), (5_281, 0, 3), (2_700, 2_600, 1), (8_192, 0, 1),
                         (8_193, 0, 1), (20_000, 1, 2)):
-        with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-            cg.chain_trace_fused(tables(ns=ns, np_=np_, nl=nl), o, d, cfg)
+        assert cg.dense_sink(tables(ns=ns, np_=np_, nl=nl)) == "global", (ns, np_, nl)
+    # the culled scan's staging leaves less room: 5,100 spheres fit only without it
+    assert cg.dense_sink(tables(ns=5_100, np_=1, nt=129)) == "shared"
+    assert cg.dense_sink(tables(ns=5_100, np_=1, nt=129, culled=True)) == "global"
+
+    n = 5_282
+    j_scene, j_cam = sphere_grid(JaxSceneBuilder, JaxMaterial, n), jax_builders.head_box_scene(3, 3, spp=1)[1]
+    o, d = j_cam.rays_for_pixels(*j_cam.pixel_grid())
+    jcfg = JaxConfig(shadow_mode="binary", max_depth=1)
+
+    def img_and_grads(s):
+        img, vjp = jax.vjp(lambda s: jax_integrate_chain(jax_flatten(s), o, d, jcfg), s)
+        return img, vjp(2.0 * img)[0]
+
+    img_ref, g_ref = jit_o0(img_and_grads)(j_scene)
+    ref = {k: v for k, v in jax_leaves(g_ref).items() if np.issubdtype(v.dtype, np.floating)}
+    calls = []
+    monkeypatch.setattr(cg, "chain_grad_dense_plain", spy(cg.chain_grad_dense_plain, calls))
+    params, static = partition(sphere_grid(SceneBuilder, Material, n, device="cpu"))
+    _, cam = builders.head_box_scene(3, 3, spp=1, device="cpu")
+    img = render_hdr(combine(params, static), cam, RenderConfig(shadow_mode="binary", use_pallas=True,
+                                                                max_depth=1))
+    (img * img).sum().backward()
+    assert len(calls) == 1 and cg.dense_sink(calls[0]) == "global"
+    report = seam_budget(img.detach().numpy().reshape(-1, 3), np.asarray(img_ref))
+    assert report.ok, report
+    ours = {k: np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
+            for k, p in params.items()}
+    errors = grad_leaf_mismatches(ours, ref)
+    assert not errors, errors
+    assert np.abs(ours["spheres.centers"]).max() > 0 and np.abs(ours["spheres.materials.color"]).max() > 0
     scene, _ = builders.dense_mesh_scene(4, 4, ni=8, nj=24, device="cpu")
     flat = flatten_scene(scene)
     monkeypatch.setattr(ct, "MAX_INDEX", flat.n_primitives - 1)
@@ -545,9 +590,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("spp", [1, 4])
-def test_cuda_culled_forward_matches_plain(cuda_device, spp):
+def cuda_culled_forward_matches_plain(cuda_device, spp):
     """The culled chain_trace (spp=1) and spp_trace (spp=4) kernels against
     their plain versions on dense_mesh_scene at 64x64, seam budget."""
     scene, cam = builders.dense_mesh_scene(64, 64, spp=spp, device=cuda_device)
@@ -573,41 +616,47 @@ def test_cuda_culled_forward_matches_plain(cuda_device, spp):
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
 
 
-@pytest.mark.gpu
-def test_cuda_chain_grad_dense_matches_plain(cuda_device):
-    """The dense adjoint kernel against chain_grad_dense_plain on
-    mixed_dense_scene at 64x64, g = d mean(img^2) / d img: ray cotangents
-    under the seam budget, table rows by parity.table_cot_rows."""
-    scene, cam = builders.mixed_dense_scene(64, 64, device=cuda_device)
+def cuda_chain_grad_dense_matches_plain(cuda_device):
+    """The dense adjoint kernel on each sink (cg.DENSE_SINKS; dense_sink
+    picks "shared" on both scenes, "global" is pinned) against
+    chain_grad_dense_plain at 64x64, g = d mean(img^2) / d img: on
+    mixed_dense_scene (culled tables) and stress_scene with 40 spheres
+    (linear tables, 4 lights in 128 slots); ray cotangents under the seam
+    budget, table rows by parity.table_cot_rows."""
     cfg = RenderConfig(shadow_mode="binary", use_pallas=True)
-    o, d = cam.rays_for_pixels(*cam.pixel_grid())
-    o = o.contiguous()
-    tables = ct.pack_forward_tables_perm(flatten_scene(scene), mean_direction(d))
-    img = ct.chain_trace(tables, o, d, cfg)
-    g = (2.0 * img / img.numel()).contiguous()
-    before = cg.chain_grad_dense.launches
-    cots, go, gd = cg.chain_grad_dense(tables, o, d, g, cfg)
-    assert cg.chain_grad_dense.launches == before + 1
-    ref_cots, ref_go, ref_gd = cg.chain_grad_dense_plain(tables, o, d, g, cfg)
-    torch.cuda.synchronize()
-    for name, ours, ref in (("d_o", go, ref_go), ("d_d", gd, ref_gd)):
-        report = ray_cot_seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-        print(f"{name}: {report}")
-        assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, report)
-    for name, ours, ref in zip(TABLE_ROWS, cots, ref_cots):
-        assert ours.shape == ref.shape
-        a, b = ours.cpu().numpy(), ref.cpu().numpy()
-        if name == "tri":  # row 12, the original index, carries none
-            assert (a[12] == 0).all()
-            a, b = a[:12], b[:12]
-        rows = table_cot_rows(name, a, b)
-        print("\n".join(map(str, rows)))
-        assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
+    for make in (lambda: builders.mixed_dense_scene(64, 64, device=cuda_device),
+                 lambda: builders.stress_scene(40, width=64, height=64, device=cuda_device)):
+        scene, cam = make()
+        o, d = cam.rays_for_pixels(*cam.pixel_grid())
+        o = o.contiguous()
+        flat = flatten_scene(scene)
+        tables = (ct.pack_forward_tables_perm(flat, mean_direction(d)) if flat.n_triangles
+                  else ct.pack_scene_tables(flat))
+        assert cg.dense_sink(tables) == "shared"
+        img = ct.chain_trace(tables, o, d, cfg)
+        g = (2.0 * img / img.numel()).contiguous()
+        ref_cots, ref_go, ref_gd = cg.chain_grad_dense_plain(tables, o, d, g, cfg)
+        for sink in cg.DENSE_SINKS:
+            before = dict(cg.chain_grad_dense.routes)
+            cots, go, gd = cg.chain_grad_dense(tables, o, d, g, cfg, sink=sink)
+            assert cg.chain_grad_dense.routes == {**before, sink: before[sink] + 1}
+            torch.cuda.synchronize()
+            for name, ours, ref in (("d_o", go, ref_go), ("d_d", gd, ref_gd)):
+                report = ray_cot_seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
+                print(f"{sink} {name}: {report}")
+                assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (sink, name, report)
+            for name, ours, ref in zip(TABLE_ROWS, cots, ref_cots):
+                assert ours.shape == ref.shape
+                a, b = ours.cpu().numpy(), ref.cpu().numpy()
+                if name == "tri" and tables.culled:  # row 12, the original index, carries none
+                    assert (a[12] == 0).all()
+                    a, b = a[:12], b[:12]
+                rows = table_cot_rows(name, a, b)
+                print("\n".join(map(str, rows)))
+                assert all(r.ok for r in rows), (sink, [str(r) for r in rows if not r.ok])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", ["culled_ragged", "chunked", "culled_spp8", "linear_tiles_ragged"])
-def test_cuda_ragged_blocks_match_plain(cuda_device, case):
+def cuda_ragged_blocks_match_plain(cuda_device, case):
     """The chain kernels on ray blocks that do not fill their last CTA or
     pixel tile, against their plain versions at 37x29: culled_ragged,
     chain_trace and chain_grad_dense on dense_mesh_scene's rays but the
@@ -675,3 +724,14 @@ def test_cuda_ragged_blocks_match_plain(cuda_device, case):
             a, b = a[:12], b[:12]
         rows = table_cot_rows(name, a, b)
         assert all(r.ok for r in rows), [str(r) for r in rows if not r.ok]
+
+
+@pytest.mark.gpu
+def test_cuda_dense_kernels_match_plain(cuda_device):
+    """Every check of this file on the card, one after another: one test item,
+    since off the card it skips (chip_smoke.py covers each on the main paths' shapes)."""
+    for spp in (1, 4):
+        cuda_culled_forward_matches_plain(cuda_device, spp)
+    cuda_chain_grad_dense_matches_plain(cuda_device)
+    for case in ('culled_ragged', 'chunked', 'culled_spp8', 'linear_tiles_ragged'):
+        cuda_ragged_blocks_match_plain(cuda_device, case)

@@ -38,6 +38,7 @@ from raytracingengine_tpu_torch.cli import main
 from raytracingengine_tpu_torch.convert import scene_to_numpy
 from raytracingengine_tpu_torch.imageio import load_obj, read_png, read_ppm
 from raytracingengine_tpu_torch.inverse.checkpoint import restore_checkpoint
+from raytracingengine_tpu_torch.parallel import fault
 from raytracingengine_tpu_torch.parity import seam_budget
 from raytracingengine_tpu_torch.render.aov import render_aovs
 from raytracingengine_tpu_torch.render.config import RenderConfig
@@ -143,7 +144,8 @@ def test_scene_json_and_obj_match_jax(tmp_path):
 
 def test_cli_commands(tmp_path, capsys):
     """(f) render (--tonemap all, --format ppm; a JSON scene with a model;
-    --mesh), aov, fit --steps 3 with a checkpoint, and python -m."""
+    --mesh on one rank), the fault-tolerant bands with an injected fault,
+    aov, fit --steps 3 with a checkpoint, and python -m."""
     out = tmp_path / "render"
     args = ["--width", "16", "--height", "12", "--spp", "2", "--device", "cpu"]
     assert main(["render", "--scene", "baseline_spheres", *args, "--out", str(out), "--tonemap", "all",
@@ -165,8 +167,31 @@ def test_cli_commands(tmp_path, capsys):
                  "--use-pallas", "--shadow-mode", "binary"]) == 0
     box = read_png(str(tmp_path / "json" / "aces.png"))
     assert box.shape == (12, 16, 3) and box[6, 8, 2] > box[6, 8, 0] + 20  # the blue box in the centre
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        main(["render", *args, "--out", str(out), "--mesh"])
+    # --mesh without a torch.distributed world: the one-rank mesh, the same
+    # bytes as the render above
+    assert main(["render", "--scene", "baseline_spheres", *args, "--out", str(tmp_path / "mesh"),
+                 "--format", "ppm", "--chunk-size", "100", "--mesh"]) == 0
+    np.testing.assert_array_equal(read_ppm(str(tmp_path / "mesh" / "aces.ppm")),
+                                  read_ppm(str(out / "aces.ppm")))
+    # the fault-tolerant bands (parallel/fault.py), a fault injected into
+    # the first band's first attempt: one retry, and render_hdr's frame
+    real, calls, events = fault.render_pixels, [], []
+
+    def flaky(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("injected device fault")
+        return real(*a, **k)
+
+    fault.render_pixels = flaky
+    try:
+        banded = fault.render_hdr_faulttolerant(scene, cam, RenderConfig(chunk_size=100), seed=0, tile_rows=4,
+                                                max_retries=2, on_event=lambda e, f: events.append((e, f)))
+    finally:
+        fault.render_pixels = real
+    assert [e for e, _ in events] == ["band_retry"] + ["band_ok"] * 4, events
+    assert events[0][1]["error"] == "injected device fault" and events[1][1]["attempt"] == 1
+    assert torch.equal(banded, hdr)
 
     assert main(["aov", "--scene", "glass", *args, "--out", str(tmp_path / "aov")]) == 0
     assert sorted(os.listdir(tmp_path / "aov")) == ["albedo.png", "depth.png", "hit.png", "normal.png"]

@@ -151,7 +151,8 @@ def test_camera_rays_match_jax(jittered):
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py run where JAX is not installed."""
+    """The port and chip_smoke.py run where JAX is not installed: every
+    module of the port, the oracle, profiling and parallel/ included."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import raytracingengine_tpu_torch as p\n"
@@ -160,7 +161,9 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raytracingengine_tpu.'))"
         " or m == 'raytracingengine_tpu']\n"
         "assert not bad, bad\n"
-        "assert 'raytracingengine_tpu_torch.kernels.wavefront_trace' in sys.modules\n"
+        "for m in ('kernels.wavefront_trace', 'golden.reference', 'utils.profiling', 'parallel.mesh',\n"
+        "          'parallel.multihost', 'parallel.sharded', 'parallel.fault'):\n"
+        "    assert 'raytracingengine_tpu_torch.' + m in sys.modules, m\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)

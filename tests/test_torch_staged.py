@@ -126,8 +126,7 @@ ROUTE_CASES = [("head_box", 1, CFG), ("head_box", 3, CFG), ("head_box", 8, CFG),
                ("stress_338", 1, CFG), ("stress_338", 3, CFG)]
 
 
-@pytest.mark.gpu
-def test_cuda_route_matches_plain(cuda_device):
+def cuda_route_matches_plain(cuda_device):
     for name, spp, cfg in ROUTE_CASES:
         ours, ref = run_route(name, spp, cuda_device, cfg)
         report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
@@ -135,8 +134,7 @@ def test_cuda_route_matches_plain(cuda_device):
         assert np.isfinite(ours.cpu().numpy()).all() and report.ok, (name, spp, cfg.max_depth, report)
 
 
-@pytest.mark.gpu
-def test_cuda_routes_agree_on_padded_tables(cuda_device):
+def cuda_routes_agree_on_padded_tables(cuda_device):
     """The head box on the staged route and padded past the stage limit on
     the in-place one, at spp 1 and 3, at the default depth and at max_depth
     1: padded slots never hit, their lights emit 0, and each ray's
@@ -169,3 +167,11 @@ def test_cuda_routes_agree_on_padded_tables(cuda_device):
         for i, cot in ((1, "d_o"), (2, "d_d")):
             a, b = cots["head_box"][i], cots["head_box_pad128"][i]
             assert torch.equal(a, b), (cot, cfg.max_depth, float((a - b).abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_routes_match_plain(cuda_device):
+    """Every check of this file on the card, one after another: one test item,
+    since off the card it skips (chip_smoke.py covers each on the main paths' shapes)."""
+    cuda_route_matches_plain(cuda_device)
+    cuda_routes_agree_on_padded_tables(cuda_device)

@@ -31,6 +31,7 @@ from raytracingengine_tpu.geometry.materials import Material as JaxMaterial
 from raytracingengine_tpu.render.config import RenderConfig as JaxConfig
 from raytracingengine_tpu.render.integrator import integrate_wavefront as jax_integrate_wavefront
 from raytracingengine_tpu.scene import SceneBuilder as JaxSceneBuilder
+from raytracingengine_tpu.scenes import assets as jax_assets
 from raytracingengine_tpu.scenes import builders as jax_builders
 import raytracingengine_tpu_torch.kernels.wavefront_grad as wg
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
@@ -41,9 +42,9 @@ from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
 from raytracingengine_tpu_torch.parity import direction_cot_ok, grad_leaf_mismatches, origin_cot_ok
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.integrator import integrate_wavefront
-from raytracingengine_tpu_torch.render.pipeline import render_hdr
+from raytracingengine_tpu_torch.render.pipeline import REPLAY_WARNING, render_hdr, render_rays
 from raytracingengine_tpu_torch.scene import SceneBuilder
-from raytracingengine_tpu_torch.scenes import builders
+from raytracingengine_tpu_torch.scenes import assets, builders
 
 torch.set_num_threads(2)
 
@@ -92,6 +93,30 @@ CASES = {
 }
 
 
+def glass_mesh_scene(pkg_builder, pkg_material, pkg_assets, **build_kw):
+    """The glass sphere scene with a transparent bumpy mesh of 520 triangles
+    in front of the glass sphere: 523 primitives, past the glass adjoint's 512."""
+    b = pkg_builder()
+    b.add_sphere((0.0, 0.0, 5.0), 1.5,
+                 pkg_material(color=(1, 1, 1), transparency=0.9, refractive_index=1.5))
+    b.add_sphere((1.5, -0.8, 9.0), 1.0, pkg_material(color=(0.9, 0.4, 0.1)))
+    b.add_plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0), pkg_material(color=(0.8, 0.8, 0.8)))
+    verts, idx = pkg_assets.bumpy_sphere_mesh(radius=1.2, ni=6, nj=52)
+    b.add_model(verts, idx, pkg_material(color=(0.6, 0.9, 0.7), transparency=0.7, refractive_index=1.3),
+                translation=(-0.3, 0.2, 3.0))
+    b.add_light((-3.0, 5.0, -1.0), (1, 1, 1), 60.0)
+    return b.build(**build_kw)
+
+
+#: Past the glass adjoint's scope: the route of JAX's _wavefront_bwd there.
+PAST_SCOPE = {
+    "glass_mesh_523": (lambda: (glass_mesh_scene(JaxSceneBuilder, JaxMaterial, jax_assets),
+                                jax_builders.glass_sphere_scene(width=6, height=6)[1]),
+                       lambda: (glass_mesh_scene(SceneBuilder, Material, assets, device="cpu"), None),
+                       dict(shadow_mode="binary", max_depth=3, wavefront_budget=12), None),
+}
+
+
 def jax_leaves(tree) -> dict[str, np.ndarray]:
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
     return {".".join(k.name for k in path): np.asarray(x) for path, x in flat}
@@ -101,7 +126,7 @@ def jax_leaves(tree) -> dict[str, np.ndarray]:
 def jax_reference(name):
     """-> (rays o, d, image, float scene-leaf grads, d_o, d_d) of sum(img^2)
     through XLA autodiff of the fixed-trip integrate_wavefront."""
-    make_jax, _, cfg_kw, nudge = CASES[name]
+    make_jax, _, cfg_kw, nudge = {**CASES, **PAST_SCOPE}[name]
     scene, cam = make_jax()
     if nudge is not None:
         cam = dataclasses.replace(cam, position=cam.position + jnp.asarray(nudge))
@@ -211,18 +236,40 @@ def test_glass_train_step_cpu():
 
 
 def test_glass_grad_above_adjoint_scope_raises():
-    b = SceneBuilder()
-    glass = Material(color=(1, 1, 1), transparency=0.9, refractive_index=1.5)
-    for i in range(MAX_PRIMS + 1):
-        x = float(i % 32) - 16.0
-        y = float(i // 32) - 8.0
-        b.add_triangle((x, y, 5.0), (x + 0.9, y, 5.0), (x, y + 0.9, 5.0), glass)
-    b.add_light((0.0, 0.0, -5.0), (1.0, 1.0, 1.0), 50.0)
-    scene = b.build(device="cpu")
-    _, cam = builders.glass_sphere_scene(2, 2, device="cpu")
-    cfg = RenderConfig(use_pallas=True, max_depth=2, wavefront_budget=8)
+    """Past the glass adjoint's 512 primitives (a glass scene with a
+    520-triangle transparent mesh in front of the glass sphere, 6x6 rays,
+    binary shadows): the route of
+    JAX's _wavefront_bwd. wavefront_trace_fused itself raises ValueError
+    there; render_rays' gradient raises REPLAY_WARNING and is autograd of
+    integrate_wavefront's replay, held to jax.grad of JAX's
+    integrate_wavefront (differentiable=True, the same budget) as
+    test_glass_grads_match_jax holds the adjoint. The forward is the
+    wavefront_trace kernel's (its plain version here)."""
+    name = "glass_mesh_523"
+    _, make_port, cfg_kw, _ = PAST_SCOPE[name]
+    o_np, d_np, img_ref, ref, go_ref, gd_ref = jax_reference(name)
+    scene, _ = make_port()
+    cfg = RenderConfig(use_pallas=True, **cfg_kw)
     params, static = partition(scene)
-    with pytest.raises(NotImplementedError, match="glass adjoint"):
-        render_hdr(combine(params, static), cam, cfg)
-    with torch.no_grad():  # the forward kernel has no such ceiling
-        assert torch.isfinite(render_hdr(combine(params, static), cam, cfg)).all()
+    flat = flatten_scene(combine(params, static))
+    assert flat.n_primitives == 523 > MAX_PRIMS
+    o = torch.from_numpy(o_np).requires_grad_(True)
+    d = torch.from_numpy(d_np).requires_grad_(True)
+    with pytest.raises(ValueError, match="at most 512 primitives"):
+        wg.wavefront_trace_fused(pack_scene_tables(flat), o, d, cfg)
+    with pytest.warns(UserWarning, match="fixed-trip replay"):
+        img = render_rays(combine(params, static), o, d, cfg)
+        loss = (img * img).sum()
+        loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float((img_ref.astype(np.float64) ** 2).sum()),
+                               rtol=1e-5)
+    ours = {k: np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
+            for k, p in params.items()}
+    errors = grad_leaf_mismatches(ours, ref)
+    assert not errors, errors
+    assert np.abs(ours["triangles.materials.transparency"]).max() > 1e-4
+    ok, err, bound = origin_cot_ok(o.grad.numpy(), go_ref)
+    assert ok, (err, bound)
+    ok, p99, mx, scale = direction_cot_ok(d.grad.numpy(), gd_ref, d_np)
+    assert ok, (p99, mx, scale)
+    assert REPLAY_WARNING.startswith("wavefront_trace backward runs autograd")

@@ -209,8 +209,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-def test_cuda_requires_grad_raises(cuda_device):
+def cuda_requires_grad_raises(cuda_device):
     _, cam, tables = small_head_box(device=cuda_device)
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     d = d.clone().requires_grad_(True)
@@ -218,9 +217,7 @@ def test_cuda_requires_grad_raises(cuda_device):
         ct.chain_trace(tables, o.contiguous(), d, CFG)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("spp", [1, 4])
-def test_cuda_kernels_match_plain(cuda_device, spp):
+def cuda_kernels_match_plain(cuda_device, spp):
     scene, cam = builders.head_box_scene(width=64, height=48, spp=spp, device=cuda_device)
     tables = ct.pack_scene_tables(flatten_scene(scene))
     px, py = cam.pixel_grid()
@@ -257,9 +254,7 @@ def assert_grads_match(cots, go, gd, ref_cots, ref_go, ref_gd, case):
         assert all(r.ok for r in rows), (case, [str(r) for r in rows if not r.ok])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("scene_name", ["head_box", "spheres"])
-def test_cuda_chain_grad_matches_plain(cuda_device, scene_name):
+def cuda_chain_grad_matches_plain(cuda_device, scene_name):
     """The adjoint kernel, fed from the taping chain_trace, against
     chain_grad_plain on the head box and on baseline spheres (the sphere
     pullback): at 64x48 under the pixel-tile map and the identity map
@@ -309,9 +304,7 @@ def test_cuda_chain_grad_matches_plain(cuda_device, scene_name):
             assert spread <= 1e-4 * float(a.abs().max()), (case, spread)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shadow_mode", ["binary", "march"])
-def test_cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode):
+def cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode):
     """The wavefront kernel against trace_wavefront_plain on the glass
     sphere at 64x48 under the seam budget; render_hdr routes to it and
     gives the same frame; no push was dropped."""
@@ -334,8 +327,7 @@ def test_cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode):
     assert wt.dropped_pushes() == 0
 
 
-@pytest.mark.gpu
-def test_cuda_wavefront_spp_trace_matches_plain(cuda_device):
+def cuda_wavefront_spp_trace_matches_plain(cuda_device):
     """The wavefront AA kernel against its plain version, spp=4 at 64x48,
     one seed (the same Philox jitter bits)."""
     scene, cam = builders.glass_sphere_scene(64, 48, spp=4, device=cuda_device)
@@ -353,9 +345,7 @@ def test_cuda_wavefront_spp_trace_matches_plain(cuda_device):
     assert wt.dropped_pushes() == 0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shadow_mode", ["binary", "march"])
-def test_cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode):
+def cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode):
     """The glass adjoint kernel, fed from the counting wavefront_trace,
     against wavefront_grad_plain on the glass sphere, g = d mean(img^2) /
     d img: at 64x64, at 37x29 (1,073 rays: a ragged last warp) and in the
@@ -488,8 +478,9 @@ def test_table_cot_rows_catch_one_wrong_row(case):
 def test_roofline_work_counts():
     """The work counter behind chip_smoke.py's bounds: one bounce per ray at
     max_depth 1, each closest-hit scan between its all-early-exit and its
-    all-full cost, at most one shadow ray per light, and the bound taken from
-    the larger of the two times."""
+    all-full cost, at most one shadow ray per light, none to a padded light
+    slot (the head box padded to 8 slots a family sends as many shadow rays
+    as the head box), and the bound taken from the larger of the two times."""
     _, cam, tables = small_head_box()
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     r = o.shape[0]
@@ -501,6 +492,11 @@ def test_roofline_work_counts():
     assert 0 < w1.shadow_ops <= w1.shadow_rays * high
     w10 = rl.chain_work(tables, o.contiguous(), d, CFG)
     assert w10.bounces > w1.bounces and w10.closest_ops > w1.closest_ops
+    padded, _ = builders.head_box_scene(width=8, height=6, pad_multiple=8, device="cpu")
+    p_tables = ct.pack_scene_tables(flatten_scene(padded))
+    assert p_tables.n_lights == 8 and int(p_tables.light[6].sum()) == tables.n_lights
+    wp = rl.chain_work(p_tables, o.contiguous(), d, CFG)
+    assert (wp.bounces, wp.shadow_rays) == (w10.bounces, w10.shadow_rays)
     assert rl.bound_ms(67e9, 1.0) == (1.0, "operations")
     assert rl.bound_ms(1.0, 3.35e9) == (1.0, "bytes")
 
@@ -537,3 +533,19 @@ def test_roofline_work_counts():
     assert rl.wavefront_bound_ms(gw, 3.35e9) == (1.0, "bytes")
     assert rl.wavefront_bound_ms(rl.WavefrontWork(rays=1, mufu_ops=67e9 / 16), 0.0) == (1.0, "MUFU operations")
     assert rl.wavefront_bound_ms(rl.WavefrontWork(rays=1, int_ops=67e9 / 4), 0.0) == (1.0, "integer operations")
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_match_plain(cuda_device):
+    """Every check of this file on the card, one after another: one test item,
+    since off the card it skips (chip_smoke.py covers each on the main paths' shapes)."""
+    cuda_requires_grad_raises(cuda_device)
+    for spp in (1, 4):
+        cuda_kernels_match_plain(cuda_device, spp)
+    for scene_name in ('head_box', 'spheres'):
+        cuda_chain_grad_matches_plain(cuda_device, scene_name)
+    for shadow_mode in ('binary', 'march'):
+        cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode)
+    cuda_wavefront_spp_trace_matches_plain(cuda_device)
+    for shadow_mode in ('binary', 'march'):
+        cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode)
