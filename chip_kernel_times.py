@@ -25,6 +25,14 @@ as render_hdr and the training steps call them:
                        wavefront_grad fed from the counting forward (march
                        and binary), and the glass training step as
                        --adjoints times it
+  glass mesh           the same scene with dense_mesh_scene's 6,016-triangle
+  1920x1080 (--glass)  mesh made transparent: wavefront_trace (march and
+                       binary, without and with its counts) and
+                       wavefront_spp_trace at spp=8, and in scrambled order
+                       wavefront_trace at march, on its linear tables and,
+                       where this checkout's glass wrappers take them, on
+                       its culled tables, with each output's hash (the two
+                       routes' frames must be equal)
 
 It also prints ptxas' register report of the build and, for each trace
 kernel function, its SASS instruction count and opcode mix (cuobjdump): the
@@ -240,9 +248,29 @@ def time_adjoints(dev, show, time_ms, glass_step_only: bool = False) -> None:
     time_steps(dev, show, time_ms, mean_sq, steps)
 
 
+def glass_mesh_scene(width: int, height: int, spp: int, device, **mesh_kw):
+    """glass_sphere_scene's three primitives and light with dense_mesh_scene's
+    bumpy mesh (6,016 triangles at its default ni, nj; `scramble` shuffles
+    them) made transparent (transparency 0.7, refractive index 1.3), seen by
+    the glass sphere's camera -> (scene, camera)."""
+    import dataclasses
+
+    import torch
+
+    from raytracingengine_tpu_torch.scenes import dense_mesh_scene, glass_sphere_scene
+
+    glass, cam = glass_sphere_scene(width, height, spp=spp, device=device)
+    mesh = dense_mesh_scene(width, height, spp=spp, device=device, **mesh_kw)[0].triangles
+    m = mesh.materials
+    mats = dataclasses.replace(m, transparency=torch.full_like(m.transparency, 0.7),
+                               refractive_index=torch.full_like(m.refractive_index, 1.3))
+    return dataclasses.replace(glass, triangles=dataclasses.replace(mesh, materials=mats)), cam
+
+
 def time_glass(dev, show, time_ms) -> None:
     """The glass kernels at 1080p on the glass sphere with the main path's
-    camera, each with its output hash, then the glass training step."""
+    camera, each with its output hash; on the glass mesh, linear and culled;
+    then the glass training step."""
     import dataclasses
 
     from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
@@ -271,6 +299,34 @@ def time_glass(dev, show, time_ms) -> None:
     show("wavefront_spp_trace glass 1080p spp=8",
          time_ms(lambda: wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234), 10),
          wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234))
+    # The glass mesh: the linear route scans 6,016 triangles per test (few
+    # calls), the culled one the blocks each ray meets.
+    # (~2 s a call at march, ~15 s at spp=8): every kernel in authoring
+    # order, wavefront_trace at march in scrambled order.
+    binary = dataclasses.replace(march, shadow_mode="binary")
+    for order, kw in (("", {}), (" scrambled", {"scramble": 5})):
+        m_scene, _ = glass_mesh_scene(W1080, H1080, 1, dev, **kw)
+        flat = flatten_scene(m_scene)
+        routes = {"linear": (ct.pack_scene_tables(flat), 1), "culled": (ct.pack_forward_tables_perm(flat), 5)}
+        for route, (tb, iters) in routes.items():
+            name = f"glass mesh{order} 1080p, {route}"
+            try:
+                wt.wavefront_trace(tb, o, d, march)
+            except ValueError as e:  # a checkout whose glass wrappers refuse culled tables
+                print(f"  wavefront_trace {name}: not in this checkout ({e})", flush=True)
+                continue
+            for mode, cfg in (("march", march), ("binary", binary))[:2 if not order else 1]:
+                show(f"wavefront_trace {name} {mode}", time_ms(lambda: wt.wavefront_trace(tb, o, d, cfg), iters),
+                     wt.wavefront_trace(tb, o, d, cfg))
+                if order:
+                    continue
+                show(f"wavefront_trace counting {name} {mode}",
+                     time_ms(lambda: wt.wavefront_trace(tb, o, d, cfg, count=True), iters),
+                     *wt.wavefront_trace(tb, o, d, cfg, count=True))
+            if not order:
+                show(f"wavefront_spp_trace {name} spp=8",
+                     time_ms(lambda: wt.wavefront_spp_trace(tb, cam8, px, py, march, seed=1234), 1),
+                     wt.wavefront_spp_trace(tb, cam8, px, py, march, seed=1234))
     time_steps(dev, show, time_ms, lambda img, _target: (img * img).mean(),
                (("glass training step 1080p", glass_sphere_scene, march),))
 

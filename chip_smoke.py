@@ -9,8 +9,8 @@ training step at full resolution, and times kernels against plain versions:
   1. device     nvidia-smi name and power limit; exits non-zero without CUDA
   2. build      nvcc build of csrc/*.cu (sm_90a), with ptxas' register report
                 and the trace kernels' CTAs per SM on each route, the taping
-                chain_trace's and the counting wavefront_trace's too
-                (occupancy calculator)
+                chain_trace's and the counting wavefront_trace's too, and the
+                glass kernels' culled instantiations' (occupancy calculator)
   3. chain      chain_trace vs trace_chain_plain, head box 1920x1080 spp=1 rays
                 (the staged route: linear tables in shared memory, packets of
                 rays)
@@ -149,8 +149,8 @@ training step at full resolution, and times kernels against plain versions:
                 global sink's first)
  21. glass >512 the glass sphere and a transparent mesh (563 primitives) at
                 256x256: 3 training steps through the entry points, the
-                forward on wavefront_trace (one launch per chunk and step, no
-                counting kernel, no wavefront_grad), the backward autograd of
+                forward on the culled wavefront_trace (one launch per chunk and
+                step, no counting kernel, no wavefront_grad), the backward autograd of
                 integrate_wavefront's replay with its warning; step time and
                 peak memory; the gradient at 16x16 vs the CPU port's
  22. sharded    a one-rank NCCL group: render_hdr_sharded at 1080p spp=1 and
@@ -160,6 +160,21 @@ training step at full resolution, and times kernels against plain versions:
                 retry, render_hdr's frame); cli render --mesh; the kernel
                 frames of the head box and the glass sphere at 32x24 vs the
                 float64 oracle (golden/) at rtol 2e-3 / atol 3e-3
+ 23. glass culled the glass sphere scene with dense_mesh_scene's 6,016-triangle
+                mesh made transparent (0.7, ior 1.3): render_hdr at 1080p
+                spp=1 and spp=8 (march) and spp=1 (binary), and on the
+                scrambled mesh, the launch counters reset before and read
+                after (the culled instantiations only; the tables packed once
+                per frame); the culled wavefront_trace (march, binary,
+                counting) and wavefront_spp_trace (spp=8) against the linear
+                kernels on whole frames, bit for bit (the counting kernel's
+                pops per warp too), and against their plain versions on 4,096
+                of the rays (1,024 pixels at spp=8) under the seam budget;
+                culled and linear kernel times in turns, the packing's and the
+                frames' times; the crossover at 132, 320 and 560 triangles; 3
+                training steps at 256x256 with a 320-triangle mesh (the
+                counting culled forward, wavefront_grad on the linear tables);
+                bounds from the subset's work (roofline.py), scaled
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -308,9 +323,11 @@ def main() -> int:
           f"spp_trace in place {lib.rte_spp_trace_occupancy(0)}, culled "
           f"{lib.rte_spp_trace_occupancy(1)}, staged {lib.rte_spp_trace_occupancy(2)} (staged: at "
           "the largest stage, csrc/trace_common.cuh::kStageMaxBytes); wavefront_trace "
-          f"{lib.rte_wavefront_trace_occupancy(0)}, its counting kernel "
-          f"{lib.rte_wavefront_trace_occupancy(1)}, wavefront_spp_trace "
-          f"{lib.rte_wavefront_spp_trace_occupancy()}", flush=True)
+          f"{lib.rte_wavefront_trace_occupancy(0, 0)}, its counting kernel "
+          f"{lib.rte_wavefront_trace_occupancy(1, 0)}, wavefront_spp_trace "
+          f"{lib.rte_wavefront_spp_trace_occupancy(0)}; culled (RayCulledTris): wavefront_trace "
+          f"{lib.rte_wavefront_trace_occupancy(0, 1)}, counting {lib.rte_wavefront_trace_occupancy(1, 1)}, "
+          f"wavefront_spp_trace {lib.rte_wavefront_spp_trace_occupancy(1)}", flush=True)
 
     def cfg_for(width: int, height: int) -> RenderConfig:
         return RenderConfig(shadow_mode="binary", use_pallas=True, chunk_size=width * height)
@@ -620,9 +637,9 @@ def main() -> int:
     g_spp_report = budget("wavefront_spp_trace vs plain, spp=8 seed=1234", g_spp_out, g_spp_ref)
     del g_spp_ref
     print(f"  the glass forward kernels: one thread per ray (pixel), node_children only on hits that can "
-          f"push a child; CTAs per SM wavefront_trace {lib.rte_wavefront_trace_occupancy(0)}, its counting "
-          f"kernel {lib.rte_wavefront_trace_occupancy(1)}, wavefront_spp_trace "
-          f"{lib.rte_wavefront_spp_trace_occupancy()} (phase 2: their registers; phase 8: their times against "
+          f"push a child; CTAs per SM wavefront_trace {lib.rte_wavefront_trace_occupancy(0, 0)}, its counting "
+          f"kernel {lib.rte_wavefront_trace_occupancy(1, 0)}, wavefront_spp_trace "
+          f"{lib.rte_wavefront_spp_trace_occupancy(0)} (phase 2: their registers; phase 8: their times against "
           "the plain versions and their bounds)", flush=True)
     dropped = wt.dropped_pushes()
     w = g_work["march"]
@@ -1130,6 +1147,9 @@ def main() -> int:
         ct.chain_trace.tape_launches = 0
         wt.wavefront_trace.count_launches = 0
         cg.chain_grad_dense.routes = dict.fromkeys(cg.DENSE_SINKS, 0)
+        wt.wavefront_trace.routes = wt.new_route_counts()
+        wt.wavefront_trace.count_routes = wt.new_route_counts()
+        wt.wavefront_spp_trace.routes = wt.new_route_counts()
 
     def read_counts() -> dict:
         sync()
@@ -1138,7 +1158,11 @@ def main() -> int:
                 "spp_trace": st.spp_trace.launches, "wavefront_trace": wt.wavefront_trace.launches,
                 "counting": wt.wavefront_trace.count_launches,
                 "wavefront_spp_trace": wt.wavefront_spp_trace.launches,
-                "wavefront_grad": wg.wavefront_grad.launches}
+                "wavefront_grad": wg.wavefront_grad.launches,
+                # the glass kernels' culled instantiations (RayCulledTris)
+                "culled": wt.wavefront_trace.routes["culled"],
+                "culled counting": wt.wavefront_trace.count_routes["culled"],
+                "spp culled": wt.wavefront_spp_trace.routes["culled"]}
 
     def loop_cfg(w_, h_, **kw) -> RenderConfig:
         return RenderConfig(use_pallas=True, differentiable=True, chunk_size=w_ * h_, **kw)
@@ -1565,10 +1589,11 @@ def main() -> int:
     finite = all(np.isfinite(gm_losses)) and all(v is None or bool(torch.isfinite(v).all())
                                                  for v in gm_grads.values())
     moved = bool((gm_grads["triangles.materials.transparency"] != 0).any())
-    expect = {"wavefront_trace": 3 * chunks, "counting": 0, "wavefront_grad": 0}
+    # 560 triangles: the forward takes the culled tables (phase 23)
+    expect = {"wavefront_trace": 3 * chunks, "culled": 3 * chunks, "counting": 0, "wavefront_grad": 0}
     ok = finite and moved and warned == 3 * chunks and all(gm_counts[k] == v for k, v in expect.items())
     print(f"  {'PASS' if ok else 'FAIL'} 3 training steps (SGD lr=1e-6 on mean(img^2)): launches {gm_counts} "
-          f"(expected {expect}: the forward kernel per chunk and step, the backward autograd of "
+          f"(expected {expect}: the culled forward kernel per chunk and step, the backward autograd of "
           f"integrate_wavefront's replay); the replay's warning {warned} times; losses {gm_losses[0]:.6f} -> "
           f"{gm_losses[-1]:.6f}; finite={finite}; mesh transparency moved={moved}; {gm_ms:.1f} ms per step "
           f"(host clock, first step included); peak device memory {gm_peak:.1f} MiB [{card}]", flush=True)
@@ -1695,6 +1720,239 @@ def main() -> int:
     phase22_s = time.perf_counter() - t22
     print(f"  phase 22 took {phase22_s:.1f} s; phases 20-22 {phase20_s + phase21_s + phase22_s:.1f} s "
           "(target: 90 s)", flush=True)
+
+    # 23. the glass kernels' culled scan: a transparent mesh past TRI_BLOCK triangles
+    t23 = time.perf_counter()
+
+    def transparent_mesh_scene(w_, h_, spp, device, **mesh_kw):
+        """glass_sphere_scene's three primitives and light with dense_mesh_scene's
+        bumpy mesh (6,016 triangles at its default ni, nj; `scramble`
+        shuffles them) made transparent (transparency 0.7, refractive index
+        1.3), seen by the glass sphere's camera."""
+        g_scene, g_cam = glass_sphere_scene(w_, h_, spp=spp, device=device)
+        mesh = dense_mesh_scene(w_, h_, spp=spp, device=device, **mesh_kw)[0].triangles
+        m = mesh.materials
+        mats = dataclasses.replace(m, transparency=torch.full_like(m.transparency, 0.7),
+                                   refractive_index=torch.full_like(m.refractive_index, 1.3))
+        return dataclasses.replace(g_scene, triangles=dataclasses.replace(mesh, materials=mats)), g_cam
+
+    tm_cfg = RenderConfig(use_pallas=True, chunk_size=W1080 * H1080)  # march shadows, max_depth 10
+    tm_bin = dataclasses.replace(tm_cfg, shadow_mode="binary")
+    tm_scene, tm_cam = transparent_mesh_scene(W1080, H1080, 1, dev)
+    tm_flat = flatten_scene(tm_scene)
+    print(f"[23 glass culled] the glass sphere scene and dense_mesh_scene's mesh made transparent "
+          f"(0.7, ior 1.3): {tm_flat.n_triangles} triangles, 1920x1080, max_depth {tm_cfg.max_depth}", flush=True)
+    # the main path: render_hdr packs the culled tables once per frame
+    tm_runs = (("spp=1 march", 1, tm_cfg, {}), ("spp=8 march", 8, tm_cfg, {}),
+               ("spp=1 binary", 1, tm_bin, {}), ("spp=1 march, scrambled", 1, tm_cfg, {"scramble": 5}))
+    tm_frames = {}
+    reset_counts()
+    for label, spp, rcfg, kw in tm_runs:
+        r_scene, r_cam = transparent_mesh_scene(W1080, H1080, spp, dev, **kw)
+        t0 = time.perf_counter()
+        hdr = render_hdr(r_scene, r_cam, rcfg, seed=2024)
+        sync()
+        tm_frames[label] = (hdr, time.perf_counter() - t0)
+    tm_launches = read_counts()
+    tm_expect = {"wavefront_trace": 3, "culled": 3, "counting": 0, "wavefront_spp_trace": 1, "spp culled": 1}
+    ok = all(tm_launches[k] == v for k, v in tm_expect.items())
+    print(f"  {'PASS' if ok else 'FAIL'} render_hdr: launches {tm_launches} (expected {tm_expect})", flush=True)
+    if not ok:
+        raise AssertionError(f"the glass mesh did not render through the culled kernels: {tm_launches}")
+    for label, (hdr, secs) in tm_frames.items():
+        if not (bool(torch.isfinite(hdr).all()) and hdr.shape == (H1080, W1080, 3)):
+            raise AssertionError(f"glass mesh render {label}: not finite or shape {tuple(hdr.shape)}")
+        path = out_dir / f"glass_mesh_{label.replace(' ', '_').replace(',', '').replace('=', '')}.png"
+        write_png(str(path), to_uint8(tonemap(hdr, "aces")).cpu().numpy())
+        print(f"  glass mesh 1080p {label}: first call {secs * 1e3:.1f} ms, mean {float(hdr.mean()):.4f} "
+              f"-> {path.relative_to(ROOT)}", flush=True)
+
+    # the culled kernels against the linear ones on whole frames, and against
+    # their plain versions on a subset of the rays
+    tm_o, tm_d = tm_cam.rays_for_pixels(px, py)
+    tm_o = tm_o.contiguous()
+    tm_lin, tm_tables = ct.pack_scene_tables(tm_flat), ct.pack_forward_tables_perm(tm_flat)
+    rays1 = W1080 * H1080
+    sub = torch.arange(0, rays1, rays1 // 4096, device=dev)[:4096]
+    sub8 = sub[::4]  # 1,024 pixels for the AA kernel's plain version (8 samples each)
+    tm_out, tm_reports, tm_plain_ms, tm_equal = {}, {}, {}, {}
+
+    def out_hash(t: torch.Tensor) -> str:
+        import hashlib
+
+        return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()[:12]
+
+    def frames_equal(label: str, a: torch.Tensor, b: torch.Tensor) -> None:
+        """The culled kernel's output against the linear kernel's: bit for
+        bit, or the pixels that differ counted (and the phase fails)."""
+        diff = int((a != b).reshape(a.shape[0], -1).any(1).sum())
+        tm_equal[label] = diff
+        print(f"  {'PASS' if not diff else 'FAIL'} {label}: culled vs linear kernel, pixels that differ "
+              f"{diff} of {a.shape[0]} (bit for bit: {diff == 0}); sha1 {out_hash(a)} / {out_hash(b)}", flush=True)
+        if diff:
+            raise AssertionError(f"{label}: the culled kernel's frame differs from the linear kernel's")
+
+    for mode, mcfg in (("march", tm_cfg), ("binary", tm_bin)):
+        tm_out[mode] = wt.wavefront_trace(tm_tables, tm_o, tm_d, mcfg)
+        frames_equal(f"wavefront_trace {mode}", tm_out[mode], wt.wavefront_trace(tm_lin, tm_o, tm_d, mcfg))
+        ref, tm_plain_ms[mode] = once_ms(lambda: wt.trace_wavefront_plain(tm_tables, tm_o[sub], tm_d[sub], mcfg))
+        tm_reports[mode] = budget(f"culled wavefront_trace vs trace_wavefront_plain (culled tables), {mode}, "
+                                  f"{sub.numel()} rays", tm_out[mode][sub], ref)
+    img_c, pops_c = wt.wavefront_trace(tm_tables, tm_o, tm_d, tm_cfg, count=True)
+    (img_l, pops_l), lin_count_ms = once_ms(lambda: wt.wavefront_trace(tm_lin, tm_o, tm_d, tm_cfg, count=True))
+    frames_equal("wavefront_trace counting, march (frame)", img_c, img_l)
+    frames_equal("wavefront_trace counting, march (pops per warp)", pops_c[:, None], pops_l[:, None])
+    frames_equal("wavefront_trace counting vs not counting, culled", img_c, tm_out["march"])
+    # the AA kernel: render_hdr's spp=8 frame (seed 2024, one chunk) against
+    # its plain version, whose samples' rays go through one plain trace
+    # (launch-bound: one call costs as much as one sample); against the
+    # linear kernel on a whole 240x135 frame (~15 s at 1080p spp=8)
+    _, tm_cam8 = transparent_mesh_scene(W1080, H1080, 8, dev)
+    tm_out["spp"] = tm_frames["spp=8 march"][0].reshape(-1, 3)
+
+    def spp_plain():
+        """wavefront_spp_trace_plain(tm_tables, tm_cam8, px[sub8], py[sub8],
+        tm_cfg, seed=2024): mean_over_samples' rays and sum, one trace."""
+        rays = []
+        st.mean_over_samples(lambda o_, d_: rays.append((o_, d_)) or torch.zeros_like(o_), tm_cam8,
+                             px[sub8], py[sub8], seed=2024)
+        out = wt.trace_wavefront_plain(tm_tables, torch.cat([r[0] for r in rays]),
+                                       torch.cat([r[1] for r in rays]), tm_cfg).split(sub8.numel())
+        acc = torch.zeros_like(out[0])
+        for x in out:
+            acc = acc + x
+        return acc * (1.0 / tm_cam8.spp)
+
+    ref, tm_plain_ms["spp"] = once_ms(spp_plain)
+    tm_reports["spp"] = budget(f"culled wavefront_spp_trace vs plain, spp=8, {sub8.numel()} pixels",
+                               tm_out["spp"][sub8], ref)
+    _, q_cam8 = transparent_mesh_scene(240, 135, 8, dev)
+    qx, qy = q_cam8.pixel_grid()
+    q_spp = {name: once_ms(lambda: wt.wavefront_spp_trace(tb, q_cam8, qx, qy, tm_cfg, seed=1234))
+             for name, tb in (("culled", tm_tables), ("linear", tm_lin))}
+    frames_equal("wavefront_spp_trace spp=8, 240x135", q_spp["culled"][0], q_spp["linear"][0])
+    s_scene, _ = transparent_mesh_scene(W1080, H1080, 1, dev, scramble=5)
+    s_flat = flatten_scene(s_scene)
+    s_tables = ct.pack_forward_tables_perm(s_flat)
+    frames_equal("render_hdr spp=1 march, scrambled", tm_frames["spp=1 march, scrambled"][0].reshape(-1, 3),
+                 wt.wavefront_trace(ct.pack_scene_tables(s_flat), tm_o, tm_d, tm_cfg))
+    seam = int((tm_frames["spp=1 march, scrambled"][0] != tm_frames["spp=1 march"][0]).any(-1).sum())
+    kept = bool((s_tables.perm[:s_flat.n_triangles] == torch.arange(s_flat.n_triangles, device=dev)).all())
+    print(f"  scrambled order: the packing picks {'authoring' if kept else 'a spatial (Morton or median-split)'} "
+          f"order; the frame differs from the unscrambled mesh's at {seam} pixels (exact seam ties take the "
+          f"lower original index)", flush=True)
+    del s_scene, s_flat, s_tables, ref, img_c, img_l, tm_frames, hdr
+
+    print(f"  phase 23 so far {time.perf_counter() - t23:.1f} s; times follow", flush=True)
+    # times in turns: linear, culled, culled, linear; the culled counting
+    # and AA kernels at 1080p alone (the AA kernels' 240x135 checking calls
+    # beside them: the linear one takes ~4 s there, underfilling the card)
+    tm_ms = {}
+    for label, fc, fl in (
+        ("march", lambda: wt.wavefront_trace(tm_tables, tm_o, tm_d, tm_cfg),
+         lambda: wt.wavefront_trace(tm_lin, tm_o, tm_d, tm_cfg)),
+        ("binary", lambda: wt.wavefront_trace(tm_tables, tm_o, tm_d, tm_bin),
+         lambda: wt.wavefront_trace(tm_lin, tm_o, tm_d, tm_bin)),
+    ):
+        tm_ms[label] = in_turns(fc, fl, 3, 1)
+        report(f"culled {label} kernel, glass mesh 1080p", tm_ms[label][0], rays1)
+        report(f"linear {label} kernel, glass mesh 1080p ({tm_ms[label][1] / tm_ms[label][0]:.2f}x)",
+               tm_ms[label][1], rays1)
+    for route, (_, ms) in q_spp.items():
+        report(f"{route} spp kernel, glass mesh 240x135 spp=8 (its checking call)", ms, 240 * 135 * 8)
+    tm_ms["counting"] = (time_ms(lambda: wt.wavefront_trace(tm_tables, tm_o, tm_d, tm_cfg, count=True), 3),)
+    report("culled counting kernel, glass mesh 1080p", tm_ms["counting"][0], rays1)
+    report("linear counting kernel, glass mesh 1080p (its checking call)", lin_count_ms, rays1)
+    tm_ms["spp"] = (time_ms(lambda: wt.wavefront_spp_trace(tm_tables, tm_cam8, px, py, tm_cfg, seed=1234), 1),)
+    report("culled spp kernel, glass mesh 1080p spp=8", tm_ms["spp"][0], rays1 * 8)
+    tm_pack_ms = time_ms(lambda: ct.pack_forward_tables_perm(tm_flat), 5)
+    print(f"  pack_forward_tables_perm (the host's packing, once per frame), {tm_flat.n_triangles} triangles: "
+          f"{tm_pack_ms:.3f} ms; plain versions (one call each, on the subset): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in tm_plain_ms.items()) + f" [{card}]", flush=True)
+    for label, spp, iters in (("spp=1", 1, 3), ("spp=8", 8, 1)):
+        f_scene, f_cam = transparent_mesh_scene(W1080, H1080, spp, dev)
+        report(f"render_hdr end to end, glass mesh 1080p {label}",
+               time_ms(lambda: render_hdr(f_scene, f_cam, tm_cfg, seed=2024), iters), rays1 * spp)
+
+    # the crossover near TRI_BLOCK: the same kernel on both routes, in turns
+    for label, make in (("132 triangles", lambda: transparent_mesh_scene(W1080, H1080, 1, dev, ni=3, nj=33)[0]),
+                        ("320 triangles", lambda: transparent_mesh_scene(W1080, H1080, 1, dev, ni=6, nj=32)[0]),
+                        ("phase 21's 560 triangles", lambda: glass_mesh_scene(W1080, H1080, dev)[0])):
+        c_flat = flatten_scene(make())
+        c_lin, c_cul = ct.pack_scene_tables(c_flat), ct.pack_forward_tables_perm(c_flat)
+        c_ms, l_ms = in_turns(lambda: wt.wavefront_trace(c_cul, tm_o, tm_d, tm_cfg),
+                              lambda: wt.wavefront_trace(c_lin, tm_o, tm_d, tm_cfg), 5, 5)
+        print(f"  crossover, {label} ({c_cul.n_blocks} blocks): wavefront_trace march 1080p culled {c_ms:.3f} ms, "
+              f"linear {l_ms:.3f} ms, linear / culled {l_ms / c_ms:.2f} [{card}]", flush=True)
+
+    # a glass training step with 129-509 triangles: the counting culled
+    # forward, the adjoint on the linear tables
+    tr_scene, tr_cam = transparent_mesh_scene(256, 256, 1, dev, ni=6, nj=32)
+    tr_n = flatten_scene(tr_scene).n_primitives
+    if not (ct.TRI_BLOCK < tr_scene.triangles.v0.shape[0] and tr_n <= cg.MAX_PRIMS):
+        raise AssertionError(f"the training scene has {tr_n} primitives")
+    trp, trs = partition(tr_scene)
+    tr_step = make_train_step(tr_cam, RenderConfig(use_pallas=True, chunk_size=256 * 256),
+                              torch.optim.SGD(trp.values(), lr=1e-6), loss_fn=mean_sq)
+    reset_counts()
+    tr_losses = [float(tr_step(trp, trs, None)[0]) for _ in range(3)]
+    tr_counts = read_counts()
+    tr_expect = {"wavefront_trace": 3, "counting": 3, "culled counting": 3, "wavefront_grad": 3}
+    tr_grads = {k: p.grad for k, p in trp.items()}
+    finite = all(np.isfinite(tr_losses)) and all(v is None or bool(torch.isfinite(v).all())
+                                                 for v in tr_grads.values())
+    moved = bool((tr_grads["triangles.materials.transparency"] != 0).any())
+    ok = finite and moved and all(tr_counts[k] == v for k, v in tr_expect.items())
+    tr_ms = time_ms(lambda: tr_step(trp, trs, None), 3)
+    print(f"  {'PASS' if ok else 'FAIL'} 3 training steps, {tr_n} primitives at 256x256: launches {tr_counts} "
+          f"(expected {tr_expect}: the counting culled forward, the adjoint on the linear tables, no tape "
+          f"overrun); losses {tr_losses[0]:.6f} -> {tr_losses[-1]:.6f}; finite={finite}; mesh transparency "
+          f"moved={moved}; {tr_ms:.3f} ms a step, host running ahead (CUDA events) [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"glass mesh training: launches {tr_counts}, finite={finite}, moved={moved}")
+    del tr_scene, trp, trs, tr_step, tr_grads
+
+    print(f"  phase 23 so far {time.perf_counter() - t23:.1f} s; the bounds' work follows", flush=True)
+    # bounds: the work of the subset's rays (roofline.py), scaled to the frame
+    def scaled(w: WavefrontWork, k: float, rays: int) -> WavefrontWork:
+        return dataclasses.replace(w, rays=rays, **{f: getattr(w, f) * k for f in (
+            "pops", "closest_ops", "shadow_rays", "march_steps", "shadow_ops", "shade_ops", "mufu_ops",
+            "int_ops", "closest_scans", "closest_tris", "lane_blocks", "warp_blocks")})
+
+    tm_work = {mode: wavefront_work(tm_tables, tm_o[sub], tm_d[sub], mcfg)
+               for mode, mcfg in (("march", tm_cfg), ("binary", tm_bin))}
+    # the AA kernel's 8 samples: sample 0, then samples 1-7 in one replay
+    # (each ray's work is its own; jittered samples count alike)
+    s_pids = (py[sub8].to(torch.int64) * W1080 + px[sub8].to(torch.int64))
+    s_rays = [tm_cam8.rays_for_pixels(px[sub8], py[sub8], st.pixel_jitter(1234, s_pids, sample))
+              for sample in range(tm_cam8.spp)]
+    tm_work8 = wavefront_work(tm_tables, s_rays[0][0].contiguous(), s_rays[0][1].contiguous(), tm_cfg,
+                              camera_sample=0)
+    tm_work8 += wavefront_work(tm_tables, torch.cat([r[0] for r in s_rays[1:]]).contiguous(),
+                               torch.cat([r[1] for r in s_rays[1:]]).contiguous(), tm_cfg, camera_sample=1)
+    tm_bounds = {
+        "march": wavefront_bound_ms(scaled(tm_work["march"], rays1 / sub.numel(), rays1),
+                                    trace_bytes(rays1, tm_tables)),
+        "binary": wavefront_bound_ms(scaled(tm_work["binary"], rays1 / sub.numel(), rays1),
+                                     trace_bytes(rays1, tm_tables)),
+        "spp": wavefront_bound_ms(scaled(tm_work8, rays1 / sub8.numel(), rays1),
+                                  trace_bytes(rays1, tm_tables, in_per_ray=8)),
+    }
+    for mode, w in tm_work.items():
+        n = w.rays
+        print(f"  glass mesh work ({mode}, {n} rays): {w.pops / n:.3f} nodes/ray, closest-hit "
+              f"{w.closest_ops / n:.0f} + shadow {w.shadow_ops / n:.0f} fp32 test ops/ray (culled traversal), "
+              f"shading {w.shade_ops / n:.0f}; blocks of 128 tests per ray: per lane {w.lane_blocks / n:.3f}, "
+              f"32 x each warp's busiest lane {w.warp_blocks / n:.3f} (lanes use {w.lane_blocks / max(w.warp_blocks, 1):.3f} "
+              f"of a warp's block turns); bound {tm_bounds[mode][0]:.4f} ms ({tm_bounds[mode][1]}) "
+              f"[H100 SXM peaks; {card}]", flush=True)
+    w = tm_work["march"]
+    print(f"  a closest-hit or march scan tests {w.closest_tris / w.closest_scans:.1f} of the "
+          f"{tm_flat.n_triangles} triangles on culled tables (the oracle's segments; the linear scan tests "
+          f"all); spp=8 bound {tm_bounds['spp'][0]:.4f} ms ({tm_bounds['spp'][1]})", flush=True)
+    phase23_s = time.perf_counter() - t23
+    print(f"  phase 23 took {phase23_s:.1f} s (target: 90 s)", flush=True)
+    del tm_lin, tm_scene, tm_flat
 
     # 8. timing: CUDA events around `iters` calls after one warm-up call
 
@@ -2040,6 +2298,28 @@ def main() -> int:
          "launches": glass_launches["wavefront_spp_trace"], "max_abs_err": g_spp_report.max_abs,
          "ms": wf_spp_ms, "plain_ms": wf_spp_plain_ms, "bound_ms": work_bounds["wavefront_spp_trace"][0],
          "bound_by": as_contract(work_bounds["wavefront_spp_trace"][1]), "library_ms": None},
+        # The glass kernels' culled instantiations (phase 23; the launches of
+        # its render_hdr runs and phase 21's forward, and its training steps'
+        # counting forward); their plain versions timed on the checked subset.
+        {"name": "wavefront_trace_culled", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/wavefront_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:655",
+         "launches": tm_launches["culled"] + gm_counts["culled"],
+         "max_abs_err": max(tm_reports[m].max_abs for m in ("march", "binary")),
+         "ms": tm_ms["march"][0], "plain_ms": tm_plain_ms["march"], "bound_ms": tm_bounds["march"][0],
+         "bound_by": as_contract(tm_bounds["march"][1]), "library_ms": None},
+        {"name": "wavefront_trace_culled_count", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/wavefront_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:655",
+         "launches": tr_counts["culled counting"], "max_abs_err": tm_reports["march"].max_abs,
+         "ms": tm_ms["counting"][0], "plain_ms": tm_plain_ms["march"], "bound_ms": tm_bounds["march"][0],
+         "bound_by": as_contract(tm_bounds["march"][1]), "library_ms": None},
+        {"name": "wavefront_spp_trace_culled", "route": "cuda",
+         "source": "raytracingengine_tpu_torch/csrc/wavefront_spp_trace.cu",
+         "replaces": "raytracingengine_tpu/kernels/wavefront_trace.py:758",
+         "launches": tm_launches["spp culled"], "max_abs_err": tm_reports["spp"].max_abs,
+         "ms": tm_ms["spp"][0], "plain_ms": tm_plain_ms["spp"], "bound_ms": tm_bounds["spp"][0],
+         "bound_by": as_contract(tm_bounds["spp"][1]), "library_ms": None},
         {"name": "wavefront_grad", "route": "cuda",
          "source": "raytracingengine_tpu_torch/csrc/wavefront_grad.cu",
          "replaces": "raytracingengine_tpu/kernels/wavefront_grad.py:762",
@@ -2098,7 +2378,11 @@ def main() -> int:
           f"launches {dense_train_launches}; phase 19's launches {loop_launches}; the loop's frame vs "
           f"spp_trace {loop_aa_report.flips}/{loop_aa_report.pixels} (pinned: {LOOP_AA_FLIPS}); the global sink "
           f"(phase 20) {global_reports['d_d'].flips}/{global_reports['d_d'].pixels}, culled "
-          f"{culled_reports['d_d'].flips}/{culled_reports['d_d'].pixels}; the dense kernels' plain_ms is one "
+          f"{culled_reports['d_d'].flips}/{culled_reports['d_d'].pixels}; the culled glass kernels (phase 23) "
+          + ", ".join(f"{k} {r.flips}/{r.pixels}" for k, r in tm_reports.items())
+          + f" against their plain versions, pixels unequal to the linear kernels' {tm_equal}; their plain_ms "
+          f"is one call's on the subset ({sub.numel()} rays, {sub8.numel()} pixels at spp=8), their bounds "
+          f"the subset's work scaled to the frame; the dense kernels' plain_ms is one "
           "call's (the global sink's on its 16,384 rays at max_depth 2, its ms on the whole frame at max_depth "
           "10); no PyTorch call traces rays, so library_ms is null")
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)

@@ -40,7 +40,11 @@
 // linear scan's. Linear tables take `LinearTris`,
 // one thread per ray with no barriers; the scan is a template parameter of
 // closest_hit, any_hit and trace_ray, so a kernel that never sees culled
-// tables (the glass kernels, chain_grad.cu) compiles without it.
+// tables (chain_grad.cu) compiles without it. The glass kernels' DFS
+// (trace_wavefront_ray, and march_T, march_step and nearest_t_tau under it)
+// takes the scan as a template parameter too: `LinearTris`, or on culled
+// tables `RayCulledTris`, the same hierarchy walked by one thread per ray
+// with no barriers, since each ray's DFS and march end on their own.
 //
 // chain_trace.cu and spp_trace.cu take linear tables whose 16-byte stage
 // fits kStageMaxBytes through `StagedScan<K>` and `trace_packet<K>`
@@ -57,6 +61,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rte {
 
@@ -591,6 +597,112 @@ struct CtaCulledTris {
       if (!more) break;
     }
     return active && !scanning;
+  }
+};
+
+// Culled tables, one thread per ray with no barriers (the glass kernels):
+// each ray walks the two-level hierarchy on its own. It tests the group
+// boxes in table order, the block boxes of each group whose box its
+// segment meets, and the 128 columns of each block whose box it meets,
+// read from device memory. The closest-hit scans (closest, nearest) bound
+// the segment by the best t so far, inclusive, so a block holding a tie at
+// it is tested, and take the lexicographic minimum of (t, row-12 original
+// index): the linear scan's winner in authoring order with strict <, whatever
+// the visit order, and a sphere or plane (lower indices) keeps a tie. The
+// winner's global index comes from row 12, so material lookups read its
+// authoring column, never a padded one (index 2^30, which never hits).
+// tri_test rounds every product on its own, so a triangle's t is the same
+// bits in either table order. any_hit bounds the segment by hi and returns
+// at its first blocker.
+struct RayCulledTris {
+  // CTAs per SM the glass kernels ask of the register allocator for this
+  // scan (csrc/wavefront_trace.cu, wavefront_spp_trace.cu): 80 registers a
+  // thread, the linear instantiations' count. On the glass mesh at 1080p
+  // (PERF.md §6) 5 and 4 CTAs ran 3-4% and 9-10% slower.
+  static constexpr int kMinCtas = 6;
+  static __device__ __forceinline__ RayCulledTris make() { return RayCulledTris{}; }
+  __device__ __forceinline__ bool any(bool p) const { return p; }
+
+  // block(b) for each block b whose box and whose group's box the segment
+  // [0, bound()] meets, in table order, until block returns false. Each
+  // window of kWindow blocks is tested against the bound at its start
+  // (CtaCulledTris::meets), and each block it meets again against the
+  // bound when its turn comes. The loop runs over this lane's own blocks,
+  // so a warp's lanes test different blocks side by side: a warp takes as
+  // many turns as its busiest lane, not one per block any lane meets.
+  template <class Bound, class Block>
+  static __device__ __forceinline__ void walk(const Tables& T, const Slab& s, Bound&& bound,
+                                              Block&& block) {
+    for (int w0 = 0; w0 < T.n_blocks; w0 += kWindow) {
+      for (unsigned long long m = CtaCulledTris::meets(T, s, w0, bound()); m; m &= m - 1) {
+        const int b = w0 + __ffsll(static_cast<long long>(m)) - 1;
+        if (box_hit(T, s, b, bound()) && !block(b)) return;
+      }
+    }
+  }
+
+  // The lexicographic minimum of (t, gi) over block b's columns and
+  // (best, bg): t <= best and, on a tie, a lower original index. Calls
+  // win(t, column, original index) for each new best.
+  template <class Win>
+  static __device__ __forceinline__ void scan_block(const Tables& T, int b, float ox, float oy,
+                                                    float oz, float dx, float dy, float dz,
+                                                    float& best, float& bg, Win&& win) {
+    const float* c = T.tri + b * kTriBlock;
+    for (int j = 0; j < kTriBlock; ++j) {
+      float t;
+      if (!tri_hit<false>(c + j, T.tri_cols, ox, oy, oz, dx, dy, dz, t) || t > best) continue;
+      const float g = __ldg(c + j + 12 * T.tri_cols);
+      if (t < best || g < bg) {
+        best = t;
+        bg = g;
+        win(t, b * kTriBlock + j, g);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void closest(const Tables& T, bool active, float ox, float oy,
+                                          float oz, float dx, float dy, float dz, Hit& h) const {
+    if (!active) return;
+    const Slab s = make_slab(ox, oy, oz, dx, dy, dz);
+    float best = h.t, bg = h.t < kInf ? static_cast<float>(h.gi) : kInf;
+    walk(T, s, [&] { return best; }, [&](int b) {
+      scan_block(T, b, ox, oy, oz, dx, dy, dz, best, bg, [&](float t, int col, float g) {
+        h = Hit{t, tab(T.tri, T.tri_cols, 9, col), tab(T.tri, T.tri_cols, 10, col),
+                tab(T.tri, T.tri_cols, 11, col), static_cast<int>(g), col};
+      });
+      return true;
+    });
+  }
+
+  __device__ __forceinline__ bool occluded(const Tables& T, bool active, float ox, float oy,
+                                           float oz, float dx, float dy, float dz, float lo,
+                                           float hi) const {
+    if (!active) return false;
+    const Slab s = make_slab(ox, oy, oz, dx, dy, dz);
+    bool blocked = false;
+    walk(T, s, [&] { return hi; }, [&](int b) {
+      const float* c = T.tri + b * kTriBlock;
+      for (int j = 0; j < kTriBlock && !blocked; ++j) {
+        float t;
+        blocked = tri_hit<false>(c + j, T.tri_cols, ox, oy, oz, dx, dy, dz, t) && t > lo && t < hi;
+      }
+      return !blocked;
+    });
+    return blocked;
+  }
+
+  // The triangles of nearest_t_tau: lower (best, gi) by the lexicographic
+  // minimum of (t, original index).
+  __device__ __forceinline__ void nearest(const Tables& T, float ox, float oy, float oz, float dx,
+                                          float dy, float dz, float& best, int& gi) const {
+    const Slab s = make_slab(ox, oy, oz, dx, dy, dz);
+    float bg = gi >= 0 ? static_cast<float>(gi) : kInf;
+    walk(T, s, [&] { return best; }, [&](int b) {
+      scan_block(T, b, ox, oy, oz, dx, dy, dz, best, bg,
+                 [&](float, int, float g) { gi = static_cast<int>(g); });
+      return true;
+    });
   }
 };
 
@@ -1229,12 +1341,13 @@ struct Node {
 static __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
 // The march's reduced closest-hit scan (wavefront_trace.py::_nearest_t_tau):
-// the same tests, order and strict < as closest_hit, without the normal;
-// returns t (kInf on a miss), the winner's global index gi (-1 on a miss)
-// and its transparency, mat row 5.
+// the same tests, order and winner as closest_hit, without the normal, the
+// triangles by the scan `tris`; returns t (kInf on a miss), the winner's
+// global index gi (-1 on a miss) and its transparency, mat row 5.
+template <class Tris>
 static __device__ __forceinline__ float nearest_t_tau(
-    const Tables& T, float ox, float oy, float oz, float dx, float dy, float dz, float& tau,
-    int& gi) {
+    const Tables& T, const Tris& tris, float ox, float oy, float oz, float dx, float dy,
+    float dz, float& tau, int& gi) {
   float best = kInf;
   gi = -1;
   const float a = dot3(dx, dy, dz, dx, dy, dz);
@@ -1244,8 +1357,15 @@ static __device__ __forceinline__ float nearest_t_tau(
     if (sphere_t(T, i, a, inv2a, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = i; }
   for (int i = 0; i < T.np; ++i)
     if (plane_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + i; }
-  for (int i = 0; i < T.nt; ++i)
-    if (tri_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + T.np + i; }
+  // The linear loop stays here: through a member function of LinearTris it
+  // compiled the linear glass kernels and wavefront_grad.cu to other code
+  // (the adjoint 7% slower, PERF.md §6).
+  if constexpr (std::is_same_v<Tris, LinearTris>) {
+    for (int i = 0; i < T.nt; ++i)
+      if (tri_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + T.np + i; }
+  } else {
+    tris.nearest(T, ox, oy, oz, dx, dy, dz, best, gi);
+  }
   tau = gi >= 0 ? tab(T.mat, T.mat_cols, 5, gi) : 0.0f;
   return best;
 }
@@ -1263,13 +1383,14 @@ struct March {
 // is the global index of the surface whose transparency multiplied T here,
 // else -1. The state updates in the TPU kernel's order (origin, traveled,
 // T); the caller then tests the exits T <= min_t and traveled >= max_dist.
-static __device__ __forceinline__ bool march_step(const Tables& T, March& m, float dx, float dy,
-                                                  float dz, float max_dist, float bias,
-                                                  int& crossed) {
+template <class Tris>
+static __device__ __forceinline__ bool march_step(const Tables& T, const Tris& tris, March& m,
+                                                  float dx, float dy, float dz, float max_dist,
+                                                  float bias, int& crossed) {
   crossed = -1;
   float tau;
   int gi;
-  const float t = nearest_t_tau(T, m.ox, m.oy, m.oz, dx, dy, dz, tau, gi);
+  const float t = nearest_t_tau(T, tris, m.ox, m.oy, m.oz, dx, dy, dz, tau, gi);
   if (!(t < kInf)) return false;
   float step;
   if (t <= 0.0f) {
@@ -1290,18 +1411,33 @@ static __device__ __forceinline__ bool march_step(const Tables& T, March& m, flo
   return true;
 }
 
+// The linear scan's step (the glass adjoint's replay, wavefront_grad.cu).
+static __device__ __forceinline__ bool march_step(const Tables& T, March& m, float dx, float dy,
+                                                  float dz, float max_dist, float bias,
+                                                  int& crossed) {
+  return march_step(T, LinearTris{}, m, dx, dy, dz, max_dist, bias, crossed);
+}
+
 // The march for one shadow ray -> T in [0, 1], at most max_steps steps.
+template <class Tris>
 static __device__ __forceinline__ float march_T(
-    const Tables& T, float ox, float oy, float oz, float dx, float dy, float dz,
-    float max_dist, float bias, int max_steps, float min_t) {
+    const Tables& T, const Tris& tris, float ox, float oy, float oz, float dx, float dy,
+    float dz, float max_dist, float bias, int max_steps, float min_t) {
   if (!(max_dist > 0.0f)) return 1.0f;
   March m{ox, oy, oz, 0.0f, 1.0f};
   for (int it = 0; it < max_steps; ++it) {
     int crossed;
-    if (!march_step(T, m, dx, dy, dz, max_dist, bias, crossed)) break;
+    if (!march_step(T, tris, m, dx, dy, dz, max_dist, bias, crossed)) break;
     if (!(m.tr > min_t && m.traveled < max_dist)) break;
   }
   return clip01(m.tr);
+}
+
+// The linear scan's march (wavefront_grad.cu).
+static __device__ __forceinline__ float march_T(
+    const Tables& T, float ox, float oy, float oz, float dx, float dy, float dz,
+    float max_dist, float bias, int max_steps, float min_t) {
+  return march_T(T, LinearTris{}, ox, oy, oz, dx, dy, dz, max_dist, bias, max_steps, min_t);
 }
 
 // The front-facing normal (Scene.h:145-146) and the point of a node's hit.
@@ -1409,10 +1545,12 @@ static __device__ __forceinline__ bool push_node(Node* stack, int& sp, int cap, 
 // replay, wavefront_grad.cu, calls it on every hit: where it is skipped here
 // it pushes none there). A push finding the stack full is dropped and
 // counted in `dropped` (cap = max_depth + 2 bounds the DFS, so it stays 0).
-// `pops` counts the nodes popped, at most P.budget.
+// `pops` counts the nodes popped, at most P.budget. The triangles of every
+// scan go by `tris` (LinearTris, or RayCulledTris on culled tables).
+template <class Tris>
 static __device__ __forceinline__ float3 trace_wavefront_ray(
-    const Tables& T, const WavefrontParams& P, float ox, float oy, float oz, float dx,
-    float dy, float dz, int& pops, int& dropped) {
+    const Tables& T, Tris& tris, const WavefrontParams& P, float ox, float oy, float oz,
+    float dx, float dy, float dz, int& pops, int& dropped) {
   const int cap = P.max_depth + 2;
   const float bias = P.bias;
   Node stack[kMaxCap];
@@ -1429,7 +1567,7 @@ static __device__ __forceinline__ float3 trace_wavefront_ray(
       acc_b += n.w * s.z;
       continue;
     }
-    const Hit h = closest_hit(T, n.ox, n.oy, n.oz, n.dx, n.dy, n.dz);
+    const Hit h = closest_hit(T, tris, true, n.ox, n.oy, n.oz, n.dx, n.dy, n.dz);
     if (!(h.t < kInf)) {  // miss -> sky
       const float3 s = sky(n.dy);
       acc_r += n.w * s.x;
@@ -1465,10 +1603,11 @@ static __device__ __forceinline__ float3 trace_wavefront_ray(
       if (!(dist > bias && ndotl > 0.0f)) continue;
       float tr;
       if (P.march) {
-        tr = march_T(T, sox, soy, soz, ldx, ldy, ldz, dist - bias, bias, P.shadow_max_steps,
-                     P.shadow_min_t);
+        tr = march_T(T, tris, sox, soy, soz, ldx, ldy, ldz, dist - bias, bias,
+                     P.shadow_max_steps, P.shadow_min_t);
       } else {
-        tr = any_hit(T, sox, soy, soz, ldx, ldy, ldz, bias, dist - bias) ? 0.0f : 1.0f;
+        tr = any_hit(T, tris, true, sox, soy, soz, ldx, ldy, ldz, bias, dist - bias) ? 0.0f
+                                                                                      : 1.0f;
       }
       if (!(tr > bias)) continue;
       const float inv_d2 = inv_d * inv_d;

@@ -2,7 +2,7 @@
 // HDR over spp samples, each a full Whitted DFS.
 //
 // Replaces raytracingengine_tpu/kernels/wavefront_trace.py::
-// wavefront_spp_trace_pallas. One thread per pixel builds its camera ray per
+// wavefront_spp_trace_pallas, its culled scan included. One thread per pixel builds its camera ray per
 // sample as spp_trace.cu does (trace_common.cuh::camera_dir: sample 0
 // unjittered, samples 1.. with Philox4x32-10 jitter on (seed; pixel id,
 // sample), the bits of kernels/spp_trace.py::pixel_jitter), traces it with
@@ -19,12 +19,19 @@
 // CTA's threads taking pixels from a shared pool as they finish (no lane
 // waiting for another's trees), ran 29-47% slower: the lanes then pop
 // nodes of different kinds side by side, and the loop spills.
+//
+// Above 128 triangles it takes culled tables, scanned by its culled
+// instantiation over trace_common.cuh::RayCulledTris as wavefront_trace.cu's
+// is: each pixel's samples walk their own boxes, and the frame is the
+// linear instantiation's bit for bit.
 #include "trace_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128) wavefront_spp_trace_kernel(
-    rte::Tables T, rte::WavefrontParams P, const float* __restrict__ cam,
+// One thread's pixel: the body of both kernels, over the scan Tris.
+template <class Tris>
+__device__ __forceinline__ void trace_pixel(
+    const rte::Tables& T, const rte::WavefrontParams& P, const float* __restrict__ cam,
     const int* __restrict__ px, const int* __restrict__ py, float* __restrict__ out,
     int n_pixels, int width, int height, int spp, uint32_t seed, int* __restrict__ dropped) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -32,11 +39,12 @@ __global__ void __launch_bounds__(128) wavefront_spp_trace_kernel(
   const int x = px[i], y = py[i];
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
   int n_dropped = 0;
+  Tris tris = Tris::make();
   for (int s = 0; s < spp; ++s) {
     const float3 d = rte::camera_dir(cam, x, y, width, height, seed, s);
     int pops = 0;
-    const float3 c = rte::trace_wavefront_ray(T, P, cam[0], cam[1], cam[2], d.x, d.y, d.z,
-                                              pops, n_dropped);
+    const float3 c = rte::trace_wavefront_ray(T, tris, P, cam[0], cam[1], cam[2], d.x, d.y,
+                                              d.z, pops, n_dropped);
     ar += c.x;
     ag += c.y;
     ab += c.z;
@@ -48,32 +56,58 @@ __global__ void __launch_bounds__(128) wavefront_spp_trace_kernel(
   if (n_dropped) atomicAdd(dropped, n_dropped);
 }
 
+// Linear tables: the compiler's register count.
+__global__ void __launch_bounds__(128) wavefront_spp_trace_kernel(
+    rte::Tables T, rte::WavefrontParams P, const float* __restrict__ cam,
+    const int* __restrict__ px, const int* __restrict__ py, float* __restrict__ out,
+    int n_pixels, int width, int height, int spp, uint32_t seed, int* __restrict__ dropped) {
+  trace_pixel<rte::LinearTris>(T, P, cam, px, py, out, n_pixels, width, height, spp, seed,
+                               dropped);
+}
+
+// Culled tables (above 128 triangles), each ray walking the boxes on its own.
+__global__ void __launch_bounds__(128, rte::RayCulledTris::kMinCtas) wavefront_spp_trace_culled_kernel(
+    rte::Tables T, rte::WavefrontParams P, const float* __restrict__ cam,
+    const int* __restrict__ px, const int* __restrict__ py, float* __restrict__ out,
+    int n_pixels, int width, int height, int spp, uint32_t seed, int* __restrict__ dropped) {
+  trace_pixel<rte::RayCulledTris>(T, P, cam, px, py, out, n_pixels, width, height, spp, seed,
+                                  dropped);
+}
+
 }  // namespace
 
 extern "C" int rte_wavefront_spp_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
-    const float* light, int light_cols, int nl, const float* cam, const int* px,
-    const int* py, float* out, int n_pixels, int width, int height, int spp, uint32_t seed,
-    int max_depth, float bias, float min_weight, int march, int shadow_max_steps,
-    float shadow_min_t, int budget, int* dropped, void* stream) {
+    const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
+    const float* cam, const int* px, const int* py, float* out, int n_pixels, int width,
+    int height, int spp, uint32_t seed, int max_depth, float bias, float min_weight, int march,
+    int shadow_max_steps, float shadow_min_t, int budget, int* dropped, void* stream) {
   if (max_depth < 0 || max_depth + 2 > rte::kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pixels <= 0) return 0;
-  const rte::Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols,
-                                         nt, mat, mat_cols, light, light_cols, nl);
+  const rte::Tables T = rte::with_culling(
+      rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
+                       light, light_cols, nl),
+      taabb, n_blocks);
   const rte::WavefrontParams P{max_depth, bias, min_weight, march, shadow_max_steps,
                                shadow_min_t, budget};
   const int threads = 128;
   const int blocks = (n_pixels + threads - 1) / threads;
-  wavefront_spp_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T, P, cam, px, py, out, n_pixels, width, height, spp, seed, dropped);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (T.taabb) {
+    wavefront_spp_trace_culled_kernel<<<blocks, threads, 0, s>>>(
+        T, P, cam, px, py, out, n_pixels, width, height, spp, seed, dropped);
+  } else {
+    wavefront_spp_trace_kernel<<<blocks, threads, 0, s>>>(
+        T, P, cam, px, py, out, n_pixels, width, height, spp, seed, dropped);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs per SM of the kernel.
-extern "C" int rte_wavefront_spp_trace_occupancy() {
+// CTAs per SM of the kernel, on culled tables (culled != 0) or linear ones.
+extern "C" int rte_wavefront_spp_trace_occupancy(int culled) {
   int n = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wavefront_spp_trace_kernel, 128, 0);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, culled ? wavefront_spp_trace_culled_kernel : wavefront_spp_trace_kernel, 128, 0);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

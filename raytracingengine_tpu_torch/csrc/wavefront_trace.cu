@@ -3,7 +3,8 @@
 // shadows.
 //
 // Replaces raytracingengine_tpu/kernels/wavefront_trace.py::
-// wavefront_trace_pallas. The TPU kernel keeps a [cap, 8, SUB, LANE] ray
+// wavefront_trace_pallas, its culled scan (_tri_scan_blocked) included. The
+// TPU kernel keeps a [cap, 8, SUB, LANE] ray
 // stack in VMEM and pushes and pops with one-hot selects over cap for a
 // tile of lanes. Here one thread traces one ray: its stack is a local
 // array of kMaxCap nodes indexed by sp (trace_common.cuh::
@@ -27,6 +28,22 @@
 // (stack full, which cap = max_depth + 2 rules out) is counted into
 // *dropped for the wrapper to read, never silent.
 //
+// Above 128 triangles render_hdr hands the kernel culled tables
+// (kernels/chain_trace.py::pack_forward_tables_perm: blocks of 128
+// triangles in a spatial order, a box per block and per group of 8
+// blocks), and its culled instantiation runs the same DFS over
+// trace_common.cuh::RayCulledTris: each thread walks the boxes of its own
+// ray's segments, with no barrier, since each ray's DFS and shadow march
+// end on their own (the chain kernels' CTA-cooperative scan needs
+// CTA-uniform loops). Its frame and pop counts are the linear
+// instantiation's bit for bit. Each lane loops over its own met blocks, so
+// a warp's lanes test different blocks side by side: on the transparent
+// 6,016-triangle glass mesh at 1080p (PERF.md §6) that ran 38% faster
+// than walking the boxes in a loop uniform over the warp, which tests every
+// block any lane meets (the replay counts 16 blocks a ray per lane against
+// 358 for 32 x each warp's union). 6 CTAs per SM (80 registers) ran 8-12%
+// faster than 4.
+//
 // The counting instantiation (kCount) also writes, for each warp of 32
 // consecutive rays, the most nodes any of its rays popped: the glass
 // adjoint (wavefront_grad.cu) sizes its warp-interleaved tape by these
@@ -41,9 +58,10 @@
 
 namespace {
 
-template <bool kCount>
-__global__ void __launch_bounds__(128) wavefront_trace_kernel(
-    rte::Tables T, rte::WavefrontParams P, const float* __restrict__ o,
+// One thread's ray: the body of both kernels, over the scan Tris.
+template <class Tris, bool kCount>
+__device__ __forceinline__ void trace_thread(
+    const rte::Tables& T, const rte::WavefrontParams& P, const float* __restrict__ o,
     const float* __restrict__ d, float* __restrict__ out, int n_rays, int* __restrict__ dropped,
     int* __restrict__ warp_pops) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -52,7 +70,8 @@ __global__ void __launch_bounds__(128) wavefront_trace_kernel(
   }
   const long long j = kCount ? min(i, static_cast<long long>(n_rays) - 1) : i;  // the ray traced
   int pops = 0, n_dropped = 0;
-  const float3 c = rte::trace_wavefront_ray(T, P, o[3 * j], o[3 * j + 1], o[3 * j + 2],
+  Tris tris = Tris::make();
+  const float3 c = rte::trace_wavefront_ray(T, tris, P, o[3 * j], o[3 * j + 1], o[3 * j + 2],
                                             d[3 * j], d[3 * j + 1], d[3 * j + 2], pops,
                                             n_dropped);
   if (i < n_rays) {
@@ -68,24 +87,53 @@ __global__ void __launch_bounds__(128) wavefront_trace_kernel(
   }
 }
 
+// Linear tables: the compiler's register count (80).
+template <bool kCount>
+__global__ void __launch_bounds__(128) wavefront_trace_kernel(
+    rte::Tables T, rte::WavefrontParams P, const float* __restrict__ o,
+    const float* __restrict__ d, float* __restrict__ out, int n_rays, int* __restrict__ dropped,
+    int* __restrict__ warp_pops) {
+  trace_thread<rte::LinearTris, kCount>(T, P, o, d, out, n_rays, dropped, warp_pops);
+}
+
+// Culled tables (above 128 triangles), each ray walking the boxes on its own.
+template <bool kCount>
+__global__ void __launch_bounds__(128, rte::RayCulledTris::kMinCtas) wavefront_trace_culled_kernel(
+    rte::Tables T, rte::WavefrontParams P, const float* __restrict__ o,
+    const float* __restrict__ d, float* __restrict__ out, int n_rays, int* __restrict__ dropped,
+    int* __restrict__ warp_pops) {
+  trace_thread<rte::RayCulledTris, kCount>(T, P, o, d, out, n_rays, dropped, warp_pops);
+}
+
 }  // namespace
 
 extern "C" int rte_wavefront_trace(
     const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
     const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
-    const float* light, int light_cols, int nl, const float* o, const float* d, float* out,
-    int n_rays, int max_depth, float bias, float min_weight, int march, int shadow_max_steps,
-    float shadow_min_t, int budget, int* dropped, int* warp_pops, void* stream) {
+    const float* light, int light_cols, int nl, const float* taabb, int n_blocks,
+    const float* o, const float* d, float* out, int n_rays, int max_depth, float bias,
+    float min_weight, int march, int shadow_max_steps, float shadow_min_t, int budget,
+    int* dropped, int* warp_pops, void* stream) {
   if (max_depth < 0 || max_depth + 2 > rte::kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return 0;
-  const rte::Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols,
-                                         nt, mat, mat_cols, light, light_cols, nl);
+  const rte::Tables T = rte::with_culling(
+      rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt, mat, mat_cols,
+                       light, light_cols, nl),
+      taabb, n_blocks);
   const rte::WavefrontParams P{max_depth, bias, min_weight, march, shadow_max_steps,
                                shadow_min_t, budget};
   const int threads = 128;
   const int blocks = (n_rays + threads - 1) / threads;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (warp_pops) {
+  if (T.taabb) {
+    if (warp_pops) {
+      wavefront_trace_culled_kernel<true><<<blocks, threads, 0, s>>>(T, P, o, d, out, n_rays,
+                                                                    dropped, warp_pops);
+    } else {
+      wavefront_trace_culled_kernel<false><<<blocks, threads, 0, s>>>(T, P, o, d, out, n_rays,
+                                                                     dropped, nullptr);
+    }
+  } else if (warp_pops) {
     wavefront_trace_kernel<true><<<blocks, threads, 0, s>>>(T, P, o, d, out, n_rays, dropped,
                                                            warp_pops);
   } else {
@@ -95,13 +143,16 @@ extern "C" int rte_wavefront_trace(
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs per SM of the kernel, counting (count != 0) or not.
-extern "C" int rte_wavefront_trace_occupancy(int count) {
+// CTAs per SM of the kernel, counting (count != 0) or not, on culled tables
+// (culled != 0) or linear ones.
+extern "C" int rte_wavefront_trace_occupancy(int count, int culled) {
   int n = 0;
-  const cudaError_t e =
-      count ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wavefront_trace_kernel<true>, 128,
-                                                            0)
-            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wavefront_trace_kernel<false>, 128,
-                                                            0);
+  const auto occ = [&](auto kernel) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 128, 0);
+  };
+  const cudaError_t e = culled ? (count ? occ(wavefront_trace_culled_kernel<true>)
+                                        : occ(wavefront_trace_culled_kernel<false>))
+                               : (count ? occ(wavefront_trace_kernel<true>)
+                                        : occ(wavefront_trace_kernel<false>));
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

@@ -140,13 +140,12 @@ def load_library() -> ctypes.CDLL:
     # kernels/chain_trace.py::ROUTES, and chain_trace taping or not;
     # chain_grad: by route code and dynamic shared bytes; chain_grad_dense:
     # culled or not, dynamic shared bytes, global sink or not; wavefront_trace:
-    # counting or not;
-    # wavefront_spp_trace)
+    # counting or not, culled or not; wavefront_spp_trace: culled or not)
     for name, args in (("rte_chain_trace_occupancy", [_I, _I]), ("rte_spp_trace_occupancy", [_I]),
                        ("rte_chain_grad_occupancy", [_I, _I]),
                        ("rte_chain_grad_dense_occupancy", [_I, _I, _I]),
-                       ("rte_wavefront_trace_occupancy", [_I]),
-                       ("rte_wavefront_spp_trace_occupancy", [])):
+                       ("rte_wavefront_trace_occupancy", [_I, _I]),
+                       ("rte_wavefront_spp_trace_occupancy", [_I])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = _I
     # The tapes' sizes in floats: the chain tape's (max_depth, n_rays), the
@@ -157,11 +156,11 @@ def load_library() -> ctypes.CDLL:
     lib.rte_wavefront_tape_floats.restype = _LL
     # o, d, out, n_rays, ..., warp_pops (null: the kernel without the counts)
     lib.rte_wavefront_trace.argtypes = (
-        _TABLE_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES + [_P, _P]
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _I] + _WAVEFRONT_ARGTYPES + [_P, _P]
     )
     lib.rte_wavefront_trace.restype = _I
     lib.rte_wavefront_spp_trace.argtypes = (
-        _TABLE_ARGTYPES + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32]
+        _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32]
         + _WAVEFRONT_ARGTYPES + [_P]
     )
     lib.rte_wavefront_spp_trace.restype = _I

@@ -20,7 +20,8 @@ chain (opaque: reflectiveness = specular) to `max_depth`, pruned by
     direction, and row 12 = each triangle's original global index.
   * `trace_chain_plain` is the plain PyTorch version, vectorised over rays
     with Python loops over primitives, lights and depth. On culled tables
-    it scans the packed triangles TRI_BLOCK at a time as [R, TRI_BLOCK]
+    it scans the packed triangles by runs of whole blocks of TRI_BLOCK
+    (`culled_runs`: one block at a time for many rays) as [R, run]
     tensors, with no culling, and takes the lexicographic minimum of
     (t, original index): the same winner as a scan in authoring order with
     strict < (Scene.h:218-257), whatever the visit order.
@@ -404,6 +405,21 @@ def pack_forward_tables_perm(flat: FlatScene, dmean: torch.Tensor | None = None)
     return dataclasses.replace(tables, tri=tri, taabb=taabb, perm=perm)
 
 
+def linear_tables(tables: SceneTables) -> SceneTables:
+    """The linear tables of culled ones: the tri rows back in authoring
+    order, `pack_scene_tables`' values bit for bit. It is a gather of the
+    culled tri rows, so autograd carries cotangents of the result back
+    through `pack_forward_tables_perm` (the glass adjoint, which scans in
+    authoring order, takes these while the forward scans the culled
+    tables)."""
+    if not tables.culled:
+        return tables
+    scan = torch.nonzero(tables.perm >= 0).squeeze(1)
+    col = torch.empty_like(scan)
+    col[tables.perm[scan]] = scan  # the scan column of each authoring triangle
+    return dataclasses.replace(tables, tri=tables.tri[:12, col], taabb=None, perm=None)
+
+
 # ---------------------------------------------------------------------------
 # The chain kernels' thread-to-ray map
 # ---------------------------------------------------------------------------
@@ -532,9 +548,10 @@ def _tri_t(tri, i, ox, oy, oz, dx, dy, dz):
     return t_new, hit
 
 
-def _block_rows(T: _HostTables, b: int) -> list[torch.Tensor]:
-    """Rows [1, TRI_BLOCK] of culling block b of the tri table."""
-    cols = slice(b * TRI_BLOCK, (b + 1) * TRI_BLOCK)
+def _block_rows(T: _HostTables, b: int, n: int = 1) -> list[torch.Tensor]:
+    """Rows [1, n * TRI_BLOCK] of the culling blocks b .. b + n - 1 of the
+    tri table."""
+    cols = slice(b * TRI_BLOCK, (b + n) * TRI_BLOCK)
     return [T.tri_t[r, cols][None, :] for r in range(13)]
 
 
@@ -549,6 +566,14 @@ def prim_blocks(n: int, rays: int) -> list[tuple[int, int]]:
     at most 128 and of at most _SCAN_PAIRS // rays."""
     b = max(1, min(TRI_BLOCK, _SCAN_PAIRS // max(rays, 1)))
     return [(lo, min(lo + b, n)) for lo in range(0, n, b)]
+
+
+def culled_runs(n_blocks: int, rays: int) -> list[tuple[int, int]]:
+    """(first block, blocks) runs covering a culled tri table in order, each
+    at most max(1, _SCAN_PAIRS // (rays * TRI_BLOCK)) whole blocks: the
+    plain scans' tensors of [rays, blocks * TRI_BLOCK]."""
+    k = max(1, _SCAN_PAIRS // (max(rays, 1) * TRI_BLOCK))
+    return [(b, min(k, n_blocks - b)) for b in range(0, n_blocks, k)]
 
 
 def block_rows(table: torch.Tensor, lo: int, hi: int) -> list[torch.Tensor]:
@@ -586,11 +611,12 @@ def _closest_scan_pos(T: _HostTables, ox, oy, oz, dx, dy, dz, active=None):
     Spheres and planes go in blocks of columns (`prim_blocks`), each
     block's first smallest hit against the best so far, strict < first-wins:
     the per-primitive scan's winner. The triangles of plain tables go one
-    primitive at a time, the same rule. Culled triangles go one block at a time,
-    each lane taking the block's lexicographic minimum of (t, original
-    index) against its best so far, so the winner is the authoring-order
-    scan's. Only the lanes of `active` scan them (the others keep their
-    sphere and plane hits, which the caller masks)."""
+    primitive at a time, the same rule. Culled triangles go a run of whole
+    blocks at a time (`culled_runs`), each lane taking the run's
+    lexicographic minimum of (t, original index) against its best so far,
+    so the winner is the authoring-order scan's. Only the lanes of `active`
+    scan them (the others keep their sphere and plane hits, which the
+    caller masks)."""
     t = torch.full_like(ox, _INF)
     nx, ny, nz = torch.zeros_like(ox), torch.zeros_like(ox), torch.zeros_like(ox)
     gi = torch.zeros(ox.shape, dtype=torch.long, device=ox.device)
@@ -630,8 +656,8 @@ def _closest_scan_pos(T: _HostTables, ox, oy, oz, dx, dy, dz, active=None):
     bg = bgi.to(torch.float32)  # the original index of the best so far
     bpos = torch.zeros_like(bgi)
     col = lambda x: x[:, None]  # noqa: E731
-    for b in range(T.n_blocks):
-        rows = _block_rows(T, b)
+    for b, n in culled_runs(T.n_blocks, box.shape[0]):
+        rows = _block_rows(T, b, n)
         t_new, hit = _tri_t(rows, slice(None), col(box), col(boy), col(boz), col(bdx), col(bdy), col(bdz))
         tb = torch.where(hit, t_new, _INF)
         tmin = tb.amin(1)
@@ -669,8 +695,8 @@ def _closest_hit(T: _HostTables, ox, oy, oz, dx, dy, dz, active=None):
 
 def _any_hit(T: _HostTables, ox, oy, oz, dx, dy, dz, lo, hi, active=None):
     """Binary occlusion: any primitive with lo < t < hi (per lane). On
-    culled tables the triangles go block by block as [R, TRI_BLOCK]
-    tensors, for the lanes of `active` only."""
+    culled tables the triangles go by runs of whole blocks (`culled_runs`)
+    as [R, blocks * TRI_BLOCK] tensors, for the lanes of `active` only."""
     occ = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
     a_coef = dx * dx + dy * dy + dz * dz
     rays = tuple(x[:, None] for x in (ox, oy, oz, dx, dy, dz))
@@ -689,8 +715,8 @@ def _any_hit(T: _HostTables, ox, oy, oz, dx, dy, dz, lo, hi, active=None):
         return occ
     idx, (box, boy, boz, bdx, bdy, bdz, blo, bhi) = _compact(active, ox, oy, oz, dx, dy, dz, lo, hi)
     bocc = torch.zeros(box.shape, dtype=torch.bool, device=ox.device)
-    for b in range(T.n_blocks):
-        t_new, hit = _tri_t(_block_rows(T, b), slice(None), col(box), col(boy), col(boz),
+    for b, n in culled_runs(T.n_blocks, box.shape[0]):
+        t_new, hit = _tri_t(_block_rows(T, b, n), slice(None), col(box), col(boy), col(boz),
                             col(bdx), col(bdy), col(bdz))
         bocc = bocc | (hit & (t_new > col(blo)) & (t_new < col(bhi))).any(1)
     if idx is None:
@@ -817,8 +843,9 @@ def check_tables(tables: SceneTables, device: torch.device, culled_ok: bool = Fa
     for culled tables (only where `culled_ok`), the tri table is [13,
     n_culling_blocks * TRI_BLOCK] and taabb [6, n_blocks + n_groups]."""
     if tables.culled and not culled_ok:
-        raise ValueError("culled tables (pack_forward_tables_perm) reach only chain_trace, "
-                         "spp_trace and chain_grad_dense")
+        raise ValueError("culled tables (pack_forward_tables_perm) reach only the trace kernels "
+                         "(chain_trace, spp_trace, wavefront_trace, wavefront_spp_trace) and "
+                         "chain_grad_dense; the other adjoints take linear_tables(tables)")
     nb = tables.n_blocks
     rows = (4, 4, 13 if tables.culled else 12, 7, 7)
     counts = (

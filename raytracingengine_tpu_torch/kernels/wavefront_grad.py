@@ -43,7 +43,12 @@ ray's recursion tree (Scene.h:131-198), so per ray:
     `wavefront_trace` (on the card, its counting kernel), backward
     `wavefront_grad`; autograd carries the table cotangents back through
     `pack_scene_tables` and `flatten_scene` to the scene leaves, and the
-    ray cotangents to the camera.
+    ray cotangents to the camera. Given culled tables (above 128
+    triangles), the forward scans them as values and the adjoint takes
+    their linear, authoring-order tables (kernels/chain_trace.py::
+    linear_tables, a gather that autograd carries back through the
+    packing), as the JAX package's adjoint does; each ray's tree, and so
+    each warp's pop count, is the linear scan's.
 
 The march's clip rule follows jax.grad of the JAX package's XLA march
 (render/shading.py::transmittance_hard, the reference of the tests): a
@@ -85,6 +90,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     _HostTables,
     _sky,
     check_tables,
+    linear_tables,
 )
 from raytracingengine_tpu_torch.kernels.wavefront_trace import (
     _check_cfg,
@@ -439,19 +445,21 @@ wavefront_grad.launches = 0
 
 
 class WavefrontTraceFused(torch.autograd.Function):
-    """Forward `wavefront_trace`, backward `wavefront_grad`, on the tables'
-    five tensors and the rays. The forward runs on detached tensors, so the
-    forward-only wrappers keep refusing inputs that require grad. On the
-    card the forward is the counting kernel, whose per-warp counts wait in
-    ctx for the backward's tape; the backward checks the tape for overruns
-    when the backward pass ends (`wavefront_grad`'s `defer_check`)."""
+    """Forward `wavefront_trace`, backward `wavefront_grad`, on the linear
+    tables' five tensors and the rays. The forward runs on detached tensors,
+    so the forward-only wrappers keep refusing inputs that require grad; it
+    scans `culled` (the same scene's culled tables, values only) where
+    given, else the linear tables. On the card the forward is the counting
+    kernel, whose per-warp counts wait in ctx for the backward's tape; the
+    backward checks the tape for overruns when the backward pass ends
+    (`wavefront_grad`'s `defer_check`)."""
 
     @staticmethod
-    def forward(ctx, counts, cfg, o, d, sph, pl, tri, mat, light):
+    def forward(ctx, counts, cfg, culled, o, d, sph, pl, tri, mat, light):
         ctx.counts, ctx.cfg = counts, cfg
         ctx.save_for_backward(o, d, sph, pl, tri, mat, light)
-        tables = SceneTables(sph.detach(), pl.detach(), tri.detach(), mat.detach(),
-                             light.detach(), *counts)
+        tables = culled if culled is not None else SceneTables(
+            sph.detach(), pl.detach(), tri.detach(), mat.detach(), light.detach(), *counts)
         rays = (o.detach().contiguous(), d.detach().contiguous())
         ctx.warp_pops = None
         if o.device.type == "cuda":
@@ -467,7 +475,7 @@ class WavefrontTraceFused(torch.autograd.Function):
             tables, o.detach().contiguous(), d.detach().contiguous(), g.contiguous(), ctx.cfg,
             warp_pops=ctx.warp_pops, defer_check=o.device.type == "cuda",
         )
-        return (None, None, go, gd, *table_cots)
+        return (None, None, None, go, gd, *table_cots)
 
 
 def wavefront_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
@@ -478,7 +486,9 @@ def wavefront_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
 
     Without gradients it is `wavefront_trace`. With them the backward is the
     glass adjoint, for at most MAX_PRIMS primitives: a larger scene raises
-    ValueError here (render/pipeline.py routes it to `WavefrontReplay`)."""
+    ValueError here (render/pipeline.py routes it to `WavefrontReplay`).
+    Culled tables go to the forward as values; the adjoint and autograd take
+    their `linear_tables`."""
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (o, d, *tables.tensors())
     )
@@ -486,4 +496,9 @@ def wavefront_trace_fused(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
         return wavefront_trace(tables, o.contiguous(), d.contiguous(), cfg)
     _check_scope(tables)
     counts = (tables.n_spheres, tables.n_planes, tables.n_triangles, tables.n_lights)
-    return WavefrontTraceFused.apply(counts, cfg, o, d, *tables.tensors())
+    culled = None
+    if tables.culled:
+        culled = dataclasses.replace(tables, **{n: getattr(tables, n).detach()
+                                                for n in ("sph", "pl", "tri", "mat", "light")})
+        tables = linear_tables(tables)
+    return WavefrontTraceFused.apply(counts, cfg, culled, o, d, *tables.tensors())

@@ -19,14 +19,23 @@ or one any-hit scan (`"binary"`).
   * `wavefront_trace` and `wavefront_spp_trace` are the wrappers: for CPU
     tensors they call the plain versions; for CUDA tensors they launch
     csrc/wavefront_trace.cu and csrc/wavefront_spp_trace.cu and count the
-    launch in `.launches`. Both are forward-only on either device: the
-    gradient of `wavefront_trace` is kernels/wavefront_grad.py's adjoint.
+    launch in `.launches`, and per route in `.routes` (ROUTES). Both are
+    forward-only on either device: the gradient of `wavefront_trace` is
+    kernels/wavefront_grad.py's adjoint.
     `wavefront_trace(..., count=True)` (CUDA tensors) runs the counting
     kernel, which also returns, per warp of 32 rays, the most nodes one of
     its rays popped: the glass adjoint sizes its tape by them.
+  * Both take linear tables or, above TRI_BLOCK triangles, the culled
+    tables of kernels/chain_trace.py::pack_forward_tables_perm (route
+    "culled"): the kernels then walk the group and block boxes per ray
+    (csrc/trace_common.cuh::RayCulledTris), and the plain versions scan the
+    culled triangles by runs of whole blocks with the lexicographic (t,
+    original index) winner; either way the frame is the linear tables' bit
+    for bit.
 
 They replace raytracingengine_tpu/kernels/wavefront_trace.py::
-wavefront_trace_pallas and wavefront_spp_trace_pallas.
+wavefront_trace_pallas and wavefront_spp_trace_pallas, the culled scan
+`_tri_scan_blocked` of their `_dfs_trace_tile` included.
 """
 
 from __future__ import annotations
@@ -50,6 +59,8 @@ from raytracingengine_tpu_torch.kernels.spp_trace import check_pixels, mean_over
 #: Largest stack the CUDA kernels compile (csrc/trace_common.cuh kMaxCap):
 #: max_depth + 2 <= MAX_CAP.
 MAX_CAP = 32
+#: The kernels' scans, by the tables: linear, or culled (RayCulledTris).
+ROUTES = ("linear", "culled")
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +389,7 @@ def wavefront_trace(
     instantiation with `count` (CUDA tensors only: the plain adjoint tapes
     its own lockstep replay)."""
     _check_rays(o, d)
-    check_tables(tables, o.device)
+    check_tables(tables, o.device, culled_ok=True)
     _check_cfg(cfg, o.device)
     check_no_grad(o, d, *tables.tensors())
     if count and o.device.type != "cuda":
@@ -398,15 +409,18 @@ def wavefront_trace(
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_wavefront_trace(
-            *_build.table_args(tables),
+            *_build.table_args(tables), *_build.culling_args(tables),
             o.data_ptr(), d.data_ptr(), out.data_ptr(), o.shape[0],
             *_wavefront_args(cfg, _dropped_counter(o.device)),
             None if warp_pops is None else warp_pops.data_ptr(), stream,
         )
     _build.check(lib, err, "wavefront_trace")
+    route = ROUTES[tables.culled]
     wavefront_trace.launches += 1
+    wavefront_trace.routes[route] += 1
     if count:
         wavefront_trace.count_launches += 1
+        wavefront_trace.count_routes[route] += 1
         return out, warp_pops
     return out
 
@@ -424,7 +438,7 @@ def wavefront_spp_trace(
 
     CPU tensors run `wavefront_spp_trace_plain`; CUDA tensors launch the
     CUDA kernel (csrc/wavefront_spp_trace.cu) on the current stream."""
-    check_pixels(tables, camera, px, py)
+    check_pixels(tables, camera, px, py, culled_ok=True)
     _check_cfg(cfg, px.device)
     check_no_grad(camera.position, camera.focal, *tables.tensors())
     if px.device.type == "cpu":
@@ -438,18 +452,29 @@ def wavefront_spp_trace(
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rte_wavefront_spp_trace(
-            *_build.table_args(tables),
+            *_build.table_args(tables), *_build.culling_args(tables),
             cam.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(),
             px.shape[0], camera.width, camera.height, camera.spp, seed & 0xFFFFFFFF,
             *_wavefront_args(cfg, _dropped_counter(px.device)), stream,
         )
     _build.check(lib, err, "wavefront_spp_trace")
     wavefront_spp_trace.launches += 1
+    wavefront_spp_trace.routes[ROUTES[tables.culled]] += 1
     return out
 
 
-#: Kernel launches since the last reset (the CPU path does not count).
+def new_route_counts() -> dict[str, int]:
+    """Launches per route (ROUTES), all 0."""
+    return dict.fromkeys(ROUTES, 0)
+
+
+#: Kernel launches since the last reset (the CPU path does not count), in
+#: all and per route.
 wavefront_trace.launches = 0
+wavefront_trace.routes = new_route_counts()
 wavefront_spp_trace.launches = 0
-#: Of wavefront_trace's launches, those of the counting kernel (`count=True`).
+wavefront_spp_trace.routes = new_route_counts()
+#: Of wavefront_trace's launches, those of the counting kernel (`count=True`),
+#: in all and per route.
 wavefront_trace.count_launches = 0
+wavefront_trace.count_routes = new_route_counts()

@@ -30,11 +30,17 @@ chunk runs the JAX package's `_render_chunk`:
     integrate_chain_soft for `soft_primary` in chain mode (wavefront mode
     ignores `soft_primary`, as the JAX package does).
 
-Above TRI_BLOCK triangles the chain kernels take culled tables
-(`pack_forward_tables_perm`): in the loop they are packed once per chunk,
-ordered front to back along the chunk's centre rays' mean direction, and
-reused by every sample; the in-kernel AA takes them in no particular order,
-as the JAX package's spp kernel does.
+Above TRI_BLOCK triangles the kernels of either mode take culled tables
+(`pack_forward_tables_perm`), the JAX package's rule. In chain mode the
+loop packs them once per chunk, ordered front to back along the chunk's
+centre rays' mean direction, and reuses them for every sample; the
+in-kernel AA takes them in no particular order, as the JAX package's spp
+kernel does. In wavefront mode they are packed once per frame in no
+particular order, as the JAX package's glass kernels take them: a glass
+tree sends rays every way. A glass training step forwards on them and
+differentiates the linear tables they were packed from
+(kernels/wavefront_grad.py::wavefront_trace_fused); past MAX_PRIMS
+primitives `WavefrontReplay` forwards on them.
 
 The chunks are joined with torch.cat, so gradients flow through the frame.
 The device of the scene decides: CUDA tensors launch the CUDA kernels, CPU
@@ -115,8 +121,9 @@ def check_supported(mode: str, cfg: RenderConfig, spp: int = 1, grad: bool = Fal
 
 
 def _culled(flat: FlatScene, mode: str, cfg: RenderConfig) -> bool:
-    """Do the mode's kernels take culled tables for this scene?"""
-    return uses_kernels(mode, cfg) and mode == "chain" and flat.n_triangles > TRI_BLOCK
+    """Do the mode's kernels take culled tables for this scene? Above
+    TRI_BLOCK triangles, in either mode."""
+    return uses_kernels(mode, cfg) and flat.n_triangles > TRI_BLOCK
 
 
 def mean_direction(d: torch.Tensor) -> torch.Tensor:
@@ -127,14 +134,15 @@ def mean_direction(d: torch.Tensor) -> torch.Tensor:
 
 
 def _tables(flat: FlatScene, mode: str, cfg: RenderConfig, d=None) -> SceneTables | None:
-    """The kernels' tables (culled above TRI_BLOCK triangles in chain mode,
+    """The kernels' tables (culled above TRI_BLOCK triangles; in chain mode
     ordered along the mean of `d` when given), or None for the integrators."""
     if not uses_kernels(mode, cfg):
         return None
     if _culled(flat, mode, cfg):
+        dmean = None if d is None or mode != "chain" else mean_direction(d)
         # A profiler span: the packing's host cost per frame or step.
         with torch.profiler.record_function("pack_forward_tables_perm"):
-            return pack_forward_tables_perm(flat, None if d is None else mean_direction(d))
+            return pack_forward_tables_perm(flat, dmean)
     return pack_scene_tables(flat)
 
 
@@ -156,7 +164,8 @@ def _flat_leaves(flat: FlatScene) -> dict[str, torch.Tensor]:
 class WavefrontReplay(torch.autograd.Function):
     """The glass trace past the glass adjoint's MAX_PRIMS primitives, with
     gradients: the route of the JAX package's _wavefront_bwd there. The
-    forward is the `wavefront_trace` kernel (its plain version on the CPU);
+    forward is the `wavefront_trace` kernel on the frame's tables (culled
+    above TRI_BLOCK triangles; its plain version on the CPU);
     the backward warns (REPLAY_WARNING) and takes autograd of
     integrate_wavefront with `differentiable=True` (its fixed-trip replay,
     `cfg.budget()` iterations) with respect to the rays and the flat
@@ -261,7 +270,8 @@ def render_pixels(
             cfg = dataclasses.replace(cfg, use_pallas=False)
     flat = flatten_scene(scene)
     aa = in_kernel_aa(mode, cfg, camera.spp)
-    per_chunk = not aa and _culled(flat, mode, cfg)  # ordered by each chunk's centre rays
+    # chain mode: ordered by each chunk's centre rays
+    per_chunk = not aa and mode == "chain" and _culled(flat, mode, cfg)
     tables = None if per_chunk else _tables(flat, mode, cfg)
     aa_trace = wavefront_spp_trace if mode == "wavefront" else spp_trace
     chunk = max(1, min(cfg.chunk_size, stop - start))

@@ -49,6 +49,19 @@ node_children, march_T's step, camera_dir, philox_xy and uniform01. An edit
 to any of those functions must recount them; nothing checks them against
 the compiled kernels.
 
+On culled tables the glass kernels' scans (closest hit, march step,
+any-hit) count as the chain kernels' do: the slab tests of the group
+boxes and of the block boxes of each group the segment meets, and the
+tests of the blocks it meets, on the oracle's segments. `wavefront_work`
+also counts, per lane, the blocks those segments meet (`lane_blocks`)
+and, since each thread walks its own ray's blocks in a loop of its own
+(csrc/trace_common.cuh::RayCulledTris) and a warp's loop runs as many
+turns as its busiest lane's, 32 times the most blocks one lane of a warp
+meets, in each scan of the replay (`warp_blocks`; a warp is 32
+consecutive rays). `closest_tris` counts the real triangles (padding left
+out) the closest-hit and march scans test, per lane, on either route: all
+of them per scan on linear tables, those of the met blocks on culled ones.
+
 Beside the operations, `chain_work` counts the culled scans' blocks, each
 128 triangle tests:
   * per lane, the blocks of the oracle's segments above (`lane_blocks`);
@@ -78,6 +91,7 @@ from raytracingengine_tpu_torch.kernels.chain_grad import state_bounce_dense
 from raytracingengine_tpu_torch.kernels.chain_trace import (
     _INF,
     CTA_THREADS,
+    TRI_BLOCK,
     TRI_GROUP,
     SceneTables,
     _block_rows,
@@ -87,6 +101,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     _sphere_t,
     _tri_t,
     block_rows,
+    culled_runs,
     first_min,
     prim_blocks,
     thread_rays,
@@ -258,16 +273,18 @@ def _culled_ops(T: _HostTables, taabb, ox, oy, oz, dx, dy, dz, active, t_hi) -> 
         groups = meets[:, nb:]
         blocks = meets[:, :nb] & groups.repeat_interleave(TRI_GROUP, 1)
         cost = SLAB_SETUP + SLAB_TEST * (ng + TRI_GROUP * groups.sum(1).to(ox.dtype))
-        bo, bd = rays[:3], rays[3:]
-        for b in range(nb):
-            k = blocks[:, b].nonzero().squeeze(1)
+        bd = rays[3:]
+        for b, n in culled_runs(nb, j.shape[0]):  # the rays that meet a block of the run
+            met = blocks[:, b:b + n]
+            k = met.any(1).nonzero().squeeze(1)
             if k.numel() == 0:
                 continue
-            r = _block_rows(T, b)
+            r = _block_rows(T, b, n)
             dx_, dy_, dz_ = (x[k][:, None] for x in bd)
             hx, hy, hz = dy_ * r[8] - dz_ * r[7], dz_ * r[6] - dx_ * r[8], dx_ * r[7] - dy_ * r[6]
             past = (r[3] * hx + r[4] * hy + r[5] * hz).abs() > EPS
-            cost[k] += torch.where(past, float(TRI_FULL), float(TRI_PARALLEL)).sum(1)
+            tests = torch.where(past, float(TRI_FULL), float(TRI_PARALLEL))
+            cost[k] += torch.where(met[k].repeat_interleave(TRI_BLOCK, 1), tests, 0.0).sum(1)
         ops[j] = cost
     return ops
 
@@ -490,6 +507,11 @@ class WavefrontWork:
     shade_ops: float = 0.0  # fp32: shading, light loop, node_children, march steps, camera
     mufu_ops: float = 0.0  # their sqrt, rsqrt, reciprocal, exp and log
     int_ops: float = 0.0  # the AA kernel's Philox jitter
+    closest_scans: int = 0  # closest-hit and march scans, summed over rays
+    closest_tris: float = 0.0  # real triangles those scans test, per lane
+    # culled tables only, in blocks of TRI_BLOCK triangle tests, all scans:
+    lane_blocks: float = 0.0  # per lane, the oracle's segments
+    warp_blocks: float = 0.0  # 32 x the most blocks a lane of each warp of 32 rays meets, per scan
 
     def __iadd__(self, other: "WavefrontWork") -> "WavefrontWork":
         for f in dataclasses.fields(self):
@@ -503,14 +525,47 @@ class _WavefrontCounter:
 
     def __init__(self, tables: SceneTables, o: torch.Tensor):
         self.T = _HostTables(tables)
+        self.taabb = tables.taabb
         self.work = WavefrontWork(rays=o.shape[0])
         self.pops = torch.zeros(o.shape[0], dtype=torch.long, device=o.device)
+        self.n_warps = -(-o.shape[0] // 32)
+        if tables.culled:  # real triangles per block
+            self.block_tris = (tables.perm >= 0).reshape(-1, TRI_BLOCK).sum(1).to(torch.float64)
 
     def pop(self, live):
         self.pops += live.long()
 
+    def _scan(self, rays, active, lo=None, hi=None, tris_active=None) -> float:
+        """One scan's operations; on culled tables also its blocks per lane
+        and per warp, for the rays of `tris_active` (default `active`: an
+        any-hit scan's triangles go only for the rays no sphere or plane
+        blocks). Adds a closest-hit scan's (lo None) real triangle tests to
+        closest_tris."""
+        if lo is None:
+            self.work.closest_scans += int(active.sum())
+        if self.taabb is None:
+            if lo is None:
+                self.work.closest_tris += float(self.T.nt * int(active.sum()))
+            return _test_ops(self.T, *rays, active, lo=lo, hi=hi)
+        t_hit = _closest_hit(self.T, *rays, active)[0] if lo is None else None
+        ops = _test_ops(self.T, *rays, active, lo=lo, hi=hi, taabb=self.taabb, t_hit=t_hit)
+        seg = t_hit if lo is None else hi
+        idx = (active if tris_active is None else tris_active).nonzero().squeeze(1)
+        chunk = 1 << 16  # rays per [chunk, boxes] test, to bound the memory
+        for s in range(0, idx.shape[0], chunk):
+            j = idx[s:s + chunk]
+            blocks = _oracle_blocks(self.taabb, self.T.n_blocks, tuple(x[j] for x in rays), seg[j])
+            per_lane = blocks.sum(1).to(torch.float64)
+            busiest = torch.zeros(self.n_warps, dtype=torch.float64, device=per_lane.device)
+            busiest.scatter_reduce_(0, j // 32, per_lane, "amax")
+            self.work.lane_blocks += float(per_lane.sum())
+            self.work.warp_blocks += 32.0 * float(busiest.sum())
+            if lo is None:
+                self.work.closest_tris += float((blocks.to(torch.float64) @ self.block_tris).sum())
+        return ops
+
     def closest(self, ox, oy, oz, dx, dy, dz, active):
-        self.work.closest_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, active)
+        self.work.closest_ops += self._scan((ox, oy, oz, dx, dy, dz), active)
 
     def shade(self, sky, shade, sphere, children):
         n_sphere, n_children = int(sphere.sum()), int(children.sum())
@@ -529,11 +584,16 @@ class _WavefrontCounter:
     def march_step(self, ox, oy, oz, dx, dy, dz, live):
         n = int(live.sum())
         self.work.march_steps += n
-        self.work.shadow_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, live)
+        self.work.shadow_ops += self._scan((ox, oy, oz, dx, dy, dz), live)
         self.work.shade_ops += MARCH_STEP * n
 
     def any_hit(self, ox, oy, oz, dx, dy, dz, ok, lo, hi):
-        self.work.shadow_ops += _test_ops(self.T, ox, oy, oz, dx, dy, dz, ok, lo=lo, hi=hi)
+        rays = (ox, oy, oz, dx, dy, dz)
+        tris_active = None
+        if self.taabb is not None:
+            blocked = _sphere_plane(self.T, *rays, lo=torch.full_like(ox, lo), hi=hi)
+            tris_active = ok & ~blocked
+        self.work.shadow_ops += self._scan(rays, ok, lo, hi, tris_active)
 
 
 @torch.no_grad()

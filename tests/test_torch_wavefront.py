@@ -29,12 +29,18 @@ from raytracingengine_tpu.render.pipeline import render_hdr as jax_render_hdr
 from raytracingengine_tpu.render.shading import transmittance_hard as jax_transmittance_hard
 from raytracingengine_tpu.scene import SceneBuilder as JaxSceneBuilder
 from raytracingengine_tpu.scenes import builders as jax_builders
+import raytracingengine_tpu_torch.kernels.wavefront_grad as wg
 import raytracingengine_tpu_torch.kernels.wavefront_trace as wt
 import raytracingengine_tpu_torch.render.pipeline as pipeline
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
 from raytracingengine_tpu_torch.geometry.materials import Material
 from raytracingengine_tpu_torch.inverse import combine, partition
-from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
+from raytracingengine_tpu_torch.kernels.chain_trace import (
+    TRI_BLOCK,
+    TRI_GROUP,
+    pack_forward_tables_perm,
+    pack_scene_tables,
+)
 from raytracingengine_tpu_torch.kernels.spp_trace import mean_over_samples
 from raytracingengine_tpu_torch.parity import grad_leaf_mismatches, seam_budget
 from raytracingengine_tpu_torch.render.config import RenderConfig
@@ -118,6 +124,23 @@ def glass_scene(size, spp=1, pkg=builders, **kw):
     return pkg.glass_sphere_scene(width=size, height=size, spp=spp, **kw)
 
 
+def glass_mesh_scene(size, spp=1, pkg=builders, ni=3, nj=33, **kw):
+    """The glass sphere scene with dense_mesh_scene's bumpy mesh (ni x nj:
+    132 triangles by default, just past TRI_BLOCK, one group of 8 culling
+    blocks) made transparent (0.7, ior 1.3), in either package."""
+    xp = jnp if pkg is jax_builders else torch
+    glass, cam = glass_scene(size, spp, pkg, **kw)
+    mesh = pkg.dense_mesh_scene(width=size, height=size, spp=spp, ni=ni, nj=nj, **kw)[0].triangles
+    m = mesh.materials
+    mats = dataclasses.replace(m, transparency=xp.full_like(m.transparency, 0.7),
+                               refractive_index=xp.full_like(m.refractive_index, 1.3))
+    return dataclasses.replace(glass, triangles=dataclasses.replace(mesh, materials=mats)), cam
+
+
+#: The wavefront scenes of the port-vs-JAX cases.
+GLASS_SCENES = {"sphere": glass_scene, "mesh": glass_mesh_scene}
+
+
 @pytest.mark.parametrize("fn", ["transmittance_hard", "integrate_wavefront"])
 def test_fixed_trip_form_equals_while_form(fn):
     """differentiable=True runs every step (march) or every budget
@@ -152,18 +175,19 @@ def test_transmittance_grad_matches_jax():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_glass(shadow_mode, size=16):
-    """-> (rays o, d, JAX integrate_wavefront image) of glass_sphere_scene."""
-    scene, cam = glass_scene(size, pkg=jax_builders)
+def jax_glass(shadow_mode, size=16, scene_name="sphere"):
+    """-> (rays o, d, JAX integrate_wavefront image) of the GLASS_SCENES
+    scene."""
+    scene, cam = GLASS_SCENES[scene_name](size, pkg=jax_builders)
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     cfg = JaxConfig(shadow_mode=shadow_mode)
     img = jit_o0(lambda s, o, d: jax_integrate_wavefront(jax_flatten(s), o, d, cfg))(scene, o, d)
     return np.array(o), np.array(d), np.asarray(img)
 
 
-def port_glass(shadow_mode, size=16):
-    scene, _ = glass_scene(size, device="cpu")
-    o, d, ref = jax_glass(shadow_mode, size)
+def port_glass(shadow_mode, size=16, scene_name="sphere"):
+    scene, _ = GLASS_SCENES[scene_name](size, device="cpu")
+    o, d, ref = jax_glass(shadow_mode, size, scene_name)
     cfg = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
     return scene, torch.from_numpy(o), torch.from_numpy(d), cfg, ref
 
@@ -177,13 +201,25 @@ def test_integrate_wavefront_matches_jax(shadow_mode):
     assert np.isfinite(ours).all() and report.ok, report
 
 
-@pytest.mark.parametrize("shadow_mode", SHADOWS)
-def test_trace_wavefront_plain_matches_jax(shadow_mode):
-    scene, o, d, cfg, ref = port_glass(shadow_mode)
-    tables = pack_scene_tables(flatten_scene(scene))
+@pytest.mark.parametrize("scene_name, shadow_mode", [
+    pytest.param("sphere", m, id=m) for m in SHADOWS] + [
+    pytest.param("mesh", m, id=f"mesh-{m}") for m in SHADOWS])
+def test_trace_wavefront_plain_matches_jax(scene_name, shadow_mode):
+    """The plain glass trace against JAX's integrate_wavefront (16x16 on the
+    glass sphere). On the glass mesh (132 triangles, 8x8) the culled tables'
+    trace (every scan block by block, the lexicographic (t, original index)
+    winner) equals the linear tables' bit for bit, and both meet JAX."""
+    size = 16 if scene_name == "sphere" else 8
+    scene, o, d, cfg, ref = port_glass(shadow_mode, size, scene_name)
+    flat = flatten_scene(scene)
+    tables = pack_scene_tables(flat)
     ours = wt.trace_wavefront_plain(tables, o, d, cfg).numpy()
+    if scene_name == "mesh":
+        culled = pack_forward_tables_perm(flat)
+        assert flat.n_triangles > TRI_BLOCK and culled.culled and culled.n_blocks == TRI_GROUP
+        np.testing.assert_array_equal(wt.trace_wavefront_plain(culled, o, d, cfg).numpy(), ours)
     report = seam_budget(ours, ref)
-    print(f"{shadow_mode}: {report}")
+    print(f"{scene_name} {shadow_mode}: {report}")
     assert np.isfinite(ours).all() and report.ok, report
 
 
@@ -223,30 +259,44 @@ def test_wavefront_spp_plain_with_given_jitter_matches_jax():
     assert np.isfinite(ours).all() and report.ok, report
 
 
-@pytest.mark.parametrize("spp", [1, 3])
-def test_glass_render_routes_through_wavefront_wrappers(monkeypatch, spp):
+@pytest.mark.parametrize("scene_name, spp", [
+    pytest.param("sphere", 1, id="1"), pytest.param("sphere", 3, id="3"),
+    pytest.param("mesh", 1, id="mesh-1"), pytest.param("mesh", 3, id="mesh-3")])
+def test_glass_render_routes_through_wavefront_wrappers(monkeypatch, scene_name, spp):
     """use_pallas=True on a CPU glass scene goes through
     wavefront_trace_fused (spp=1; wavefront_trace without gradients) or
     wavefront_spp_trace (spp > 1) to their plain versions, no launch
     counted, and equals the integrator: render_hdr with use_pallas=False at
-    spp=1, the same AA loop over integrate_wavefront at spp > 1."""
-    calls = {"trace": 0, "spp": 0}
+    spp=1, the same AA loop over integrate_wavefront at spp > 1. The
+    wrappers get culled tables, packed once per frame, above TRI_BLOCK
+    triangles (the glass mesh) and linear ones below. On the glass mesh a
+    training step's forward (wavefront_trace, the counting kernel on the
+    card) takes the culled tables and the adjoint (wavefront_grad) the
+    linear ones."""
+    calls = {"trace": [], "spp": []}  # each call's tables: culled or not
     for name, key in (("wavefront_trace_fused", "trace"), ("wavefront_spp_trace", "spp")):
         orig = getattr(pipeline, name)
 
-        def spy(*a, _orig=orig, _key=key, **k):
-            calls[_key] += 1
-            return _orig(*a, **k)
+        def spy(tables, *a, _orig=orig, _key=key, **k):
+            calls[_key].append(tables.culled)
+            return _orig(tables, *a, **k)
 
         monkeypatch.setattr(pipeline, name, spy)
+    packs = []
+    pack = pipeline.pack_forward_tables_perm
+    monkeypatch.setattr(pipeline, "pack_forward_tables_perm",
+                        lambda *a: packs.append(a[1:]) or pack(*a))
     launches = (wt.wavefront_trace.launches, wt.wavefront_spp_trace.launches)
-    scene, cam = glass_scene(8, spp, device="cpu")
+    scene, cam = GLASS_SCENES[scene_name](8, spp, device="cpu")
     cfg = RenderConfig(use_pallas=True, chunk_size=40)
     img = pipeline.render_hdr(scene, cam, cfg, seed=5)
     assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
     assert (wt.wavefront_trace.launches, wt.wavefront_spp_trace.launches) == launches
     n_chunks = 2  # 64 pixels in chunks of 40
-    assert calls == ({"trace": n_chunks, "spp": 0} if spp == 1 else {"trace": 0, "spp": n_chunks})
+    culled = scene_name == "mesh"
+    assert packs == ([(None,)] if culled else [])  # once per frame, in no particular order
+    want = [culled] * n_chunks
+    assert calls == ({"trace": want, "spp": []} if spp == 1 else {"trace": [], "spp": want})
     cfg_xla = dataclasses.replace(cfg, use_pallas=False)
     if spp == 1:
         ref = pipeline.render_hdr(scene, cam, cfg_xla)
@@ -257,6 +307,23 @@ def test_glass_render_routes_through_wavefront_wrappers(monkeypatch, spp):
         ).reshape(8, 8, 3)
     report = seam_budget(img.numpy(), ref.numpy())
     assert report.ok, report
+    if not (culled and spp == 1):
+        return
+    seen = {}
+    for name in ("wavefront_trace", "wavefront_grad"):
+        orig = getattr(wg, name)
+
+        def spy(tables, *a, _orig=orig, _name=name, **k):
+            seen[_name] = tables.culled
+            return _orig(tables, *a, **k)
+
+        monkeypatch.setattr(wg, name, spy)
+    params, static = partition(scene)
+    _, cam4 = GLASS_SCENES[scene_name](4, device="cpu")
+    small = dataclasses.replace(cfg, max_depth=3, wavefront_budget=12)
+    pipeline.render_hdr(combine(params, static), cam4, small).sum().backward()
+    assert seen == {"wavefront_trace": True, "wavefront_grad": False}
+    assert float(params["triangles.materials.transparency"].grad.abs().sum()) > 0
 
 
 def test_head_box_default_config_matches_jax():

@@ -38,7 +38,7 @@ from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
 from raytracingengine_tpu_torch.geometry.materials import Material
 from raytracingengine_tpu_torch.inverse import combine, make_train_step, partition
 from raytracingengine_tpu_torch.kernels.chain_grad import MAX_PRIMS
-from raytracingengine_tpu_torch.kernels.chain_trace import pack_scene_tables
+from raytracingengine_tpu_torch.kernels.chain_trace import pack_forward_tables_perm, pack_scene_tables
 from raytracingengine_tpu_torch.parity import direction_cot_ok, grad_leaf_mismatches, origin_cot_ok
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.integrator import integrate_wavefront
@@ -90,18 +90,25 @@ CASES = {
                                 mode="wavefront"), (0.013, 0.007, 0.0)),
     "pane_tau_one": (lambda: jax_pane(8), lambda: port_pane(8),
                      dict(shadow_mode="march", max_depth=4, wavefront_budget=40), None),
+    # 144 triangles: culled tables for the forward, linear ones for the adjoint
+    "glass_mesh_147": (lambda: (glass_mesh_scene(JaxSceneBuilder, JaxMaterial, jax_assets, ni=3, nj=36),
+                                jax_builders.glass_sphere_scene(width=6, height=6)[1]),
+                       lambda: (glass_mesh_scene(SceneBuilder, Material, assets, ni=3, nj=36,
+                                                 device="cpu"), None),
+                       dict(shadow_mode="march", max_depth=3, wavefront_budget=12), None),
 }
 
 
-def glass_mesh_scene(pkg_builder, pkg_material, pkg_assets, **build_kw):
-    """The glass sphere scene with a transparent bumpy mesh of 520 triangles
-    in front of the glass sphere: 523 primitives, past the glass adjoint's 512."""
+def glass_mesh_scene(pkg_builder, pkg_material, pkg_assets, ni=6, nj=52, **build_kw):
+    """The glass sphere scene with a transparent bumpy mesh of nj * (2 ni - 2)
+    triangles in front of the glass sphere: by default 520, 523 primitives,
+    past the glass adjoint's 512."""
     b = pkg_builder()
     b.add_sphere((0.0, 0.0, 5.0), 1.5,
                  pkg_material(color=(1, 1, 1), transparency=0.9, refractive_index=1.5))
     b.add_sphere((1.5, -0.8, 9.0), 1.0, pkg_material(color=(0.9, 0.4, 0.1)))
     b.add_plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0), pkg_material(color=(0.8, 0.8, 0.8)))
-    verts, idx = pkg_assets.bumpy_sphere_mesh(radius=1.2, ni=6, nj=52)
+    verts, idx = pkg_assets.bumpy_sphere_mesh(radius=1.2, ni=ni, nj=nj)
     b.add_model(verts, idx, pkg_material(color=(0.6, 0.9, 0.7), transparency=0.7, refractive_index=1.3),
                 translation=(-0.3, 0.2, 3.0))
     b.add_light((-3.0, 5.0, -1.0), (1, 1, 1), 60.0)
@@ -148,14 +155,16 @@ def jax_reference(name):
 
 def port_grads(name):
     """sum(img^2) through wavefront_trace_fused on the CPU -> (loss, leaf
-    grads, d_o, d_d, params)."""
+    grads, d_o, d_d, params). The tables are render_hdr's: culled past
+    TRI_BLOCK triangles (the forward scans them, the adjoint their linear
+    tables), else linear."""
     _, make_port, cfg_kw, _ = CASES[name]
     o_np, d_np = jax_reference(name)[:2]
     scene, _ = make_port()
     params, static = partition(scene)
     o = torch.from_numpy(o_np).requires_grad_(True)
     d = torch.from_numpy(d_np).requires_grad_(True)
-    tables = pack_scene_tables(flatten_scene(combine(params, static)))
+    tables = pack_forward_tables_perm(flatten_scene(combine(params, static)))
     img = wg.wavefront_trace_fused(tables, o, d, RenderConfig(use_pallas=True, **cfg_kw))
     loss = (img * img).sum()
     loss.backward()

@@ -7,7 +7,7 @@ glass adjoint's tape stretches follow the forward's per-warp counts. The
 tests marked `gpu` need a CUDA card: they launch the kernels against their
 plain versions (the adjoints fed from the taping and counting forwards,
 directly and through the fused autograd Functions, and the wavefront
-kernels on the glass sphere too) and check that a forward kernel's CUDA
+kernels on the glass sphere and, on culled tables, on a glass mesh too) and check that a forward kernel's CUDA
 input with requires_grad raises. They skip on a host without one.
 """
 
@@ -304,34 +304,61 @@ def cuda_chain_grad_matches_plain(cuda_device, scene_name):
             assert spread <= 1e-4 * float(a.abs().max()), (case, spread)
 
 
-def cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode):
+def glass_scene(width, height, spp, device, mesh: bool):
+    """The glass sphere, or with `mesh` the same scene with
+    dense_mesh_scene's bumpy mesh at ni=3, nj=33 (132 triangles: culled
+    tables) made transparent (0.7, ior 1.3)."""
+    scene, cam = builders.glass_sphere_scene(width, height, spp=spp, device=device)
+    if not mesh:
+        return scene, cam
+    tri = builders.dense_mesh_scene(width, height, spp=spp, ni=3, nj=33, device=device)[0].triangles
+    m = tri.materials
+    mats = dataclasses.replace(m, transparency=torch.full_like(m.transparency, 0.7),
+                               refractive_index=torch.full_like(m.refractive_index, 1.3))
+    return dataclasses.replace(scene, triangles=dataclasses.replace(tri, materials=mats)), cam
+
+
+def cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh=False):
     """The wavefront kernel against trace_wavefront_plain on the glass
     sphere at 64x48 under the seam budget; render_hdr routes to it and
-    gives the same frame; no push was dropped."""
-    scene, cam = builders.glass_sphere_scene(64, 48, spp=1, device=cuda_device)
-    tables = ct.pack_scene_tables(flatten_scene(scene))
+    gives the same frame; no push was dropped. With `mesh`, on the glass
+    mesh's culled tables (route "culled"), whose frame and counts equal
+    the linear tables' bit for bit."""
+    scene, cam = glass_scene(64, 48, 1, cuda_device, mesh)
+    flat = flatten_scene(scene)
+    tables = ct.pack_forward_tables_perm(flat)
+    assert tables.culled == mesh
     o, d = cam.rays_for_pixels(*cam.pixel_grid())
     o = o.contiguous()
     cfg = RenderConfig(shadow_mode=shadow_mode, use_pallas=True)
     before = wt.wavefront_trace.launches
+    routes = dict(wt.wavefront_trace.routes)
     ours = wt.wavefront_trace(tables, o, d, cfg)
     assert wt.wavefront_trace.launches == before + 1
+    assert wt.wavefront_trace.routes[wt.ROUTES[mesh]] == routes[wt.ROUTES[mesh]] + 1
     ref = wt.trace_wavefront_plain(tables, o, d, cfg)
     frame = pipeline.render_hdr(scene, cam, cfg)
     torch.cuda.synchronize()
     assert wt.wavefront_trace.launches == before + 2
     report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-    print(f"{shadow_mode}: {report}")
+    print(f"{shadow_mode} mesh={mesh}: {report}")
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
     torch.testing.assert_close(frame.reshape(-1, 3), ours, rtol=0, atol=1e-6)
+    if mesh:
+        linear = ct.pack_scene_tables(flat)
+        torch.testing.assert_close(wt.wavefront_trace(linear, o, d, cfg), ours, rtol=0, atol=0)
+        counted = [wt.wavefront_trace(t, o, d, cfg, count=True) for t in (linear, tables)]
+        torch.testing.assert_close(counted[0][1], counted[1][1], rtol=0, atol=0)
     assert wt.dropped_pushes() == 0
 
 
-def cuda_wavefront_spp_trace_matches_plain(cuda_device):
+def cuda_wavefront_spp_trace_matches_plain(cuda_device, mesh=False):
     """The wavefront AA kernel against its plain version, spp=4 at 64x48,
-    one seed (the same Philox jitter bits)."""
-    scene, cam = builders.glass_sphere_scene(64, 48, spp=4, device=cuda_device)
-    tables = ct.pack_scene_tables(flatten_scene(scene))
+    one seed (the same Philox jitter bits); with `mesh`, on the glass
+    mesh's culled tables, equal to the linear tables' frame bit for bit."""
+    scene, cam = glass_scene(64, 48, 4, cuda_device, mesh)
+    flat = flatten_scene(scene)
+    tables = ct.pack_forward_tables_perm(flat)
     px, py = cam.pixel_grid()
     cfg = RenderConfig(use_pallas=True)
     before = wt.wavefront_spp_trace.launches
@@ -340,8 +367,11 @@ def cuda_wavefront_spp_trace_matches_plain(cuda_device):
     ref = wt.wavefront_spp_trace_plain(tables, cam, px, py, cfg, seed=9)
     torch.cuda.synchronize()
     report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-    print(f"spp=4: {report}")
+    print(f"spp=4 mesh={mesh}: {report}")
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
+    if mesh:
+        linear = wt.wavefront_spp_trace(ct.pack_scene_tables(flat), cam, px, py, cfg, seed=9)
+        torch.testing.assert_close(linear, ours, rtol=0, atol=0)
     assert wt.dropped_pushes() == 0
 
 
@@ -534,6 +564,25 @@ def test_roofline_work_counts():
     assert rl.wavefront_bound_ms(rl.WavefrontWork(rays=1, mufu_ops=67e9 / 16), 0.0) == (1.0, "MUFU operations")
     assert rl.wavefront_bound_ms(rl.WavefrontWork(rays=1, int_ops=67e9 / 4), 0.0) == (1.0, "integer operations")
 
+    # The glass kernels' culled scans (the glass mesh, 132 triangles): the
+    # closest-hit and march scans test no more real triangles than on linear
+    # tables, and as many when every box is met; the same trees; a warp's
+    # union holds each of its lanes' blocks.
+    m_scene, m_cam = glass_scene(8, 6, 1, "cpu", mesh=True)
+    m_flat = flatten_scene(m_scene)
+    mo, md = (x.contiguous() for x in m_cam.rays_for_pixels(*m_cam.pixel_grid()))
+    m_cfg = RenderConfig(use_pallas=True, max_depth=3)
+    culled = ct.pack_forward_tables_perm(m_flat)
+    everywhere = culled.taabb.clone()
+    everywhere[:3], everywhere[3:] = -1e30, 1e30
+    lin, cul, met = (rl.wavefront_work(t, mo, md, m_cfg) for t in (
+        ct.pack_scene_tables(m_flat), culled, dataclasses.replace(culled, taabb=everywhere)))
+    assert lin.pops == cul.pops == met.pops and lin.march_steps == cul.march_steps > 0
+    assert 0 < cul.closest_tris < lin.closest_tris == met.closest_tris
+    assert lin.lane_blocks == lin.warp_blocks == 0 and 0 < cul.lane_blocks <= cul.warp_blocks
+    assert cul.lane_blocks < met.lane_blocks <= met.warp_blocks
+    assert 0 < rl.work_ops(cul) < rl.work_ops(lin) and cul.shade_ops == lin.shade_ops
+
 
 @pytest.mark.gpu
 def test_cuda_wrappers_match_plain(cuda_device):
@@ -544,8 +593,9 @@ def test_cuda_wrappers_match_plain(cuda_device):
         cuda_kernels_match_plain(cuda_device, spp)
     for scene_name in ('head_box', 'spheres'):
         cuda_chain_grad_matches_plain(cuda_device, scene_name)
-    for shadow_mode in ('binary', 'march'):
-        cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode)
-    cuda_wavefront_spp_trace_matches_plain(cuda_device)
+    for mesh in (False, True):
+        for shadow_mode in ('binary', 'march'):
+            cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh)
+        cuda_wavefront_spp_trace_matches_plain(cuda_device, mesh)
     for shadow_mode in ('binary', 'march'):
         cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode)
