@@ -32,7 +32,14 @@ as render_hdr and the training steps call them:
                        wavefront_trace at march, on its linear tables and,
                        where this checkout's glass wrappers take them, on
                        its culled tables, with each output's hash (the two
-                       routes' frames must be equal)
+                       routes' frames must be equal); culled wavefront_trace
+                       at march with the 50,800-triangle mesh; the
+                       crossover, culled and linear wavefront_trace at march
+                       in turns with meshes of 132 and 320 triangles and
+                       chip_smoke.py phase 21's 560
+  (--glass-culled)     the glass mesh's culled kernels alone (6,016 and
+                       50,800 triangles), for timing variants of the culled
+                       scan in turns
 
 It also prints ptxas' register report of the build and, for each trace
 kernel function, its SASS instruction count and opcode mix (cuobjdump): the
@@ -56,6 +63,7 @@ Run on a machine with one CUDA card:
     python3 chip_kernel_times.py              # every kernel above
     python3 chip_kernel_times.py --head-box   # the head-box kernels only
     python3 chip_kernel_times.py --glass      # the glass kernels and step only
+    python3 chip_kernel_times.py --glass-culled  # the glass mesh's culled kernels only
     python3 chip_kernel_times.py --adjoints   # the adjoints, their forwards, the steps
     python3 chip_kernel_times.py --chain-grad # chain_trace and chain_grad only, no reports
     python3 chip_kernel_times.py --glass-step # the glass training step only, no reports
@@ -91,9 +99,10 @@ SASS_CLASSES = {
 SASS_OPS = tuple(op for ops in SASS_CLASSES.values() for op in ops)
 
 
-def sass_functions(lib: Path) -> dict[str, list[tuple[int, str, int | None]]]:
+def sass_functions(lib: Path) -> dict[str, list[tuple[int, str, int | None, str]]]:
     """Kernel function -> its SASS as (address, opcode, branch target or
-    None), by `cuobjdump -sass` (an empty dict where cuobjdump is missing)."""
+    None, the whole instruction), by `cuobjdump -sass` (an empty dict where
+    cuobjdump is missing)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
@@ -111,25 +120,32 @@ def sass_functions(lib: Path) -> dict[str, list[tuple[int, str, int | None]]]:
         if name and m:
             op = m.group(2).split(".")[0]
             t = re.search(r"0x([0-9a-f]+)", m.group(3)) if op == "BRA" else None
-            funcs[name].append((int(m.group(1), 16), op, int(t.group(1), 16) if t else None))
+            funcs[name].append((int(m.group(1), 16), op, int(t.group(1), 16) if t else None,
+                                m.group(0)))
     return funcs
 
 
 def opcode_mix(instrs) -> str:
-    c = Counter(op for _, op, _ in instrs)
+    c = Counter(x[1] for x in instrs)
     return f"{len(instrs)} instructions, " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS)
+
+
+def sass_hash(instrs) -> str:
+    """A hash of the whole instruction stream (operands included): equal
+    hashes, the same code."""
+    return hashlib.sha1("\n".join(x[3] for x in instrs).encode()).hexdigest()[:12]
 
 
 def hot_loops(instrs, min_fp32: int = 30):
     """The innermost loops (a backward branch's span holding no other) with
     at least `min_fp32` fp32 instructions -> [(start, end, instructions)]."""
-    spans = [(t, a) for a, op, t in instrs if op == "BRA" and t is not None and t <= a]
+    spans = [(t, a) for a, op, t, _ in instrs if op == "BRA" and t is not None and t <= a]
     inner = [(s, e) for s, e in spans
              if not any((s2, e2) != (s, e) and s <= s2 and e2 <= e for s2, e2 in spans)]
     loops = []
     for s, e in sorted(set(inner)):
         body = [x for x in instrs if s <= x[0] <= e]
-        if sum(op in SASS_CLASSES["fp32"] for _, op, _ in body) >= min_fp32:
+        if sum(x[1] in SASS_CLASSES["fp32"] for x in body) >= min_fp32:
             loops.append((s, e, body))
     return loops
 
@@ -267,10 +283,31 @@ def glass_mesh_scene(width: int, height: int, spp: int, device, **mesh_kw):
     return dataclasses.replace(glass, triangles=dataclasses.replace(mesh, materials=mats)), cam
 
 
-def time_glass(dev, show, time_ms) -> None:
+def phase21_mesh_scene(width: int, height: int, device):
+    """chip_smoke.py phase 21's scene: the glass sphere scene and a
+    transparent bumpy mesh of 560 triangles in front of it -> (scene,
+    camera)."""
+    from raytracingengine_tpu_torch.geometry.materials import Material
+    from raytracingengine_tpu_torch.scene import SceneBuilder
+    from raytracingengine_tpu_torch.scenes import glass_sphere_scene
+    from raytracingengine_tpu_torch.scenes.assets import bumpy_sphere_mesh
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, 5.0), 1.5, Material(color=(1, 1, 1), transparency=0.9, refractive_index=1.5))
+    b.add_sphere((1.5, -0.8, 9.0), 1.0, Material(color=(0.9, 0.4, 0.1)))
+    b.add_plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0), Material(color=(0.8, 0.8, 0.8)))
+    verts, idx = bumpy_sphere_mesh(radius=1.2, ni=8, nj=40)
+    b.add_model(verts, idx, Material(color=(0.6, 0.9, 0.7), transparency=0.7, refractive_index=1.3),
+                translation=(-0.3, 0.2, 3.0))
+    b.add_light((-3.0, 5.0, -1.0), (1, 1, 1), 60.0)
+    return b.build(device=device), glass_sphere_scene(width, height, device=device)[1]
+
+
+def time_glass(dev, show, time_ms, culled_only: bool = False) -> None:
     """The glass kernels at 1080p on the glass sphere with the main path's
     camera, each with its output hash; on the glass mesh, linear and culled;
-    then the glass training step."""
+    the crossover; then the glass training step. With `culled_only`, the
+    glass mesh's culled kernels alone."""
     import dataclasses
 
     from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
@@ -285,7 +322,8 @@ def time_glass(dev, show, time_ms) -> None:
     px, py = cam.pixel_grid()
     o, d = (x.contiguous() for x in cam.rays_for_pixels(px, py))
     march = RenderConfig(use_pallas=True, chunk_size=W1080 * H1080)
-    for mode, cfg in (("march", march), ("binary", dataclasses.replace(march, shadow_mode="binary"))):
+    for mode, cfg in (("march", march), ("binary", dataclasses.replace(march, shadow_mode="binary")))[
+            :0 if culled_only else 2]:
         show(f"wavefront_trace glass 1080p {mode}",
              time_ms(lambda: wt.wavefront_trace(tables, o, d, cfg), 20), wt.wavefront_trace(tables, o, d, cfg))
         img, pops = wt.wavefront_trace(tables, o, d, cfg, count=True)
@@ -296,9 +334,10 @@ def time_glass(dev, show, time_ms) -> None:
         show(f"wavefront_grad glass 1080p {mode}",
              time_ms(lambda: wg.wavefront_grad(tables, o, d, g, cfg, warp_pops=pops), 10), out[1], out[2])
     _, cam8 = glass_sphere_scene(W1080, H1080, spp=8, device=dev)
-    show("wavefront_spp_trace glass 1080p spp=8",
-         time_ms(lambda: wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234), 10),
-         wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234))
+    if not culled_only:
+        show("wavefront_spp_trace glass 1080p spp=8",
+             time_ms(lambda: wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234), 10),
+             wt.wavefront_spp_trace(tables, cam8, px, py, march, seed=1234))
     # The glass mesh: the linear route scans 6,016 triangles per test (few
     # calls), the culled one the blocks each ray meets.
     # (~2 s a call at march, ~15 s at spp=8): every kernel in authoring
@@ -308,6 +347,8 @@ def time_glass(dev, show, time_ms) -> None:
         m_scene, _ = glass_mesh_scene(W1080, H1080, 1, dev, **kw)
         flat = flatten_scene(m_scene)
         routes = {"linear": (ct.pack_scene_tables(flat), 1), "culled": (ct.pack_forward_tables_perm(flat), 5)}
+        if culled_only:
+            del routes["linear"]
         for route, (tb, iters) in routes.items():
             name = f"glass mesh{order} 1080p, {route}"
             try:
@@ -327,6 +368,29 @@ def time_glass(dev, show, time_ms) -> None:
                 show(f"wavefront_spp_trace {name} spp=8",
                      time_ms(lambda: wt.wavefront_spp_trace(tb, cam8, px, py, march, seed=1234), 1),
                      wt.wavefront_spp_trace(tb, cam8, px, py, march, seed=1234))
+    # 50,800 triangles, culled (the linear route takes ~15 s a call there)
+    m_scene, _ = glass_mesh_scene(W1080, H1080, 1, dev, ni=128, nj=200)
+    tb = ct.pack_forward_tables_perm(flatten_scene(m_scene))
+    show("wavefront_trace glass mesh 50800 triangles 1080p, culled march",
+         time_ms(lambda: wt.wavefront_trace(tb, o, d, march), 3), wt.wavefront_trace(tb, o, d, march))
+    del m_scene, tb
+    if culled_only:
+        return
+    # the crossover near TRI_BLOCK: culled and linear in turns (linear,
+    # culled, culled, linear), as chip_smoke.py phase 23 times it
+    for label, make in (("132 triangles", lambda: glass_mesh_scene(W1080, H1080, 1, dev, ni=3, nj=33)[0]),
+                        ("320 triangles", lambda: glass_mesh_scene(W1080, H1080, 1, dev, ni=6, nj=32)[0]),
+                        ("560 triangles", lambda: phase21_mesh_scene(W1080, H1080, dev)[0])):
+        flat = flatten_scene(make())
+        lin, cul = ct.pack_scene_tables(flat), ct.pack_forward_tables_perm(flat)
+        runs = {"linear": [], "culled": []}
+        for route in ("linear", "culled", "culled", "linear"):
+            tb = lin if route == "linear" else cul
+            runs[route].append(time_ms(lambda: wt.wavefront_trace(tb, o, d, march), 5))
+        for route, ms in runs.items():
+            tb = lin if route == "linear" else cul
+            show(f"wavefront_trace crossover {label} 1080p, {route} march", sum(ms) / 2,
+                 wt.wavefront_trace(tb, o, d, march))
     time_steps(dev, show, time_ms, lambda img, _target: (img * img).mean(),
                (("glass training step 1080p", glass_sphere_scene, march),))
 
@@ -504,6 +568,8 @@ def main() -> int:
                         help="time the adjoints, their forwards and the training steps only")
     parser.add_argument("--glass", action="store_true",
                         help="time the glass kernels and the glass training step only")
+    parser.add_argument("--glass-culled", action="store_true",
+                        help="time the glass mesh's culled kernels only (variants of the culled scan)")
     parser.add_argument("--glass-step", action="store_true",
                         help="time the glass training step only, without the build and SASS "
                              "reports (for many runs in turns)")
@@ -538,10 +604,10 @@ def main() -> int:
     for line in log.splitlines() if not quiet else ():
         if "Compiling entry function" in line or "registers" in line or "stack frame" in line:
             print("  ptxas " + line.strip())
-    kinds = ("wavefront",) if args.glass else ("chain_trace", "spp_trace", "chain_grad", "wavefront")
+    kinds = ("wavefront",) if args.glass or args.glass_culled else ("chain_trace", "spp_trace", "chain_grad", "wavefront")
     for fn, instrs in sorted(sass_functions(lib_path).items()) if not quiet else ():
         if any(k in fn for k in kinds):
-            print(f"  sass {fn}: {opcode_mix(instrs)}")
+            print(f"  sass {fn}: {opcode_mix(instrs)}; code sha1 {sass_hash(instrs)}")
             if "trace" in fn:
                 for start, end, body in hot_loops(instrs):
                     print(f"    loop {start:#x}-{end:#x}: {opcode_mix(body)}")
@@ -575,8 +641,8 @@ def main() -> int:
         print(card)
         print(json.dumps({"ms": times, "card": card}))
         return 0
-    if args.glass:
-        time_glass(dev, show, time_ms)
+    if args.glass or args.glass_culled:
+        time_glass(dev, show, time_ms, culled_only=args.glass_culled)
         print(card)
         print(json.dumps({"ms": times, "card": card}))
         return 0

@@ -168,13 +168,17 @@ training step at full resolution, and times kernels against plain versions:
                 per frame); the culled wavefront_trace (march, binary,
                 counting) and wavefront_spp_trace (spp=8) against the linear
                 kernels on whole frames, bit for bit (the counting kernel's
-                pops per warp too), and against their plain versions on 4,096
-                of the rays (1,024 pixels at spp=8) under the seam budget;
+                pops per warp too; and at 61x47, whose last warp has lanes
+                past the end), and against their plain versions on 4,096
+                of the rays, 128 warps of neighbouring pixels (1,024 pixels
+                at spp=8), under the seam budget;
                 culled and linear kernel times in turns, the packing's and the
                 frames' times; the crossover at 132, 320 and 560 triangles; 3
                 training steps at 256x256 with a 320-triangle mesh (the
                 counting culled forward, wavefront_grad on the linear tables);
-                bounds from the subset's work (roofline.py), scaled
+                bounds from the subset's work (roofline.py), scaled, with the
+                culled scans' blocks per lane, per warp and the warp-
+                cooperative scan's turns
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -325,7 +329,7 @@ def main() -> int:
           "the largest stage, csrc/trace_common.cuh::kStageMaxBytes); wavefront_trace "
           f"{lib.rte_wavefront_trace_occupancy(0, 0)}, its counting kernel "
           f"{lib.rte_wavefront_trace_occupancy(1, 0)}, wavefront_spp_trace "
-          f"{lib.rte_wavefront_spp_trace_occupancy(0)}; culled (RayCulledTris): wavefront_trace "
+          f"{lib.rte_wavefront_spp_trace_occupancy(0)}; culled (WarpCulledTris): wavefront_trace "
           f"{lib.rte_wavefront_trace_occupancy(0, 1)}, counting {lib.rte_wavefront_trace_occupancy(1, 1)}, "
           f"wavefront_spp_trace {lib.rte_wavefront_spp_trace_occupancy(1)}", flush=True)
 
@@ -1159,7 +1163,7 @@ def main() -> int:
                 "counting": wt.wavefront_trace.count_launches,
                 "wavefront_spp_trace": wt.wavefront_spp_trace.launches,
                 "wavefront_grad": wg.wavefront_grad.launches,
-                # the glass kernels' culled instantiations (RayCulledTris)
+                # the glass kernels' culled instantiations (WarpCulledTris)
                 "culled": wt.wavefront_trace.routes["culled"],
                 "culled counting": wt.wavefront_trace.count_routes["culled"],
                 "spp culled": wt.wavefront_spp_trace.routes["culled"]}
@@ -1773,7 +1777,11 @@ def main() -> int:
     tm_o = tm_o.contiguous()
     tm_lin, tm_tables = ct.pack_scene_tables(tm_flat), ct.pack_forward_tables_perm(tm_flat)
     rays1 = W1080 * H1080
-    sub = torch.arange(0, rays1, rays1 // 4096, device=dev)[:4096]
+    # 4,096 of the rays: 128 of the kernels' warps (32 neighbouring pixels of
+    # a row each), spread evenly over the frame, so that the replay's
+    # per-warp counts (roofline.py: warp_blocks, vote_blocks) are warps'
+    sub = ((torch.arange(128, device=dev) * (rays1 // 128)) // 32 * 32)[:, None]
+    sub = (sub + torch.arange(32, device=dev)).reshape(-1)
     sub8 = sub[::4]  # 1,024 pixels for the AA kernel's plain version (8 samples each)
     tm_out, tm_reports, tm_plain_ms, tm_equal = {}, {}, {}, {}
 
@@ -1831,6 +1839,24 @@ def main() -> int:
     q_spp = {name: once_ms(lambda: wt.wavefront_spp_trace(tb, q_cam8, qx, qy, tm_cfg, seed=1234))
              for name, tb in (("culled", tm_tables), ("linear", tm_lin))}
     frames_equal("wavefront_spp_trace spp=8, 240x135", q_spp["culled"][0], q_spp["linear"][0])
+    # a tail warp: 61x47 = 2,867 rays (pixels), not a multiple of 32, so the
+    # last warp's lanes past the end join the culled kernels' votes
+    t_scene, t_cam = transparent_mesh_scene(61, 47, 8, dev)
+    t_flat = flatten_scene(t_scene)
+    t_lin, t_cul = ct.pack_scene_tables(t_flat), ct.pack_forward_tables_perm(t_flat)
+    tx, ty = t_cam.pixel_grid()
+    t_o, t_d = t_cam.rays_for_pixels(tx, ty)
+    t_o = t_o.contiguous()
+    t_count = {name: wt.wavefront_trace(tb, t_o, t_d, tm_cfg, count=True) for name, tb in (("culled", t_cul),
+                                                                                       ("linear", t_lin))}
+    frames_equal("wavefront_trace counting, 61x47 (frame)", t_count["culled"][0], t_count["linear"][0])
+    frames_equal("wavefront_trace counting, 61x47 (pops per warp)", t_count["culled"][1][:, None],
+                 t_count["linear"][1][:, None])
+    frames_equal("wavefront_trace binary, 61x47", wt.wavefront_trace(t_cul, t_o, t_d, tm_bin),
+                 wt.wavefront_trace(t_lin, t_o, t_d, tm_bin))
+    frames_equal("wavefront_spp_trace spp=8, 61x47", wt.wavefront_spp_trace(t_cul, t_cam, tx, ty, tm_cfg, seed=7),
+                 wt.wavefront_spp_trace(t_lin, t_cam, tx, ty, tm_cfg, seed=7))
+    del t_scene, t_flat, t_lin, t_cul, t_o, t_d, t_count
     s_scene, _ = transparent_mesh_scene(W1080, H1080, 1, dev, scramble=5)
     s_flat = flatten_scene(s_scene)
     s_tables = ct.pack_forward_tables_perm(s_flat)
@@ -1917,7 +1943,8 @@ def main() -> int:
     def scaled(w: WavefrontWork, k: float, rays: int) -> WavefrontWork:
         return dataclasses.replace(w, rays=rays, **{f: getattr(w, f) * k for f in (
             "pops", "closest_ops", "shadow_rays", "march_steps", "shadow_ops", "shade_ops", "mufu_ops",
-            "int_ops", "closest_scans", "closest_tris", "lane_blocks", "warp_blocks")})
+            "int_ops", "closest_scans", "closest_tris", "lane_blocks", "warp_blocks", "visit_blocks",
+            "vote_blocks")})
 
     tm_work = {mode: wavefront_work(tm_tables, tm_o[sub], tm_d[sub], mcfg)
                for mode, mcfg in (("march", tm_cfg), ("binary", tm_bin))}
@@ -1943,8 +1970,10 @@ def main() -> int:
         print(f"  glass mesh work ({mode}, {n} rays): {w.pops / n:.3f} nodes/ray, closest-hit "
               f"{w.closest_ops / n:.0f} + shadow {w.shadow_ops / n:.0f} fp32 test ops/ray (culled traversal), "
               f"shading {w.shade_ops / n:.0f}; blocks of 128 tests per ray: per lane {w.lane_blocks / n:.3f}, "
-              f"32 x each warp's busiest lane {w.warp_blocks / n:.3f} (lanes use {w.lane_blocks / max(w.warp_blocks, 1):.3f} "
-              f"of a warp's block turns); bound {tm_bounds[mode][0]:.4f} ms ({tm_bounds[mode][1]}) "
+              f"32 x each warp's busiest lane {w.warp_blocks / n:.3f} (a loop per lane: lanes use "
+              f"{w.lane_blocks / max(w.warp_blocks, 1):.3f} of its turns), the warp-cooperative scan's turns "
+              f"{w.coop_blocks / n:.3f} (the lanes' visited blocks {w.visit_blocks / n:.3f} + the warps' votes "
+              f"{w.vote_blocks / n:.3f}); bound {tm_bounds[mode][0]:.4f} ms ({tm_bounds[mode][1]}) "
               f"[H100 SXM peaks; {card}]", flush=True)
     w = tm_work["march"]
     print(f"  a closest-hit or march scan tests {w.closest_tris / w.closest_scans:.1f} of the "

@@ -16,7 +16,8 @@
 // Where the TPU kernels mask lanes of a tile, a thread here branches: the
 // whole-tile early exits of the depth, DFS and march loops become per-ray
 // exits, and the "any lane needs this light" skip of a shadow scan becomes
-// a per-ray `if`.
+// a per-ray `if`; on culled tables the glass DFS keeps the tile's exits,
+// with the warp as the tile (`trace_wavefront_warp`).
 //
 // Tables: float32, row-major [rows, cols], one column per primitive, as
 // kernels/chain_trace.py::pack_scene_tables lays them out:
@@ -40,11 +41,15 @@
 // linear scan's. Linear tables take `LinearTris`,
 // one thread per ray with no barriers; the scan is a template parameter of
 // closest_hit, any_hit and trace_ray, so a kernel that never sees culled
-// tables (chain_grad.cu) compiles without it. The glass kernels' DFS
-// (trace_wavefront_ray, and march_T, march_step and nearest_t_tau under it)
-// takes the scan as a template parameter too: `LinearTris`, or on culled
-// tables `RayCulledTris`, the same hierarchy walked by one thread per ray
-// with no barriers, since each ray's DFS and march end on their own.
+// tables (chain_grad.cu) compiles without it. The glass kernels' DFS ends
+// per ray, so no CTA barrier fits it: on linear tables `trace_wavefront_ray`
+// (and march_T, march_step, nearest_t_tau under it) scans one ray a thread,
+// and on culled tables `trace_wavefront_warp` (and the *_warp functions
+// under it) runs the same DFS with every loop that reaches a scan voted
+// over the warp, so that its scan, `WarpCulledTris`, walks the hierarchy
+// with the warp's 32 lanes together: they vote on the boxes their own
+// segments meet, and each met block's 128 tests for each ray that needs it
+// are shared among the lanes (4 a lane, coalesced loads, warp reductions).
 //
 // chain_trace.cu and spp_trace.cu take linear tables whose 16-byte stage
 // fits kStageMaxBytes through `StagedScan<K>` and `trace_packet<K>`
@@ -600,109 +605,185 @@ struct CtaCulledTris {
   }
 };
 
-// Culled tables, one thread per ray with no barriers (the glass kernels):
-// each ray walks the two-level hierarchy on its own. It tests the group
-// boxes in table order, the block boxes of each group whose box its
-// segment meets, and the 128 columns of each block whose box it meets,
-// read from device memory. The closest-hit scans (closest, nearest) bound
-// the segment by the best t so far, inclusive, so a block holding a tie at
-// it is tested, and take the lexicographic minimum of (t, row-12 original
-// index): the linear scan's winner in authoring order with strict <, whatever
-// the visit order, and a sphere or plane (lower indices) keeps a tie. The
-// winner's global index comes from row 12, so material lookups read its
-// authoring column, never a padded one (index 2^30, which never hits).
-// tri_test rounds every product on its own, so a triangle's t is the same
-// bits in either table order. any_hit bounds the segment by hi and returns
-// at its first blocker.
-struct RayCulledTris {
+// Culled tables, the glass kernels (wavefront_trace.cu,
+// wavefront_spp_trace.cu): the 32 lanes of a warp scan together, with no
+// barrier beyond the warp, since each warp's DFS and shadow marches end on
+// their own. Every lane of the warp calls each scan in step
+// (trace_wavefront_warp's loops vote through `any`), each with its own
+// `active`. Per window of kWindow blocks each lane forms the mask of the
+// blocks whose box and group box its own segment [0, bound] meets
+// (CtaCulledTris::meets), and the warp walks the OR of the masks in table
+// order. For each block it ballots the lanes that still need it (the bit
+// of their mask, and the block box against their bound now) and tests the
+// block for each of their rays in lane order: the ray is broadcast by
+// shuffles, each lane tests columns lane + 32k (k = 0..3), and the lanes
+// reduce their results. The block's rows are first copied once into the
+// warp's slice of shared memory, each row by 32 consecutive addresses.
+// A warp so issues a block's 128 tests once per ray that needs it, where a
+// loop per lane issues them 32 x its busiest lane's blocks. Each lane's
+// bound shrinks block by block in table order, as in a walk of its own, so
+// it visits the same blocks and takes the same winner: the lexicographic
+// minimum of (t, row-12 original index), the linear scan's winner in
+// authoring order with strict <, and a sphere or plane (lower indices)
+// keeps a tie. The winner's global index comes from row 12, so material
+// lookups read its authoring column, never a padded one (index 2^30, which
+// never hits). tri_test rounds every product on its own, so a triangle's t
+// is the same bits whichever lane tests it, in either table order. The
+// any-hit scan bounds the segment by hi and stops a lane at the first
+// block that blocks it.
+struct WarpCulledTris {
   // CTAs per SM the glass kernels ask of the register allocator for this
-  // scan (csrc/wavefront_trace.cu, wavefront_spp_trace.cu): 80 registers a
-  // thread, the linear instantiations' count. On the glass mesh at 1080p
-  // (PERF.md §6) 5 and 4 CTAs ran 3-4% and 9-10% slower.
+  // scan: 80 registers a thread. On the glass mesh at 1080p (PERF.md §6),
+  // 4 and 5 CTAs (128 and 96 registers) ran 5-12% slower, 8 (64, with
+  // three times the spill loads) between 2% slower and 5% faster.
   static constexpr int kMinCtas = 6;
-  static __device__ __forceinline__ RayCulledTris make() { return RayCulledTris{}; }
-  __device__ __forceinline__ bool any(bool p) const { return p; }
+  // Rows of a block a test reads, staged: v0, e1, e2 (rows 0-8) and the
+  // original index (row 12, staged as row 9).
+  static constexpr int kStageRows = 10;
+  float* S;  // this warp's stage, kStageRows rows of kTriBlock floats
 
-  // block(b) for each block b whose box and whose group's box the segment
-  // [0, bound()] meets, in table order, until block returns false. Each
-  // window of kWindow blocks is tested against the bound at its start
-  // (CtaCulledTris::meets), and each block it meets again against the
-  // bound when its turn comes. The loop runs over this lane's own blocks,
-  // so a warp's lanes test different blocks side by side: a warp takes as
-  // many turns as its busiest lane, not one per block any lane meets.
+  // Every thread of the CTA calls it: 5,120 bytes of shared memory a warp.
+  static __device__ __forceinline__ WarpCulledTris make() {
+    __shared__ float stage[kCtaThreads / 32][kStageRows * kTriBlock];
+    return WarpCulledTris{stage[threadIdx.x >> 5]};
+  }
+
+  __device__ __forceinline__ bool any(bool p) const { return __any_sync(kFullMask, p) != 0; }
+
+  // Copy block b's staged rows into this warp's stage -> this lane's first
+  // column there (S + lane). Every lane of the warp calls it; the first
+  // __syncwarp waits for the lanes still testing the previous block.
+  // Staged once for the block's rays, where the tests read a block from
+  // the L1 cache again for each ray that needs it, it ran 2-10% faster
+  // (PERF.md §6).
+  __device__ __forceinline__ const float* stage(const Tables& T, int b) const {
+    const int lane = threadIdx.x & 31;
+    const float* src = T.tri + b * kTriBlock + lane;
+    __syncwarp();
+    for (int r = 0; r < kStageRows; ++r) {
+      const int row = r < 9 ? r : 12;
+      for (int q = 0; q < kTriBlock / 32; ++q) {
+        S[r * kTriBlock + lane + 32 * q] = __ldg(src + row * T.tri_cols + 32 * q);
+      }
+    }
+    __syncwarp();
+    return S + lane;
+  }
+
+  // block(b, need) for each block b of the OR of the lanes' masks, in table
+  // order, where need, the same on every lane, is the ballot of the lanes
+  // that scan and whose segment [0, bound()] meets b and its group. The walk
+  // reads `scanning` (block may clear it) and ends once no lane scans.
   template <class Bound, class Block>
-  static __device__ __forceinline__ void walk(const Tables& T, const Slab& s, Bound&& bound,
-                                              Block&& block) {
+  static __device__ __forceinline__ void walk(const Tables& T, const Slab& s, const bool& scanning,
+                                              Bound&& bound, Block&& block) {
     for (int w0 = 0; w0 < T.n_blocks; w0 += kWindow) {
-      for (unsigned long long m = CtaCulledTris::meets(T, s, w0, bound()); m; m &= m - 1) {
+      if (!__any_sync(kFullMask, scanning)) return;
+      const unsigned long long mine = scanning ? CtaCulledTris::meets(T, s, w0, bound()) : 0ull;
+      const unsigned lo = __reduce_or_sync(kFullMask, static_cast<unsigned>(mine));
+      const unsigned hi = __reduce_or_sync(kFullMask, static_cast<unsigned>(mine >> 32));
+      for (unsigned long long m = (static_cast<unsigned long long>(hi) << 32) | lo; m; m &= m - 1) {
         const int b = w0 + __ffsll(static_cast<long long>(m)) - 1;
-        if (box_hit(T, s, b, bound()) && !block(b)) return;
+        const bool need = scanning && ((mine >> (b - w0)) & 1ull) && box_hit(T, s, b, bound());
+        const unsigned v = __ballot_sync(kFullMask, need);
+        if (v) block(b, v);
       }
     }
   }
 
-  // The lexicographic minimum of (t, gi) over block b's columns and
-  // (best, bg): t <= best and, on a tie, a lower original index. Calls
-  // win(t, column, original index) for each new best.
+  // Lower this lane's (best, bg) to the lexicographic minimum of (t,
+  // original index) over the triangles of the blocks its segment [0, best]
+  // meets, calling win(t, column, original index) for each new best. Per
+  // ray and block each lane keeps the least (t, index) of its 4 columns;
+  // t > kEps > 0, so t's bits order as t, and the warp takes the least t
+  // by one reduction and the least index among the lanes that hold it by
+  // another.
   template <class Win>
-  static __device__ __forceinline__ void scan_block(const Tables& T, int b, float ox, float oy,
-                                                    float oz, float dx, float dy, float dz,
-                                                    float& best, float& bg, Win&& win) {
-    const float* c = T.tri + b * kTriBlock;
-    for (int j = 0; j < kTriBlock; ++j) {
-      float t;
-      if (!tri_hit<false>(c + j, T.tri_cols, ox, oy, oz, dx, dy, dz, t) || t > best) continue;
-      const float g = __ldg(c + j + 12 * T.tri_cols);
-      if (t < best || g < bg) {
-        best = t;
-        bg = g;
-        win(t, b * kTriBlock + j, g);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void closest(const Tables& T, bool active, float ox, float oy,
-                                          float oz, float dx, float dy, float dz, Hit& h) const {
-    if (!active) return;
+  __device__ __forceinline__ void lowest(const Tables& T, bool active, float ox, float oy,
+                                         float oz, float dx, float dy, float dz, float& best,
+                                         float& bg, Win&& win) const {
     const Slab s = make_slab(ox, oy, oz, dx, dy, dz);
-    float best = h.t, bg = h.t < kInf ? static_cast<float>(h.gi) : kInf;
-    walk(T, s, [&] { return best; }, [&](int b) {
-      scan_block(T, b, ox, oy, oz, dx, dy, dz, best, bg, [&](float t, int col, float g) {
-        h = Hit{t, tab(T.tri, T.tri_cols, 9, col), tab(T.tri, T.tri_cols, 10, col),
-                tab(T.tri, T.tri_cols, 11, col), static_cast<int>(g), col};
-      });
-      return true;
+    const int lane = threadIdx.x & 31;
+    walk(T, s, active, [&] { return best; }, [&](int b, unsigned need) {
+      const float* c = stage(T, b);
+      for (unsigned w = need; w; w &= w - 1) {
+        const int src = __ffs(w) - 1;
+        const float rox = __shfl_sync(kFullMask, ox, src), roy = __shfl_sync(kFullMask, oy, src);
+        const float roz = __shfl_sync(kFullMask, oz, src), rdx = __shfl_sync(kFullMask, dx, src);
+        const float rdy = __shfl_sync(kFullMask, dy, src), rdz = __shfl_sync(kFullMask, dz, src);
+        float lt = kInf, lg = kInf;  // this lane's least (t, index) of its columns
+        int lq = 0;
+        for (int q = 0; q < kTriBlock / 32; ++q) {
+          float t;
+          if (!tri_hit<true>(c + 32 * q, kTriBlock, rox, roy, roz, rdx, rdy, rdz, t)) continue;
+          const float g = c[32 * q + 9 * kTriBlock];
+          if (t < lt || (t == lt && g < lg)) {
+            lt = t;
+            lg = g;
+            lq = q;
+          }
+        }
+        const unsigned tb = __reduce_min_sync(kFullMask, __float_as_uint(lt));
+        if (tb == __float_as_uint(kInf)) continue;  // no lane hit
+        const bool tie = __float_as_uint(lt) == tb;
+        const unsigned gb = __reduce_min_sync(kFullMask, tie ? static_cast<unsigned>(lg) : ~0u);
+        const int at = __ffs(__ballot_sync(kFullMask, tie && static_cast<unsigned>(lg) == gb)) - 1;
+        const int q = __shfl_sync(kFullMask, lq, at);
+        const float t = __uint_as_float(tb), g = static_cast<float>(gb);
+        if (lane == src && (t < best || (t == best && g < bg))) {
+          best = t;
+          bg = g;
+          win(t, b * kTriBlock + at + 32 * q, g);
+        }
+      }
     });
   }
 
+  // The culled triangles of closest_hit.
+  __device__ __forceinline__ void closest(const Tables& T, bool active, float ox, float oy,
+                                          float oz, float dx, float dy, float dz, Hit& h) const {
+    float best = h.t, bg = h.t < kInf ? static_cast<float>(h.gi) : kInf;
+    lowest(T, active, ox, oy, oz, dx, dy, dz, best, bg, [&](float t, int col, float g) {
+      h = Hit{t, tab(T.tri, T.tri_cols, 9, col), tab(T.tri, T.tri_cols, 10, col),
+              tab(T.tri, T.tri_cols, 11, col), static_cast<int>(g), col};
+    });
+  }
+
+  // The triangles of nearest_t_tau_warp: lower (best, gi) by the
+  // lexicographic minimum of (t, original index).
+  __device__ __forceinline__ void nearest(const Tables& T, bool active, float ox, float oy,
+                                          float oz, float dx, float dy, float dz, float& best,
+                                          int& gi) const {
+    float bg = gi >= 0 ? static_cast<float>(gi) : kInf;
+    lowest(T, active, ox, oy, oz, dx, dy, dz, best, bg,
+           [&](float, int, float g) { gi = static_cast<int>(g); });
+  }
+
+  // The culled triangles of any_hit: is there one with lo < t < hi?
   __device__ __forceinline__ bool occluded(const Tables& T, bool active, float ox, float oy,
                                            float oz, float dx, float dy, float dz, float lo,
                                            float hi) const {
-    if (!active) return false;
     const Slab s = make_slab(ox, oy, oz, dx, dy, dz);
-    bool blocked = false;
-    walk(T, s, [&] { return hi; }, [&](int b) {
-      const float* c = T.tri + b * kTriBlock;
-      for (int j = 0; j < kTriBlock && !blocked; ++j) {
-        float t;
-        blocked = tri_hit<false>(c + j, T.tri_cols, ox, oy, oz, dx, dy, dz, t) && t > lo && t < hi;
+    const int lane = threadIdx.x & 31;
+    bool scanning = active;
+    walk(T, s, scanning, [&] { return hi; }, [&](int b, unsigned need) {
+      const float* c = stage(T, b);
+      for (unsigned w = need; w; w &= w - 1) {
+        const int src = __ffs(w) - 1;
+        const float rox = __shfl_sync(kFullMask, ox, src), roy = __shfl_sync(kFullMask, oy, src);
+        const float roz = __shfl_sync(kFullMask, oz, src), rdx = __shfl_sync(kFullMask, dx, src);
+        const float rdy = __shfl_sync(kFullMask, dy, src), rdz = __shfl_sync(kFullMask, dz, src);
+        const float rlo = __shfl_sync(kFullMask, lo, src), rhi = __shfl_sync(kFullMask, hi, src);
+        bool blocked = false;
+        for (int q = 0; q < kTriBlock / 32 && !blocked; ++q) {
+          float t;
+          blocked = tri_hit<true>(c + 32 * q, kTriBlock, rox, roy, roz, rdx, rdy, rdz, t) &&
+                    t > rlo && t < rhi;
+        }
+        if (__any_sync(kFullMask, blocked) && lane == src) scanning = false;
       }
-      return !blocked;
     });
-    return blocked;
-  }
-
-  // The triangles of nearest_t_tau: lower (best, gi) by the lexicographic
-  // minimum of (t, original index).
-  __device__ __forceinline__ void nearest(const Tables& T, float ox, float oy, float oz, float dx,
-                                          float dy, float dz, float& best, int& gi) const {
-    const Slab s = make_slab(ox, oy, oz, dx, dy, dz);
-    float bg = gi >= 0 ? static_cast<float>(gi) : kInf;
-    walk(T, s, [&] { return best; }, [&](int b) {
-      scan_block(T, b, ox, oy, oz, dx, dy, dz, best, bg,
-                 [&](float, int, float g) { gi = static_cast<int>(g); });
-      return true;
-    });
+    return active && !scanning;
   }
 };
 
@@ -1359,7 +1440,8 @@ static __device__ __forceinline__ float nearest_t_tau(
     if (plane_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + i; }
   // The linear loop stays here: through a member function of LinearTris it
   // compiled the linear glass kernels and wavefront_grad.cu to other code
-  // (the adjoint 7% slower, PERF.md §6).
+  // (the adjoint 7% slower, PERF.md §6). A scan of one ray a thread with a
+  // nearest member of its own takes the other branch.
   if constexpr (std::is_same_v<Tris, LinearTris>) {
     for (int i = 0; i < T.nt; ++i)
       if (tri_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + T.np + i; }
@@ -1546,7 +1628,8 @@ static __device__ __forceinline__ bool push_node(Node* stack, int& sp, int cap, 
 // it pushes none there). A push finding the stack full is dropped and
 // counted in `dropped` (cap = max_depth + 2 bounds the DFS, so it stays 0).
 // `pops` counts the nodes popped, at most P.budget. The triangles of every
-// scan go by `tris` (LinearTris, or RayCulledTris on culled tables).
+// scan go by `tris`, LinearTris (on culled tables trace_wavefront_warp runs
+// the DFS over the warp-cooperative scan instead).
 template <class Tris>
 static __device__ __forceinline__ float3 trace_wavefront_ray(
     const Tables& T, Tris& tris, const WavefrontParams& P, float ox, float oy, float oz,
@@ -1633,6 +1716,183 @@ static __device__ __forceinline__ float3 trace_wavefront_ray(
     // node_children pushes a child only off a transparent hit (refraction,
     // Fresnel reflection) or a specular one (spec > bias): an opaque diffuse
     // hit, the floor's and most of a frame's, skips it.
+    if (tau > 0.0f || spec > bias) {
+      const Children ch = node_children(T, P, n, h, srf);
+      if (ch.push_refl) push_node(stack, sp, cap, ch.refl, dropped);
+      if (ch.push_refr) push_node(stack, sp, cap, ch.refr, dropped);
+    }
+  }
+  return make_float3(acc_r, acc_g, acc_b);
+}
+
+// ---------------------------------------------------------------------------
+// The DFS over the warp-cooperative scan (the glass kernels on culled tables)
+// ---------------------------------------------------------------------------
+// trace_wavefront_ray, march_T, march_step and nearest_t_tau again, each
+// ray's arithmetic the same and in the same order, so the frame and the
+// pops are theirs bit for bit; the loops that reach a scan run on every
+// lane of the warp until no lane needs them (WarpCulledTris::any), and a
+// lane with nothing to scan passes its scans inactive. (The functions above
+// keep their own text: the linear kernels and the glass adjoint compile to
+// the code they had.)
+
+// nearest_t_tau on culled tables, on every lane of the warp: a lane with
+// `active` false scans nothing and returns a miss.
+static __device__ __forceinline__ float nearest_t_tau_warp(
+    const Tables& T, const WarpCulledTris& tris, bool active, float ox, float oy, float oz,
+    float dx, float dy, float dz, float& tau, int& gi) {
+  float best = kInf;
+  gi = -1;
+  if (active) {
+    const float a = dot3(dx, dy, dz, dx, dy, dz);
+    const float inv2a = 0.5f / a;
+    float t;
+    for (int i = 0; i < T.ns; ++i)
+      if (sphere_t(T, i, a, inv2a, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = i; }
+    for (int i = 0; i < T.np; ++i)
+      if (plane_t(T, i, ox, oy, oz, dx, dy, dz, t) && t < best) { best = t; gi = T.ns + i; }
+  }
+  tris.nearest(T, active, ox, oy, oz, dx, dy, dz, best, gi);
+  tau = gi >= 0 ? tab(T.mat, T.mat_cols, 5, gi) : 0.0f;
+  return best;
+}
+
+// march_step on culled tables, on every lane of the warp; a lane with
+// `active` false keeps its state and returns false.
+static __device__ __forceinline__ bool march_step_warp(const Tables& T, const WarpCulledTris& tris,
+                                                       bool active, March& m, float dx, float dy,
+                                                       float dz, float max_dist, float bias) {
+  float tau;
+  int gi;
+  const float t = nearest_t_tau_warp(T, tris, active, m.ox, m.oy, m.oz, dx, dy, dz, tau, gi);
+  if (!active || !(t < kInf)) return false;
+  float step;
+  if (t <= 0.0f) {
+    step = bias;
+  } else if (t <= bias) {
+    step = t + bias;
+  } else if (m.traveled + t >= max_dist) {
+    return false;
+  } else {
+    step = t + bias;
+    m.tr *= clip01(tau);
+  }
+  m.ox += dx * step;
+  m.oy += dy * step;
+  m.oz += dz * step;
+  m.traveled += step;
+  return true;
+}
+
+// march_T on culled tables: the warp steps while any of its lanes marches
+// (at most max_steps steps); a lane with `active` false marches nothing.
+static __device__ __forceinline__ float march_T_warp(
+    const Tables& T, const WarpCulledTris& tris, bool active, float ox, float oy, float oz,
+    float dx, float dy, float dz, float max_dist, float bias, int max_steps, float min_t) {
+  bool marching = active && max_dist > 0.0f;
+  March m{ox, oy, oz, 0.0f, 1.0f};
+  for (int it = 0; it < max_steps && tris.any(marching); ++it) {
+    marching = march_step_warp(T, tris, marching, m, dx, dy, dz, max_dist, bias) &&
+               m.tr > min_t && m.traveled < max_dist;
+  }
+  return clip01(m.tr);
+}
+
+// trace_wavefront_ray on culled tables, on every lane of the warp. The DFS
+// runs while any lane has a node to pop within its budget, and the light
+// loop over every light; a lane whose node is done (none to pop, sky at
+// depth exhaustion, or a miss) passes the scans inactive. `valid` is false
+// for a lane with no ray (past the last ray of a launch): it pops nothing.
+static __device__ __forceinline__ float3 trace_wavefront_warp(
+    const Tables& T, const WavefrontParams& P, bool valid, float ox, float oy, float oz,
+    float dx, float dy, float dz, int& pops, int& dropped) {
+  WarpCulledTris tris = WarpCulledTris::make();
+  const int cap = P.max_depth + 2;
+  const float bias = P.bias;
+  Node stack[kMaxCap];
+  stack[0] = Node{ox, oy, oz, dx, dy, dz, 1.0f, 0};
+  int sp = valid ? 1 : 0;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (;;) {
+    const bool popping = sp > 0 && pops < P.budget;
+    if (!tris.any(popping)) break;
+    const Node n = stack[max(sp - 1, 0)];
+    bool to_sky = false;  // depth exhaustion (Scene.h:132-134), or a miss
+    if (popping) {
+      --sp;
+      ++pops;
+      to_sky = n.depth >= P.max_depth;
+    }
+    bool live = popping && !to_sky;
+    const Hit h = closest_hit(T, tris, live, n.ox, n.oy, n.oz, n.dx, n.dy, n.dz);
+    if (live && !(h.t < kInf)) {
+      to_sky = true;
+      live = false;
+    }
+    if (to_sky) {  // one sky term a node, as trace_wavefront_ray adds it
+      const float3 s = sky(n.dy);
+      acc_r += n.w * s.x;
+      acc_g += n.w * s.y;
+      acc_b += n.w * s.z;
+    }
+    const Surface srf = surface(n, h);
+    const float nx = srf.nx, ny = srf.ny, nz = srf.nz, px = srf.px, py = srf.py, pz = srf.pz;
+    const int c = T.mat_cols;
+    const float ar = tab(T.mat, c, 0, h.gi), ag = tab(T.mat, c, 1, h.gi);
+    const float ab = tab(T.mat, c, 2, h.gi), spec = tab(T.mat, c, 3, h.gi);
+    const float shin = tab(T.mat, c, 4, h.gi), tau_raw = tab(T.mat, c, 5, h.gi);
+    const float tau = clip01(tau_raw);
+
+    // Direct lighting (Scene.h:79-129)
+    float diff_r = 0.0f, diff_g = 0.0f, diff_b = 0.0f;
+    float spec_r = 0.0f, spec_g = 0.0f, spec_b = 0.0f;
+    const float sox = px + nx * bias, soy = py + ny * bias, soz = pz + nz * bias;
+    const bool spec_on = tau_raw <= 0.0f && spec > 0.0f;  // Scene.h:115
+    for (int li = 0; li < T.nl; ++li) {
+      const int lc = T.light_cols;
+      if (!(tab(T.light, lc, 6, li) > 0.0f)) continue;  // the same on every lane
+      const float lx = tab(T.light, lc, 0, li), ly = tab(T.light, lc, 1, li);
+      const float lz = tab(T.light, lc, 2, li);
+      const float er = tab(T.light, lc, 3, li), eg = tab(T.light, lc, 4, li);
+      const float eb = tab(T.light, lc, 5, li);
+      const float vx = lx - px, vy = ly - py, vz = lz - pz;
+      const float dist = sqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1e-30f));
+      const float inv_d = 1.0f / dist;
+      const float ldx = vx * inv_d, ldy = vy * inv_d, ldz = vz * inv_d;
+      const float ndotl = fmaxf(0.0f, nx * ldx + ny * ldy + nz * ldz);
+      const bool ok = live && dist > bias && ndotl > 0.0f;
+      if (!tris.any(ok)) continue;
+      float tr;
+      if (P.march) {
+        tr = march_T_warp(T, tris, ok, sox, soy, soz, ldx, ldy, ldz, dist - bias, bias,
+                          P.shadow_max_steps, P.shadow_min_t);
+      } else {
+        tr = any_hit(T, tris, ok, sox, soy, soz, ldx, ldy, ldz, bias, dist - bias) ? 0.0f : 1.0f;
+      }
+      if (!(ok && tr > bias)) continue;
+      const float inv_d2 = inv_d * inv_d;
+      const float contrib = inv_d2 * ndotl * tr;
+      diff_r += er * contrib;
+      diff_g += eg * contrib;
+      diff_b += eb * contrib;
+      const float hx = ldx - n.dx, hy = ldy - n.dy, hz = ldz - n.dz;
+      const float invh = rsqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-24f));
+      const float ndoth = fmaxf(0.0f, (nx * hx + ny * hy + nz * hz) * invh);
+      if (spec_on && ndoth > 0.0f) {
+        const float sf = expf(shin * logf(ndoth)) * inv_d2 * tr;
+        spec_r += er * sf;
+        spec_g += eg * sf;
+        spec_b += eb * sf;
+      }
+    }
+    if (!live) continue;
+    const float wl = n.w * (1.0f - tau);  // Scene.h:171-173
+    acc_r += wl * (ar * diff_r + spec_r * spec);
+    acc_g += wl * (ag * diff_g + spec_g * spec);
+    acc_b += wl * (ab * diff_b + spec_b * spec);
+
+    // node_children pushes a child only off a transparent hit (refraction,
+    // Fresnel reflection) or a specular one (spec > bias).
     if (tau > 0.0f || spec > bias) {
       const Children ch = node_children(T, P, n, h, srf);
       if (ch.push_refl) push_node(stack, sp, cap, ch.refl, dropped);

@@ -21,14 +21,16 @@
 // nodes of different kinds side by side, and the loop spills.
 //
 // Above 128 triangles it takes culled tables, scanned by its culled
-// instantiation over trace_common.cuh::RayCulledTris as wavefront_trace.cu's
-// is: each pixel's samples walk their own boxes, and the frame is the
-// linear instantiation's bit for bit.
+// instantiation as wavefront_trace.cu's is (trace_common.cuh::
+// trace_wavefront_warp over WarpCulledTris: the warp's lanes vote on the
+// boxes and share each met block's tests): every lane of the warp stays in
+// the sample loop, a lane past the last pixel tracing nothing, and the
+// frame is the linear instantiation's bit for bit.
 #include "trace_common.cuh"
 
 namespace {
 
-// One thread's pixel: the body of both kernels, over the scan Tris.
+// One thread's pixel over the scan Tris: the linear kernel's body.
 template <class Tris>
 __device__ __forceinline__ void trace_pixel(
     const rte::Tables& T, const rte::WavefrontParams& P, const float* __restrict__ cam,
@@ -65,13 +67,33 @@ __global__ void __launch_bounds__(128) wavefront_spp_trace_kernel(
                                dropped);
 }
 
-// Culled tables (above 128 triangles), each ray walking the boxes on its own.
-__global__ void __launch_bounds__(128, rte::RayCulledTris::kMinCtas) wavefront_spp_trace_culled_kernel(
+// Culled tables (above 128 triangles): the warp scans together, so every
+// lane stays in the sample loop; a lane past the last pixel traces nothing
+// but joins its warp's votes.
+__global__ void __launch_bounds__(128, rte::WarpCulledTris::kMinCtas) wavefront_spp_trace_culled_kernel(
     rte::Tables T, rte::WavefrontParams P, const float* __restrict__ cam,
     const int* __restrict__ px, const int* __restrict__ py, float* __restrict__ out,
     int n_pixels, int width, int height, int spp, uint32_t seed, int* __restrict__ dropped) {
-  trace_pixel<rte::RayCulledTris>(T, P, cam, px, py, out, n_pixels, width, height, spp, seed,
-                                  dropped);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = i < n_pixels;
+  const int x = valid ? px[i] : 0, y = valid ? py[i] : 0;
+  float ar = 0.0f, ag = 0.0f, ab = 0.0f;
+  int n_dropped = 0;
+  for (int s = 0; s < spp; ++s) {
+    const float3 d = rte::camera_dir(cam, x, y, width, height, seed, s);
+    int pops = 0;
+    const float3 c = rte::trace_wavefront_warp(T, P, valid, cam[0], cam[1], cam[2], d.x, d.y,
+                                               d.z, pops, n_dropped);
+    ar += c.x;
+    ag += c.y;
+    ab += c.z;
+  }
+  if (!valid) return;
+  const float inv_spp = 1.0f / static_cast<float>(spp);
+  out[3 * i] = ar * inv_spp;
+  out[3 * i + 1] = ag * inv_spp;
+  out[3 * i + 2] = ab * inv_spp;
+  if (n_dropped) atomicAdd(dropped, n_dropped);
 }
 
 }  // namespace

@@ -31,18 +31,25 @@
 // Above 128 triangles render_hdr hands the kernel culled tables
 // (kernels/chain_trace.py::pack_forward_tables_perm: blocks of 128
 // triangles in a spatial order, a box per block and per group of 8
-// blocks), and its culled instantiation runs the same DFS over
-// trace_common.cuh::RayCulledTris: each thread walks the boxes of its own
-// ray's segments, with no barrier, since each ray's DFS and shadow march
-// end on their own (the chain kernels' CTA-cooperative scan needs
-// CTA-uniform loops). Its frame and pop counts are the linear
-// instantiation's bit for bit. Each lane loops over its own met blocks, so
-// a warp's lanes test different blocks side by side: on the transparent
-// 6,016-triangle glass mesh at 1080p (PERF.md §6) that ran 38% faster
-// than walking the boxes in a loop uniform over the warp, which tests every
-// block any lane meets (the replay counts 16 blocks a ray per lane against
-// 358 for 32 x each warp's union). 6 CTAs per SM (80 registers) ran 8-12%
-// faster than 4.
+// blocks), and its culled instantiation runs the same DFS as
+// trace_common.cuh::trace_wavefront_warp over WarpCulledTris. A ray's
+// segments meet few blocks (23 of 47 a ray on the transparent
+// 6,016-triangle glass mesh at 1080p, PERF.md §6), but the lanes of a warp
+// meet different ones: a loop per lane over its own blocks runs as long as
+// its busiest lane, 98 block turns of the warp a ray with the lanes busy
+// in 23% of them. The TPU kernel's tile-synchronous DFS
+// (_dfs_trace_tile, _tri_scan_blocked) tests a block for the whole tile
+// once any lane meets it. Here the warp stays the tile but shares the
+// work: its loops vote (the DFS while any lane has a node, the march while
+// any lane marches), its lanes vote on the boxes, and each met block,
+// copied once into the warp's shared memory, is tested for each ray that
+// needs it by the 32 lanes together, 4 triangles a lane, with warp
+// reductions for the winner. The tests issued follow the lanes' own need,
+// 29 turns a ray with the votes: 4.1x faster than the loop per lane on
+// that mesh (PERF.md §6). A lane
+// whose ray is done, or past the last ray, joins the votes with nothing to
+// test. Its frame and pop counts are the linear instantiation's bit for
+// bit.
 //
 // The counting instantiation (kCount) also writes, for each warp of 32
 // consecutive rays, the most nodes any of its rays popped: the glass
@@ -58,7 +65,7 @@
 
 namespace {
 
-// One thread's ray: the body of both kernels, over the scan Tris.
+// One thread's ray over the scan Tris: the linear kernels' body.
 template <class Tris, bool kCount>
 __device__ __forceinline__ void trace_thread(
     const rte::Tables& T, const rte::WavefrontParams& P, const float* __restrict__ o,
@@ -96,13 +103,32 @@ __global__ void __launch_bounds__(128) wavefront_trace_kernel(
   trace_thread<rte::LinearTris, kCount>(T, P, o, d, out, n_rays, dropped, warp_pops);
 }
 
-// Culled tables (above 128 triangles), each ray walking the boxes on its own.
+// Culled tables (above 128 triangles): the warp scans together, so every
+// lane stays in the trace; a lane past the last ray traces nothing but
+// joins its warp's votes.
 template <bool kCount>
-__global__ void __launch_bounds__(128, rte::RayCulledTris::kMinCtas) wavefront_trace_culled_kernel(
+__global__ void __launch_bounds__(128, rte::WarpCulledTris::kMinCtas) wavefront_trace_culled_kernel(
     rte::Tables T, rte::WavefrontParams P, const float* __restrict__ o,
     const float* __restrict__ d, float* __restrict__ out, int n_rays, int* __restrict__ dropped,
     int* __restrict__ warp_pops) {
-  trace_thread<rte::RayCulledTris, kCount>(T, P, o, d, out, n_rays, dropped, warp_pops);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = i < n_rays;
+  const long long j = valid ? i : 0;
+  int pops = 0, n_dropped = 0;
+  const float3 c = rte::trace_wavefront_warp(T, P, valid, o[3 * j], o[3 * j + 1], o[3 * j + 2],
+                                             d[3 * j], d[3 * j + 1], d[3 * j + 2], pops,
+                                             n_dropped);
+  if (valid) {
+    out[3 * i] = c.x;
+    out[3 * i + 1] = c.y;
+    out[3 * i + 2] = c.z;
+    if (n_dropped) atomicAdd(dropped, n_dropped);
+  }
+  if constexpr (kCount) {
+    const int most = __reduce_max_sync(rte::kFullMask, pops);
+    const long long w = i >> 5;
+    if ((threadIdx.x & 31) == 0 && (w << 5) < n_rays) warp_pops[w] = most;
+  }
 }
 
 }  // namespace

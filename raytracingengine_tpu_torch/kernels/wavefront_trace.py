@@ -27,8 +27,9 @@ or one any-hit scan (`"binary"`).
     its rays popped: the glass adjoint sizes its tape by them.
   * Both take linear tables or, above TRI_BLOCK triangles, the culled
     tables of kernels/chain_trace.py::pack_forward_tables_perm (route
-    "culled"): the kernels then walk the group and block boxes per ray
-    (csrc/trace_common.cuh::RayCulledTris), and the plain versions scan the
+    "culled"): the kernels' warps then walk the group and block boxes
+    together, sharing each met block's tests among their lanes
+    (csrc/trace_common.cuh::WarpCulledTris), and the plain versions scan the
     culled triangles by runs of whole blocks with the lexicographic (t,
     original index) winner; either way the frame is the linear tables' bit
     for bit.
@@ -59,7 +60,7 @@ from raytracingengine_tpu_torch.kernels.spp_trace import check_pixels, mean_over
 #: Largest stack the CUDA kernels compile (csrc/trace_common.cuh kMaxCap):
 #: max_depth + 2 <= MAX_CAP.
 MAX_CAP = 32
-#: The kernels' scans, by the tables: linear, or culled (RayCulledTris).
+#: The kernels' scans, by the tables: linear, or culled (WarpCulledTris).
 ROUTES = ("linear", "culled")
 
 

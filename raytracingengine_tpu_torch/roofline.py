@@ -53,14 +53,21 @@ On culled tables the glass kernels' scans (closest hit, march step,
 any-hit) count as the chain kernels' do: the slab tests of the group
 boxes and of the block boxes of each group the segment meets, and the
 tests of the blocks it meets, on the oracle's segments. `wavefront_work`
-also counts, per lane, the blocks those segments meet (`lane_blocks`)
-and, since each thread walks its own ray's blocks in a loop of its own
-(csrc/trace_common.cuh::RayCulledTris) and a warp's loop runs as many
-turns as its busiest lane's, 32 times the most blocks one lane of a warp
-meets, in each scan of the replay (`warp_blocks`; a warp is 32
-consecutive rays). `closest_tris` counts the real triangles (padding left
-out) the closest-hit and march scans test, per lane, on either route: all
-of them per scan on linear tables, those of the met blocks on culled ones.
+also counts, in blocks of 128 tests, for each scan of the replay (a warp
+is 32 consecutive rays):
+  * per lane, the blocks those segments meet (`lane_blocks`);
+  * 32 times the most blocks one lane of a warp meets (`warp_blocks`): the
+    tests a warp issues where each lane loops over its own ray's blocks,
+    as many turns as its busiest lane's;
+  * per lane, the blocks the kernels' traversal visits (`visit_blocks`,
+    `_visit_blocks`: the chain kernels' windows and bounds), and per warp
+    the blocks of the OR of its lanes' window masks (`vote_blocks`). The
+    warp-cooperative scan (csrc/trace_common.cuh::WarpCulledTris) takes
+    one warp turn of 128 tests for each block a lane visits and one vote
+    turn for each block of the OR: `coop_blocks`, their sum.
+`closest_tris` counts the real triangles (padding left out) the closest-hit
+and march scans test, per lane, on either route: all of them per scan on
+linear tables, those of the met blocks on culled ones.
 
 Beside the operations, `chain_work` counts the culled scans' blocks, each
 128 triangle tests:
@@ -296,17 +303,20 @@ def _oracle_blocks(taabb, nb: int, rays, t_hi) -> torch.Tensor:
     return meets[:, :nb] & meets[:, nb:].repeat_interleave(TRI_GROUP, 1)
 
 
-def _visit_blocks(T: _HostTables, taabb, rays, t0, lo=None, hi=None) -> torch.Tensor:
-    """[n, nb] bool: the blocks the kernels' culled traversal tests for each
-    ray (csrc/trace_common.cuh::CtaCulledTris): windows of WINDOW blocks,
-    each block voted against the best t at the window's start (group box,
-    then block box) and re-tested against the running best t. A closest-hit
-    scan starts at t0 (the spheres' and planes' best) and lowers its bound
-    at every block's nearest hit; an any-hit scan (lo, hi) keeps [0, hi]
-    and stops after the block of its first blocker."""
+def _visit_blocks(T: _HostTables, taabb, rays, t0, lo=None, hi=None):
+    """-> ([n, nb] bool: the blocks the kernels' culled traversal tests for
+    each ray, [n, nb] bool: the blocks of each ray's window masks, which its
+    lane votes for). The traversal (csrc/trace_common.cuh::CtaCulledTris,
+    WarpCulledTris) takes windows of WINDOW blocks, each block voted
+    against the best t at the window's start (group box, then block box)
+    and re-tested against the running best t. A closest-hit scan starts at
+    t0 (the spheres' and planes' best) and lowers its bound at every
+    block's nearest hit; an any-hit scan (lo, hi) keeps [0, hi] and stops
+    after the block of its first blocker."""
     nb = T.n_blocks
     n = rays[0].shape[0]
     seen = torch.zeros((n, nb), dtype=torch.bool, device=rays[0].device)
+    voted = torch.zeros_like(seen)
     t = (t0 if lo is None else hi).clone()  # the bound of the box tests
     scanning = torch.ones(n, dtype=torch.bool, device=t.device)
     col = lambda x: x[:, None] if torch.is_tensor(x) and x.dim() else x  # noqa: E731
@@ -315,23 +325,24 @@ def _visit_blocks(T: _HostTables, taabb, rays, t0, lo=None, hi=None) -> torch.Te
         boxes = torch.cat([taabb[:, w0:w1], taabb[:, nb + w0 // TRI_GROUP:nb + w1 // TRI_GROUP]], 1)
         meets = _box_meets(boxes, *rays, t)
         wm = meets[:, :w1 - w0] & meets[:, w1 - w0:].repeat_interleave(TRI_GROUP, 1) & scanning[:, None]
-        for b in range(w0, w1):
-            k = wm[:, b - w0]
+        voted[:, w0:w1] = wm
+        for b in (w0 + wm.any(0).nonzero().squeeze(1)).tolist():  # the blocks some ray voted for
+            k = wm[:, b - w0].nonzero().squeeze(1)
+            ro = [x[k] for x in rays]
             if lo is None:
-                k = k & _box_meets(taabb[:, b:b + 1], *rays, t)[:, 0]
-            k = k.nonzero().squeeze(1)
-            if k.numel() == 0:
-                continue
+                met = _box_meets(taabb[:, b:b + 1], *ro, t[k])[:, 0]
+                k, ro = k[met], [x[met] for x in ro]
+                if k.numel() == 0:
+                    continue
             seen[k, b] = True
             r = _block_rows(T, b)
-            ro = [x[k] for x in rays]
             t_new, hit = _tri_t(r, slice(None), *(col(x) for x in ro))
             if lo is None:
                 t[k] = torch.minimum(t[k], torch.where(hit, t_new, _INF).amin(1))
             else:
                 blocked = (hit & (t_new > col(lo[k])) & (t_new < col(hi[k]))).any(1)
                 scanning[k[blocked]] = False
-    return seen
+    return seen, voted
 
 
 def _union(sets: torch.Tensor, group: torch.Tensor, n_groups: int) -> float:
@@ -355,7 +366,7 @@ def _block_counts(work: "ChainWork", T: _HostTables, taabb, rays, active, warps:
     closest = lo is None
     oracle = _oracle_blocks(taabb, T.n_blocks, ra, (t_hi if closest else hi)[idx])
     visit = (_visit_blocks(T, taabb, ra, t0[idx]) if closest
-             else _visit_blocks(T, taabb, ra, None, lo[idx], hi[idx]))
+             else _visit_blocks(T, taabb, ra, None, lo[idx], hi[idx]))[0]
     n_o, n_v = float(oracle.sum()), float(visit.sum())
     work.lane_blocks += n_o
     work.visit_blocks += n_v
@@ -512,12 +523,20 @@ class WavefrontWork:
     # culled tables only, in blocks of TRI_BLOCK triangle tests, all scans:
     lane_blocks: float = 0.0  # per lane, the oracle's segments
     warp_blocks: float = 0.0  # 32 x the most blocks a lane of each warp of 32 rays meets, per scan
+    visit_blocks: float = 0.0  # per lane, the kernels' traversal
+    vote_blocks: float = 0.0  # per warp, the OR of its lanes' window masks, per scan
 
     def __iadd__(self, other: "WavefrontWork") -> "WavefrontWork":
         for f in dataclasses.fields(self):
             a, b = getattr(self, f.name), getattr(other, f.name)
             setattr(self, f.name, max(a, b) if f.name == "max_pops" else a + b)
         return self
+
+    @property
+    def coop_blocks(self) -> float:
+        """The warp-cooperative scan's turns: a turn of 128 tests for each
+        block a lane visits, and a vote for each block of its warp's OR."""
+        return self.visit_blocks + self.vote_blocks
 
 
 class _WavefrontCounter:
@@ -551,10 +570,12 @@ class _WavefrontCounter:
         ops = _test_ops(self.T, *rays, active, lo=lo, hi=hi, taabb=self.taabb, t_hit=t_hit)
         seg = t_hit if lo is None else hi
         idx = (active if tris_active is None else tris_active).nonzero().squeeze(1)
+        votes = torch.zeros((self.n_warps, self.T.n_blocks), dtype=torch.int32, device=idx.device)
         chunk = 1 << 16  # rays per [chunk, boxes] test, to bound the memory
         for s in range(0, idx.shape[0], chunk):
             j = idx[s:s + chunk]
-            blocks = _oracle_blocks(self.taabb, self.T.n_blocks, tuple(x[j] for x in rays), seg[j])
+            ra = tuple(x[j] for x in rays)
+            blocks = _oracle_blocks(self.taabb, self.T.n_blocks, ra, seg[j])
             per_lane = blocks.sum(1).to(torch.float64)
             busiest = torch.zeros(self.n_warps, dtype=torch.float64, device=per_lane.device)
             busiest.scatter_reduce_(0, j // 32, per_lane, "amax")
@@ -562,6 +583,12 @@ class _WavefrontCounter:
             self.work.warp_blocks += 32.0 * float(busiest.sum())
             if lo is None:
                 self.work.closest_tris += float((blocks.to(torch.float64) @ self.block_tris).sum())
+                visit, voted = _visit_blocks(self.T, self.taabb, ra, _sphere_plane(self.T, *ra))
+            else:
+                visit, voted = _visit_blocks(self.T, self.taabb, ra, None, torch.full_like(ra[0], lo), hi[j])
+            self.work.visit_blocks += float(visit.sum())
+            votes.index_add_(0, j // 32, voted.to(torch.int32))
+        self.work.vote_blocks += float((votes > 0).sum())
         return ops
 
     def closest(self, ox, oy, oz, dx, dy, dz, active):

@@ -318,13 +318,13 @@ def glass_scene(width, height, spp, device, mesh: bool):
     return dataclasses.replace(scene, triangles=dataclasses.replace(tri, materials=mats)), cam
 
 
-def cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh=False):
+def cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh=False, size=(64, 48)):
     """The wavefront kernel against trace_wavefront_plain on the glass
-    sphere at 64x48 under the seam budget; render_hdr routes to it and
-    gives the same frame; no push was dropped. With `mesh`, on the glass
-    mesh's culled tables (route "culled"), whose frame and counts equal
-    the linear tables' bit for bit."""
-    scene, cam = glass_scene(64, 48, 1, cuda_device, mesh)
+    sphere at 64x48 (or `size`) under the seam budget; render_hdr routes to
+    it and gives the same frame; no push was dropped. With `mesh`, on the
+    glass mesh's culled tables (route "culled"), whose frame and counts
+    equal the linear tables' bit for bit."""
+    scene, cam = glass_scene(*size, 1, cuda_device, mesh)
     flat = flatten_scene(scene)
     tables = ct.pack_forward_tables_perm(flat)
     assert tables.culled == mesh
@@ -341,7 +341,7 @@ def cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh=False):
     torch.cuda.synchronize()
     assert wt.wavefront_trace.launches == before + 2
     report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-    print(f"{shadow_mode} mesh={mesh}: {report}")
+    print(f"{shadow_mode} mesh={mesh} {size}: {report}")
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
     torch.testing.assert_close(frame.reshape(-1, 3), ours, rtol=0, atol=1e-6)
     if mesh:
@@ -352,11 +352,12 @@ def cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh=False):
     assert wt.dropped_pushes() == 0
 
 
-def cuda_wavefront_spp_trace_matches_plain(cuda_device, mesh=False):
-    """The wavefront AA kernel against its plain version, spp=4 at 64x48,
-    one seed (the same Philox jitter bits); with `mesh`, on the glass
-    mesh's culled tables, equal to the linear tables' frame bit for bit."""
-    scene, cam = glass_scene(64, 48, 4, cuda_device, mesh)
+def cuda_wavefront_spp_trace_matches_plain(cuda_device, mesh=False, size=(64, 48)):
+    """The wavefront AA kernel against its plain version, spp=4 at 64x48
+    (or `size`), one seed (the same Philox jitter bits); with `mesh`, on the
+    glass mesh's culled tables, equal to the linear tables' frame bit for
+    bit."""
+    scene, cam = glass_scene(*size, 4, cuda_device, mesh)
     flat = flatten_scene(scene)
     tables = ct.pack_forward_tables_perm(flat)
     px, py = cam.pixel_grid()
@@ -367,7 +368,7 @@ def cuda_wavefront_spp_trace_matches_plain(cuda_device, mesh=False):
     ref = wt.wavefront_spp_trace_plain(tables, cam, px, py, cfg, seed=9)
     torch.cuda.synchronize()
     report = seam_budget(ours.cpu().numpy(), ref.cpu().numpy())
-    print(f"spp=4 mesh={mesh}: {report}")
+    print(f"spp=4 mesh={mesh} {size}: {report}")
     assert np.isfinite(ours.cpu().numpy()).all() and report.ok, report
     if mesh:
         linear = wt.wavefront_spp_trace(ct.pack_scene_tables(flat), cam, px, py, cfg, seed=9)
@@ -567,7 +568,12 @@ def test_roofline_work_counts():
     # The glass kernels' culled scans (the glass mesh, 132 triangles): the
     # closest-hit and march scans test no more real triangles than on linear
     # tables, and as many when every box is met; the same trees; a warp's
-    # union holds each of its lanes' blocks.
+    # union holds each of its lanes' blocks. The warp-cooperative scan's
+    # turns: the lanes' visited blocks (the traversal's running bound visits
+    # at least the blocks of the final hit's segment, and every block when
+    # every box is met) and the warps' votes (with every box met, each
+    # warp's scan votes once for each block, where a loop per lane turns 32
+    # times for each).
     m_scene, m_cam = glass_scene(8, 6, 1, "cpu", mesh=True)
     m_flat = flatten_scene(m_scene)
     mo, md = (x.contiguous() for x in m_cam.rays_for_pixels(*m_cam.pixel_grid()))
@@ -582,6 +588,9 @@ def test_roofline_work_counts():
     assert lin.lane_blocks == lin.warp_blocks == 0 and 0 < cul.lane_blocks <= cul.warp_blocks
     assert cul.lane_blocks < met.lane_blocks <= met.warp_blocks
     assert 0 < rl.work_ops(cul) < rl.work_ops(lin) and cul.shade_ops == lin.shade_ops
+    assert lin.visit_blocks == lin.vote_blocks == lin.coop_blocks == 0
+    assert 0 < cul.lane_blocks <= cul.visit_blocks < cul.coop_blocks == cul.visit_blocks + cul.vote_blocks
+    assert met.visit_blocks == met.lane_blocks and met.warp_blocks == 32 * met.vote_blocks
 
 
 @pytest.mark.gpu
@@ -597,5 +606,9 @@ def test_cuda_wrappers_match_plain(cuda_device):
         for shadow_mode in ('binary', 'march'):
             cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh)
         cuda_wavefront_spp_trace_matches_plain(cuda_device, mesh)
+    # 61x47 rays: the culled kernels' last warp has lanes past the end
+    for shadow_mode in ('binary', 'march'):
+        cuda_wavefront_trace_matches_plain(cuda_device, shadow_mode, mesh=True, size=(61, 47))
+    cuda_wavefront_spp_trace_matches_plain(cuda_device, mesh=True, size=(61, 47))
     for shadow_mode in ('binary', 'march'):
         cuda_wavefront_grad_matches_plain(cuda_device, shadow_mode)
