@@ -7,7 +7,8 @@ engine's dump and the pinned goldens, drives the main render path and the
 training step at full resolution, and times kernels against plain versions:
 
   1. device     nvidia-smi name and power limit; exits non-zero without CUDA
-  2. build      nvcc build of csrc/*.cu (sm_90a), with ptxas' register report
+  2. build      nvcc build of csrc/*.cu (sm_90a) and g++ of native_bridge's
+                host library (timed), with ptxas' register report
                 and the trace kernels' CTAs per SM on each route, the taping
                 chain_trace's and the counting wavefront_trace's too, and the
                 glass kernels' culled instantiations' (occupancy calculator)
@@ -179,6 +180,18 @@ training step at full resolution, and times kernels against plain versions:
                 bounds from the subset's work (roofline.py), scaled, with the
                 culled scans' blocks per lane, per warp and the warp-
                 cooperative scan's turns
+ 24. native I/O native_bridge's host library (native/src, g++ and zlib; built in
+                phase 2, before any writer) loaded and used with
+                backend="native"; dense_mesh_scene's 50,800-triangle mesh
+                and a 999,698-triangle grid written as OBJ and parsed natively
+                and in Python: the same arrays, dtypes too, each parse's host
+                time the median of 3; a JSON scene of that mesh, a floor and
+                two lights through load_scene_json (equal to dense_mesh_scene's
+                leaf for leaf), rendered by render_hdr at 512x512 spp=1 with
+                the launch counters reset before and read after (one culled
+                chain_trace), the frame vs trace_chain_plain on 4,096 of its
+                rays; write_ppm (the same bytes) and write_png (the same
+                pixels) on both backends; cli render of the JSON scene
 
 Kernel-vs-plain comparisons use the seam budget: elementwise HDR atol 1e-4,
 except at most max(4, 1e-3 * pixels) closest-hit seam-tie pixels (nvcc
@@ -316,6 +329,15 @@ def main() -> int:
     lib_path, log = _build.build()
     _build.load_library()
     print(f"[2 build] {time.perf_counter() - t0:.2f} s -> {lib_path.relative_to(ROOT)}", flush=True)
+    # the native I/O library, before any writer uses it (phase 24 checks it)
+    from raytracingengine_tpu_torch import native_bridge
+
+    t0 = time.perf_counter()
+    nb_path = native_bridge.build()
+    nb_build_s = time.perf_counter() - t0
+    print(f"  native I/O: {native_bridge.CXX} {' '.join(native_bridge.CXX_FLAGS)} native/src/"
+          f"{{{','.join(native_bridge.SOURCES)}}} {' '.join(native_bridge.LIBS)} -> "
+          f"{nb_path.relative_to(ROOT)} in {nb_build_s:.2f} s", flush=True)
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  {line.strip()}")
@@ -1982,6 +2004,149 @@ def main() -> int:
     phase23_s = time.perf_counter() - t23
     print(f"  phase 23 took {phase23_s:.1f} s (target: 90 s)", flush=True)
     del tm_lin, tm_scene, tm_flat
+
+    # 24. native I/O: native_bridge's OBJ parser and PPM/PNG writers, and a JSON
+    # scene of the 50,800-triangle mesh through the culled chain_trace
+    t24 = time.perf_counter()
+    from raytracingengine_tpu_torch.convert import scene_to_numpy
+    from raytracingengine_tpu_torch.imageio import load_obj, write_ppm
+    from raytracingengine_tpu_torch.scenes import bumpy_sphere_mesh, load_scene_json
+
+    native_bridge.load()  # raises with the compiler's output if the build failed
+    print(f"[24 native I/O] {nb_path.relative_to(ROOT)} (built in phase 2 in {nb_build_s:.2f} s) loaded; "
+          "every parse and write below names its backend", flush=True)
+
+    def write_obj(path: Path, verts: np.ndarray, faces: np.ndarray) -> None:
+        """Vertices at full precision (both parsers round the text to the
+        same float64); faces 1-based, triangles or quads."""
+        with open(path, "w") as f:
+            np.savetxt(f, verts, fmt="v %.17g %.17g %.17g")
+            np.savetxt(f, faces + 1, fmt="f" + " %d" * faces.shape[1])
+
+    def parse_both(label: str, path: Path, n_tris: int) -> dict:
+        """load_obj natively and in Python, 3 times each -> the native dict;
+        the two must be equal exactly, dtypes too."""
+        got, secs = {}, {}
+        for backend in ("native", "python"):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got[backend] = load_obj(str(path), backend=backend)
+                runs.append(time.perf_counter() - t0)
+            secs[backend] = sorted(runs)[1]
+        a, b = got["native"], got["python"]
+        same = (sorted(a) == sorted(b) and a["materials"] == b["materials"]
+                and a["material_names"] == b["material_names"]
+                and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                        for k in ("vertices", "indices", "face_materials")))
+        ok = same and a["indices"].size == 3 * n_tris
+        print(f"  {'PASS' if ok else 'FAIL'} load_obj {label} ({path.stat().st_size / 2**20:.1f} MiB, "
+              f"{a['vertices'].shape[0]} vertices, {a['indices'].size // 3} triangles): native and python equal "
+              f"{same}; host time, median of 3: native {secs['native']:.3f} s, python {secs['python']:.3f} s "
+              f"({secs['python'] / secs['native']:.1f}x) [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"load_obj {label}: native and python differ or the count is not {n_tris}")
+        return a
+
+    mesh_v, mesh_i = bumpy_sphere_mesh(radius=2.0, ni=128, nj=200, amp=0.15)
+    mesh_obj = out_dir / "dense_mesh_50800.obj"
+    write_obj(mesh_obj, mesh_v, mesh_i.reshape(-1, 3))
+    parsed = parse_both("dense_mesh_scene's mesh", mesh_obj, mesh_i.size // 3)
+    if not (np.array_equal(parsed["vertices"], mesh_v) and np.array_equal(parsed["indices"], mesh_i)):
+        raise AssertionError("the 50,800-triangle OBJ does not parse back to bumpy_sphere_mesh's arrays")
+    # a height field of 707 x 707 quads (each two triangles by the fan)
+    n_q = 707
+    gx, gz = np.meshgrid(np.arange(n_q + 1) * 0.01, np.arange(n_q + 1) * 0.01)
+    grid_v = np.stack([gx, np.random.default_rng(24).normal(0.0, 0.05, gx.shape), gz], -1).reshape(-1, 3)
+    q0 = (np.arange(n_q)[:, None] * (n_q + 1) + np.arange(n_q)[None, :]).reshape(-1)
+    grid_obj = out_dir / "grid_999698.obj"
+    write_obj(grid_obj, grid_v, np.stack([q0, q0 + 1, q0 + n_q + 2, q0 + n_q + 1], -1))
+    parse_both("a 707x707-quad grid", grid_obj, 2 * n_q * n_q)
+    grid_obj.unlink()
+    del parsed
+
+    # the JSON scene: dense_mesh_scene(ni=128, nj=200) as a user writes it
+    scene_json = out_dir / "native_io_scene.json"
+    scene_json.write_text(json.dumps({
+        "camera": {"position": [0, 0, -8], "focal": W512, "width": W512, "height": W512, "near": 0, "far": 100,
+                   "spp": 1},
+        "models": [{"obj": mesh_obj.name, "translation": [0.137, 0.5, 8.0],
+                    "material": {"color": [0.85, 0.35, 0.2], "shininess": 64, "specular": 0.25}}],
+        "planes": [{"point": [0, -2.5, 0], "normal": [0, 1, 0], "material": {"color": [0.9, 0.9, 0.9]}}],
+        "lights": [{"position": [-4, 6, -2], "intensity": 120}, {"position": [4, 5, 2], "intensity": 90}],
+    }))
+    t0 = time.perf_counter()
+    j_scene, j_cam = load_scene_json(str(scene_json), device=dev)
+    sync()
+    json_s = time.perf_counter() - t0
+    ref_leaves = scene_to_numpy(dense_mesh_scene(W512, W512, spp=1, device=dev, ni=128, nj=200)[0])
+    j_leaves = scene_to_numpy(j_scene)
+    unequal = sorted(k for k in ref_leaves if k not in j_leaves or not np.array_equal(j_leaves[k], ref_leaves[k]))
+    print(f"  {'PASS' if not unequal else 'FAIL'} load_scene_json {scene_json.relative_to(ROOT)}: "
+          f"{j_scene.triangles.active.shape[0]} triangle slots, {json_s:.2f} s; equal to dense_mesh_scene(ni=128, "
+          f"nj=200) leaf for leaf: {unequal or 'all'}", flush=True)
+    if unequal:
+        raise AssertionError(f"the JSON scene differs from dense_mesh_scene's at {unequal}")
+    del ref_leaves, j_leaves
+    cfg512 = cfg_for(W512, W512)
+    reset_counts()
+    ct.chain_trace.routes = ct.new_route_counts()
+    t0 = time.perf_counter()
+    j_img = render_hdr(j_scene, j_cam, cfg512)
+    sync()
+    j_secs = time.perf_counter() - t0
+    j_counts = {k: v for k, v in read_counts().items() if v}
+    j_routes = dict(ct.chain_trace.routes)
+    ok = (j_counts == {"chain_trace": 1} and j_routes["culled"] == 1 and bool(torch.isfinite(j_img).all())
+          and j_img.shape == (W512, W512, 3))
+    print(f"  {'PASS' if ok else 'FAIL'} render_hdr 512x512 spp=1 (binary, whole-frame chunk): first call "
+          f"{j_secs * 1e3:.1f} ms, launches {j_counts}, per route {j_routes} (expected 1 culled chain_trace), "
+          f"mean {float(j_img.mean()):.4f}", flush=True)
+    if not ok:
+        raise AssertionError(f"the JSON scene did not render through one culled chain_trace: {j_counts} {j_routes}")
+    j_o, j_d = j_cam.rays_for_pixels(*j_cam.pixel_grid())
+    j_o = j_o.contiguous()
+    j_tables = ct.pack_forward_tables_perm(flatten_scene(j_scene), mean_direction(j_d))
+    # 4,096 of the rays: 128 runs of 32 neighbouring pixels spread over the frame
+    sub24 = ((torch.arange(128, device=dev) * (W512 * W512 // 128)) // 32 * 32)[:, None]
+    sub24 = (sub24 + torch.arange(32, device=dev)).reshape(-1)
+    ref, j_plain_ms = once_ms(lambda: ct.trace_chain_plain(j_tables, j_o[sub24], j_d[sub24], cfg512))
+    budget(f"render_hdr's frame vs trace_chain_plain (culled tables, {j_tables.n_blocks} blocks), "
+           f"{sub24.numel()} rays ({j_plain_ms:.1f} ms)", j_img.reshape(-1, 3)[sub24], ref)
+    del ref, j_tables
+
+    ldr = to_uint8(tonemap(j_img, "aces")).cpu().numpy()
+    io_secs = {}
+    for backend in ("native", "python"):
+        for ext, write in (("ppm", write_ppm), ("png", write_png)):
+            t0 = time.perf_counter()
+            write(str(out_dir / f"native_io_{backend}.{ext}"), ldr, backend=backend)
+            io_secs[ext, backend] = time.perf_counter() - t0
+    ppm_same = (out_dir / "native_io_native.ppm").read_bytes() == (out_dir / "native_io_python.ppm").read_bytes()
+    png_pixels = all(np.array_equal(read_png(str(out_dir / f"native_io_{b}.png")), ldr) for b in ("native", "python"))
+    png_bytes_same = (out_dir / "native_io_native.png").read_bytes() == (out_dir / "native_io_python.png").read_bytes()
+    ok = ppm_same and png_pixels and np.array_equal(read_ppm(str(out_dir / "native_io_native.ppm")), ldr)
+    print(f"  {'PASS' if ok else 'FAIL'} write_ppm native and python: the same bytes {ppm_same}; write_png: the "
+          f"same pixels {png_pixels} (the same bytes {png_bytes_same}); host times "
+          + ", ".join(f"{ext} {b} {t * 1e3:.1f} ms" for (ext, b), t in io_secs.items()) + f" [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"native writers: PPM bytes equal {ppm_same}, PNG pixels equal {png_pixels}")
+    ct.chain_trace.routes = ct.new_route_counts()
+    _, cli_json_counts = cli("render the JSON scene with the 50,800-triangle OBJ", [
+        "render", "--scene", str(scene_json), "--use-pallas", "--shadow-mode", "binary", "--width", str(W512),
+        "--height", str(W512), "--spp", "1", "--chunk-size", str(W512 * W512),
+        "--out", str(out_dir / "cli_render_native_obj")])
+    cli_routes = dict(ct.chain_trace.routes)
+    cli_same = np.array_equal(read_png(str(out_dir / "cli_render_native_obj" / "aces.png")), ldr)
+    ok = cli_json_counts == {"chain_trace": 2} and cli_routes["culled"] == 2 and cli_same
+    print(f"  {'PASS' if ok else 'FAIL'} cli render: launches {cli_json_counts}, per route {cli_routes} (its "
+          f"first and steady calls: 2 culled); its aces.png equals the frame above: {cli_same}", flush=True)
+    if not ok:
+        raise AssertionError(f"cli render of the JSON scene: launches {cli_json_counts} {cli_routes}, "
+                             f"same frame {cli_same}")
+    del j_scene, j_img, j_o, j_d
+    phase24_s = time.perf_counter() - t24
+    print(f"  phase 24 took {phase24_s:.1f} s (target: 20 s)", flush=True)
 
     # 8. timing: CUDA events around `iters` calls after one warm-up call
 

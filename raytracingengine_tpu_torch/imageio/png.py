@@ -2,7 +2,10 @@
 
 The reference shells out to ffmpeg to convert its PPMs to PNG
 (RaytracingEngine.cpp:317-318); PNG is encoded directly here: a valid RGB8
-PNG with filter 0 on every scanline and a single IDAT chunk.
+PNG with filter 0 on every scanline and a single IDAT chunk, in Python or
+through native_bridge.py's C++ encoder where `backend` asks for it or
+('auto') where it builds: the same pixels (zlib builds may compress
+differently).
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from raytracingengine_tpu_torch import native_bridge
 
 
 def _chunk(tag: bytes, payload: bytes) -> bytes:
@@ -22,10 +27,13 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
     )
 
 
-def png_bytes(rgb_u8: np.ndarray, compress_level: int = 6) -> bytes:
+def png_bytes(rgb_u8: np.ndarray, compress_level: int = 6, backend: str = "auto") -> bytes:
+    """`backend`: 'native', 'python' or 'auto' (native_bridge.use)."""
     arr = np.asarray(rgb_u8)
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"expected [H,W,3] uint8, got {arr.shape} {arr.dtype}")
+    if native_bridge.use(backend):
+        return native_bridge.png_bytes_native(arr, compress_level)
     h, w = arr.shape[:2]
     raw = np.empty((h, 1 + w * 3), np.uint8)
     raw[:, 0] = 0  # filter type 0 (None) per scanline
@@ -39,8 +47,8 @@ def png_bytes(rgb_u8: np.ndarray, compress_level: int = 6) -> bytes:
     )
 
 
-def write_png(path: str, rgb_u8: np.ndarray, compress_level: int = 6) -> None:
-    data = png_bytes(rgb_u8, compress_level)
+def write_png(path: str, rgb_u8: np.ndarray, compress_level: int = 6, backend: str = "auto") -> None:
+    data = png_bytes(rgb_u8, compress_level, backend)
     with open(path, "wb") as f:
         f.write(data)
 

@@ -2,12 +2,15 @@
 
 Byte-compatible with the reference writer (Image.cpp:11-31): header
 "P6\\n{W} {H}\\n255\\n" followed by raw RGB byte triples in row-major
-order.
+order. `write_ppm` writes through native_bridge.py's C++ writer where
+`backend` asks for it or ('auto') where it builds: the same bytes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from raytracingengine_tpu_torch import native_bridge
 
 
 def ppm_bytes(rgb_u8: np.ndarray) -> bytes:
@@ -19,7 +22,11 @@ def ppm_bytes(rgb_u8: np.ndarray) -> bytes:
     return f"P6\n{w} {h}\n255\n".encode("ascii") + arr.tobytes()
 
 
-def write_ppm(path: str, rgb_u8: np.ndarray) -> None:
+def write_ppm(path: str, rgb_u8: np.ndarray, backend: str = "auto") -> None:
+    """`backend`: 'native', 'python' or 'auto' (native_bridge.use)."""
+    if native_bridge.use(backend):
+        native_bridge.write_ppm_native(path, rgb_u8)
+        return
     data = ppm_bytes(rgb_u8)
     with open(path, "wb") as f:
         f.write(data)

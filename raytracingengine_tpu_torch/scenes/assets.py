@@ -45,6 +45,17 @@ def cube_mesh(size: float = 4.0) -> tuple[np.ndarray, np.ndarray]:
     return verts, idx
 
 
+def cube_obj_text(size: float = 4.0) -> str:
+    """The same cube as Wavefront OBJ text (for the OBJ loader's tests)."""
+    verts, idx = cube_mesh(size)
+    lines = ["# procedural cube", "o box"]
+    for v in verts:
+        lines.append(f"v {v[0]} {v[1]} {v[2]}")
+    for i in range(0, len(idx), 3):
+        lines.append(f"f {idx[i] + 1} {idx[i + 1] + 1} {idx[i + 2] + 1}")
+    return "\n".join(lines) + "\n"
+
+
 def bumpy_sphere_mesh(
     radius: float = 2.0,
     ni: int = 48,

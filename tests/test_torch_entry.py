@@ -7,8 +7,11 @@ render_aovs: each map under the seam budget at atol 1e-5 (a pixel whose
 centre ray ties two primitives may take the other). (e) scene_from_dict and
 load_scene_json, with a model from refbuild/box.obj, against the JAX
 package's, leaf by leaf through convert.scene_to_numpy (equal within fp32
-rounding of the same float64 inputs: rtol 1e-6), and load_obj against the
-JAX load_obj(backend="python") exactly. (f) The CLI's render, aov and fit
+rounding of the same float64 inputs: rtol 1e-6), and load_obj on every
+backend against the JAX load_obj(backend="python") exactly, on
+refbuild/box.obj, every face form, a 50,000-triangle grid and
+cube_obj_text's cube; a broken native build raises for 'native' and falls
+back with a warning for 'auto'. (f) The CLI's render, aov and fit
 commands with --device cpu write the files the JAX CLI writes; the render
 equals render_hdr's tonemapped frame byte for byte; the fit loss falls;
 --mesh raises; `python -m raytracingengine_tpu_torch.cli` runs; the
@@ -29,11 +32,14 @@ import pytest
 import torch
 
 from raytracingengine_tpu.imageio.obj import load_obj as jax_load_obj
+from raytracingengine_tpu.scenes.assets import cube_mesh as jax_cube_mesh
+from raytracingengine_tpu.scenes.assets import cube_obj_text as jax_cube_obj_text
 from raytracingengine_tpu.render.aov import render_aovs as jax_render_aovs
 from raytracingengine_tpu.scenes import builders as jax_builders
 from raytracingengine_tpu.scenes.config import load_scene_json as jax_load_scene_json
 from raytracingengine_tpu.scenes.config import scene_from_dict as jax_scene_from_dict
 from raytracingengine_tpu.tonemap import OPERATORS as JAX_OPERATORS
+from raytracingengine_tpu_torch import native_bridge
 from raytracingengine_tpu_torch.cli import main
 from raytracingengine_tpu_torch.convert import scene_to_numpy
 from raytracingengine_tpu_torch.imageio import load_obj, read_png, read_ppm
@@ -43,7 +49,7 @@ from raytracingengine_tpu_torch.parity import seam_budget
 from raytracingengine_tpu_torch.render.aov import render_aovs
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.pipeline import render_hdr
-from raytracingengine_tpu_torch.scenes import builders
+from raytracingengine_tpu_torch.scenes import builders, cube_obj_text
 from raytracingengine_tpu_torch.scenes.config import load_scene_json, scene_from_dict
 from raytracingengine_tpu_torch.tonemap import aces_approx, to_uint8
 from raytracingengine_tpu_torch.utils.checks import assert_finite, checked
@@ -92,9 +98,32 @@ def obj_cases(tmp_path):
     return [BOX_OBJ, str(tmp_path / "forms.obj")]
 
 
-def test_scene_json_and_obj_match_jax(tmp_path):
+def grid_obj(path, n_quads: int = 25_000) -> str:
+    """A seeded height field of `n_quads` quads written as OBJ quads (two
+    triangles each by the fan), half of them through negative indices, in two
+    usemtl groups; -> its path."""
+    rng = np.random.default_rng(11)
+    nx = 250
+    ny = n_quads // nx
+    xs, zs = np.meshgrid(np.arange(nx + 1) * 0.05, np.arange(ny + 1) * 0.05)
+    verts = np.stack([xs, rng.normal(0, 0.1, xs.shape), zs], -1).reshape(-1, 3)
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in verts.tolist()]
+    for j in range(ny):
+        lines.append(f"usemtl {'ab'[j % 2]}")
+        for i in range(nx):
+            a = j * (nx + 1) + i + 1
+            q = (a, a + 1, a + nx + 2, a + nx + 1)
+            if j % 2:
+                q = tuple(v - len(verts) - 1 for v in q)
+            lines.append("f " + " ".join(f"{v}//{v}" if i % 3 == 0 else str(v) for v in q))
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def test_scene_json_and_obj_match_jax(tmp_path, monkeypatch):
     """(e) A scene of every family, a model from refbuild/box.obj, overrides
-    and padding; then load_obj."""
+    and padding; then load_obj on every backend (native, python, auto) and
+    the native parser's build errors."""
     desc = {
         "camera": {"position": [0, 0.5, -12], "focal": 40, "width": 20, "height": 16, "near": 0.5,
                    "far": 80, "spp": 2},
@@ -130,16 +159,43 @@ def test_scene_json_and_obj_match_jax(tmp_path):
             np.testing.assert_array_equal(getattr(cam, k).numpy(), np.asarray(getattr(j_cam, k)), err_msg=k)
     assert int(cases[0][1][0].triangles.active.sum()) == 13 and cases[2][1][1].width == 9
 
-    for obj in obj_cases(tmp_path):
-        ref, ours = jax_load_obj(obj, backend="python"), load_obj(obj)
-        assert sorted(ours) == sorted(ref)
-        for k in ("vertices", "indices", "face_materials"):
-            assert ours[k].dtype == ref[k].dtype, k
-            np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
-        assert ours["materials"] == ref["materials"] and ours["material_names"] == ref["material_names"]
-    assert ours["material_names"] == ["red", "blue"] and len(ours["indices"]) == 3 * 6
-    with pytest.raises(RuntimeError, match="JAX package"):
+    (tmp_path / "cube.obj").write_text(cube_obj_text())
+    cases = obj_cases(tmp_path) + [grid_obj(tmp_path / "grid.obj"), str(tmp_path / "cube.obj")]
+    for obj in cases:
+        ref = jax_load_obj(obj, backend="python")
+        for backend in ("native", "python", "auto"):
+            ours = load_obj(obj, backend=backend)
+            assert sorted(ours) == sorted(ref), backend
+            for k in ("vertices", "indices", "face_materials"):
+                assert ours[k].dtype == ref[k].dtype, (k, backend)
+                np.testing.assert_array_equal(ours[k], ref[k], err_msg=f"{k} {backend}")
+            assert ours["materials"] == ref["materials"], backend
+            assert ours["material_names"] == ref["material_names"], backend
+        if obj.endswith("forms.obj"):
+            assert ours["material_names"] == ["red", "blue"] and len(ours["indices"]) == 3 * 6
+            assert ours["materials"][0] == {"Kd": (0.8, 0.1, 0.1), "Ns": 32.0}
+        if obj.endswith("grid.obj"):
+            assert len(ours["indices"]) == 3 * 50_000 and ours["material_names"] == ["a", "b"]
+    assert cube_obj_text() == jax_cube_obj_text()
+    cube_v, cube_i = jax_cube_mesh()
+    np.testing.assert_array_equal(ours["vertices"], cube_v)
+    np.testing.assert_array_equal(ours["indices"], cube_i)
+    with pytest.raises(ValueError, match="backend"):
+        load_obj(BOX_OBJ, backend="bogus")
+    # a source that does not compile: 'native' raises with the compiler's
+    # output, 'auto' warns once and parses in Python
+    (tmp_path / "src").mkdir()
+    for name in native_bridge.SOURCES:
+        (tmp_path / "src" / name).write_text(f"#error broken {name}\n")
+    for name, value in (("NATIVE_SRC", tmp_path / "src"), ("BUILD_DIR", tmp_path / "build"), ("_LIB", None),
+                        ("_ERROR", None), ("_WARNED", False)):
+        monkeypatch.setattr(native_bridge, name, value)
+    with pytest.raises(RuntimeError, match="broken objparser.cpp"):
         load_obj(BOX_OBJ, backend="native")
+    with pytest.warns(RuntimeWarning, match="broken objparser.cpp"):
+        ours = load_obj(BOX_OBJ)
+    np.testing.assert_array_equal(ours["indices"], jax_load_obj(BOX_OBJ, backend="python")["indices"])
+    assert not native_bridge.available() and not list((tmp_path / "build").iterdir())
 
 
 def test_cli_commands(tmp_path, capsys):

@@ -162,7 +162,7 @@ def test_port_imports_no_jax():
         " or m == 'raytracingengine_tpu']\n"
         "assert not bad, bad\n"
         "for m in ('kernels.wavefront_trace', 'golden.reference', 'utils.profiling', 'parallel.mesh',\n"
-        "          'parallel.multihost', 'parallel.sharded', 'parallel.fault'):\n"
+        "          'parallel.multihost', 'parallel.sharded', 'parallel.fault', 'native_bridge'):\n"
         "    assert 'raytracingengine_tpu_torch.' + m in sys.modules, m\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

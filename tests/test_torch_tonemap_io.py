@@ -1,8 +1,11 @@
 """PyTorch port, tonemapping and image I/O against the JAX package.
 
 (g) All 7 operators on seeded HDR input with values above 1 and exact
-zeros (rtol 1e-6), `to_uint8` exactly, and the PPM/PNG writers byte for
-byte against raytracingengine_tpu.imageio's Python writers.
+zeros (rtol 1e-6), `to_uint8` exactly, the PPM/PNG writers byte for byte
+against raytracingengine_tpu.imageio's Python writers, on every backend
+(python, native, auto) the same PPM bytes and PNG pixels, and the
+reference dumps' helpers (dump_path, have_dump, load_dump) against
+golden/refdump.py's.
 """
 
 import os
@@ -18,6 +21,9 @@ from raytracingengine_tpu.imageio import ppm as jax_ppm
 from raytracingengine_tpu.tonemap import OPERATORS as JAX_OPERATORS
 from raytracingengine_tpu.tonemap import to_uint8 as jax_to_uint8
 from raytracingengine_tpu_torch.imageio import (
+    dump_path,
+    have_dump,
+    load_dump,
     png_bytes,
     ppm_bytes,
     read_hdr64,
@@ -75,16 +81,28 @@ def test_to_uint8_truncates_and_clamps():
 def test_ppm_and_png_bytes_match_jax(tmp_path):
     img = np.random.default_rng(5).integers(0, 256, (9, 14, 3), dtype=np.uint8)
     assert ppm_bytes(img) == jax_ppm.ppm_bytes(img)
-    assert png_bytes(img) == jax_png.png_bytes(img, backend="python")
-    write_ppm(str(tmp_path / "a.ppm"), img)
+    assert png_bytes(img, backend="python") == jax_png.png_bytes(img, backend="python")
     jax_ppm.write_ppm(str(tmp_path / "b.ppm"), img, backend="python")
-    assert (tmp_path / "a.ppm").read_bytes() == (tmp_path / "b.ppm").read_bytes()
-    write_png(str(tmp_path / "a.png"), img)
-    np.testing.assert_array_equal(read_ppm(str(tmp_path / "a.ppm")), img)
-    np.testing.assert_array_equal(read_png(str(tmp_path / "a.png")), img)
-    np.testing.assert_array_equal(jax_png.read_png(str(tmp_path / "a.png")), img)
+    for backend in ("python", "native", "auto"):
+        write_ppm(str(tmp_path / "a.ppm"), img, backend=backend)
+        assert (tmp_path / "a.ppm").read_bytes() == (tmp_path / "b.ppm").read_bytes() == ppm_bytes(img), backend
+        np.testing.assert_array_equal(read_ppm(str(tmp_path / "a.ppm")), img)
+        # the native PNG: the same pixels (zlib builds may compress differently)
+        write_png(str(tmp_path / "a.png"), img, backend=backend)
+        assert (tmp_path / "a.png").read_bytes() == png_bytes(img, backend=backend), backend
+        np.testing.assert_array_equal(read_png(str(tmp_path / "a.png")), img)
+        np.testing.assert_array_equal(jax_png.read_png(str(tmp_path / "a.png")), img)
+        with pytest.raises(ValueError):
+            write_ppm(str(tmp_path / "c.ppm"), img.astype(np.float32), backend=backend)
+        with pytest.raises(ValueError):
+            png_bytes(img.astype(np.float32), backend=backend)
+    native = png_bytes(img, compress_level=9, backend="native")
+    (tmp_path / "n.png").write_bytes(native)
+    np.testing.assert_array_equal(read_png(str(tmp_path / "n.png")), img)
     with pytest.raises(ValueError):
         ppm_bytes(img.astype(np.float32))
+    with pytest.raises(ValueError, match="backend"):
+        write_ppm(str(tmp_path / "c.ppm"), img, backend="bogus")
 
 
 def test_read_hdr64_matches_jax():
@@ -92,3 +110,7 @@ def test_read_hdr64_matches_jax():
     ours = read_hdr64(path)
     assert ours.shape == (256, 256, 3) and ours.dtype == np.float64
     np.testing.assert_array_equal(ours, refdump.read_hdr64(path))
+    assert dump_path("baseline_spheres_256") == refdump.dump_path("baseline_spheres_256") == os.path.abspath(path)
+    assert have_dump("baseline_spheres_256") and not have_dump("no_such_dump")
+    assert have_dump("no_such_dump") == refdump.have_dump("no_such_dump")
+    np.testing.assert_array_equal(load_dump("baseline_spheres_256"), ours)
