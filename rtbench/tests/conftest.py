@@ -1,0 +1,9 @@
+"""The benchmark's own tests (python -m pytest rtbench/tests): CPU at tiny
+sizes; those marked gpu decide inside the test whether a card is there."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
