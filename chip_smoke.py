@@ -2329,9 +2329,10 @@ def main() -> int:
                 ours[m.group(0)] = ours.get(m.group(0), 0.0) + v / 3
         total_ms = rep.device_total_ms / 3
         other = total_ms - sum(ours.values())
-        pack = rep.host_ms.get("pack_forward_tables_perm")
-        pack_note = (f"; the packing span (render/pipeline.py) host {pack / 3:.3f} ms per step, its "
-                     f"kernels {rep.module_ms.get('pack_forward_tables_perm', 0.0) / 3:.3f} device ms"
+        pack = rep.host_ms.get("rte.tables")
+        pack_note = (f"; the tables span (rte.tables: combine, flatten_scene, the packing) host "
+                     f"{pack / 3:.3f} ms per step, its kernels "
+                     f"{rep.module_ms.get('rte.tables', 0.0) / 3:.3f} device ms"
                      if pack else "")
         print(f"  {label} under the profiler (it adds host time): wall {rep.wall_ms / 3:.3f} ms, "
               f"device kernels {total_ms:.3f} ms: "

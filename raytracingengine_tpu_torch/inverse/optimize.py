@@ -28,6 +28,7 @@ from raytracingengine_tpu_torch.inverse.loss import l2_image_loss
 from raytracingengine_tpu_torch.inverse.params import combine, partition
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.pipeline import render_hdr
+from raytracingengine_tpu_torch.utils.profiling import span
 
 #: Builds an optimizer over the trainable params, e.g.
 #: ``lambda ps: torch.optim.Adam(ps.values(), lr=1e-2)``.
@@ -70,13 +71,18 @@ def make_train_step(
     keys the AA jitter at spp > 1 (render_hdr's; None is seed 0)."""
 
     def step(params, static, target, seed: int | None = None):
-        optimizer.zero_grad(set_to_none=True)
-        img = render_hdr(combine(params, static), camera, cfg, seed=seed)
+        with span("rte.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("rte.tables"):
+            scene = combine(params, static)
+        img = render_hdr(scene, camera, cfg, seed=seed)
         if tonemap is not None:
             img = tonemap(img)
-        loss = loss_fn(img, target)
-        loss.backward()
-        optimizer.step()
+        with span("rte.autograd"):
+            loss = loss_fn(img, target)
+            loss.backward()
+        with span("rte.optimizer"):
+            optimizer.step()
         return loss.detach(), {k: p.grad for k, p in params.items()}
 
     return step

@@ -82,6 +82,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     check_tables,
     map_ctas,
 )
+from raytracingengine_tpu_torch.utils.profiling import spanned
 
 #: Primitive ceiling of `chain_grad` (the JAX package's _MAX_PRIMS_UNROLL):
 #: its kernel keeps one block's table cotangents in shared memory.
@@ -543,6 +544,7 @@ def check_width(width: int) -> None:
         raise ValueError(f"width: expected an int >= 0 (0 for the identity map), got {width!r}")
 
 
+@spanned("rte.launch.chain_grad")
 def chain_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
                gbar: torch.Tensor, cfg, width: int = 0, tape: torch.Tensor | None = None):
     """Adjoint of `chain_trace` -> (table cotangents in the tables' shapes,
@@ -640,6 +642,7 @@ def dense_sink(tables: SceneTables) -> str:
     return "shared" if 4 * total <= room else "global"
 
 
+@spanned("rte.launch.chain_grad_dense")
 def chain_grad_dense(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
                      gbar: torch.Tensor, cfg, sink: str | None = None):
     """The dense adjoint of `chain_trace` -> (table cotangents in the
@@ -724,6 +727,7 @@ class ChainTraceFused(torch.autograd.Function):
     is retained, as every saved tensor is."""
 
     @staticmethod
+    @spanned("rte.autograd")
     def forward(ctx, counts, culling, cfg, width, o, d, sph, pl, tri, mat, light):
         ctx.counts, ctx.culling, ctx.cfg, ctx.width = counts, culling, cfg, width
         tables = SceneTables(sph.detach(), pl.detach(), tri.detach(), mat.detach(),
@@ -738,6 +742,7 @@ class ChainTraceFused(torch.autograd.Function):
         return img
 
     @staticmethod
+    @spanned("rte.autograd")
     def backward(ctx, g):
         tape, o, d, *tabs = ctx.saved_tensors
         tables = SceneTables(*(t.detach() for t in tabs), *ctx.counts, *ctx.culling)

@@ -67,6 +67,7 @@ import torch.nn.functional as F
 from raytracingengine_tpu_torch.core import vecmath as vm
 from raytracingengine_tpu_torch.geometry.intersect import EPS, FlatScene
 from raytracingengine_tpu_torch.kernels import _build
+from raytracingengine_tpu_torch.utils.profiling import spanned
 
 #: Miss sentinel for the closest-hit distance.
 _INF = 3.0e38
@@ -911,6 +912,7 @@ def check_width(width: int) -> None:
         raise ValueError(f"width: expected an int >= 0 (0 for the identity map), got {width!r}")
 
 
+@spanned("rte.launch.chain_trace")
 def chain_trace(
     tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg, tape: bool = False
 ):

@@ -32,6 +32,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     new_route_counts,
     trace_chain_plain,
 )
+from raytracingengine_tpu_torch.utils.profiling import spanned
 
 _MASK = 0xFFFFFFFF
 #: Philox4x32 multipliers and Weyl key increments (Salmon et al., SC'11).
@@ -138,6 +139,7 @@ def check_pixels(tables: SceneTables, camera, px: torch.Tensor, py: torch.Tensor
         raise ValueError("px and py must be contiguous")
 
 
+@spanned("rte.launch.spp_trace")
 def spp_trace(
     tables: SceneTables,
     camera,

@@ -104,6 +104,7 @@ from raytracingengine_tpu_torch.kernels.wavefront_trace import (
     transmittance,
     wavefront_trace,
 )
+from raytracingengine_tpu_torch.utils.profiling import spanned
 
 
 def clip01_grad(x: torch.Tensor) -> torch.Tensor:
@@ -371,6 +372,7 @@ def _raise_on_overruns(overruns: torch.Tensor) -> None:
                            "counted for their warp (warp_pops); their cotangents are NaN")
 
 
+@spanned("rte.launch.wavefront_grad")
 def wavefront_grad(tables: SceneTables, o: torch.Tensor, d: torch.Tensor,
                    gbar: torch.Tensor, cfg, warp_pops: torch.Tensor | None = None,
                    defer_check: bool = False):
@@ -455,6 +457,7 @@ class WavefrontTraceFused(torch.autograd.Function):
     (`wavefront_grad`'s `defer_check`)."""
 
     @staticmethod
+    @spanned("rte.autograd")
     def forward(ctx, counts, cfg, culled, o, d, sph, pl, tri, mat, light):
         ctx.counts, ctx.cfg = counts, cfg
         ctx.save_for_backward(o, d, sph, pl, tri, mat, light)
@@ -468,6 +471,7 @@ class WavefrontTraceFused(torch.autograd.Function):
         return wavefront_trace(tables, *rays, cfg)
 
     @staticmethod
+    @spanned("rte.autograd")
     def backward(ctx, g):
         o, d, *tabs = ctx.saved_tensors
         tables = SceneTables(*(t.detach() for t in tabs), *ctx.counts)

@@ -56,6 +56,7 @@ from raytracingengine_tpu_torch.kernels.chain_trace import (
     check_tables,
 )
 from raytracingengine_tpu_torch.kernels.spp_trace import check_pixels, mean_over_samples
+from raytracingengine_tpu_torch.utils.profiling import spanned
 
 #: Largest stack the CUDA kernels compile (csrc/trace_common.cuh kMaxCap):
 #: max_depth + 2 <= MAX_CAP.
@@ -379,6 +380,7 @@ def _wavefront_args(cfg, dropped: torch.Tensor) -> list:
     ]
 
 
+@spanned("rte.launch.wavefront_trace")
 def wavefront_trace(
     tables: SceneTables, o: torch.Tensor, d: torch.Tensor, cfg, count: bool = False
 ):
@@ -426,6 +428,7 @@ def wavefront_trace(
     return out
 
 
+@spanned("rte.launch.wavefront_spp_trace")
 def wavefront_spp_trace(
     tables: SceneTables,
     camera,

@@ -71,6 +71,7 @@ from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.integrator import integrate_chain, integrate_wavefront
 from raytracingengine_tpu_torch.render.soft_primary import integrate_chain_soft
 from raytracingengine_tpu_torch.scene import Scene, tensor_leaves
+from raytracingengine_tpu_torch.utils.profiling import span, spanned
 
 SHADOW_MODES = ("march", "binary", "soft")
 
@@ -140,9 +141,7 @@ def _tables(flat: FlatScene, mode: str, cfg: RenderConfig, d=None) -> SceneTable
         return None
     if _culled(flat, mode, cfg):
         dmean = None if d is None or mode != "chain" else mean_direction(d)
-        # A profiler span: the packing's host cost per frame or step.
-        with torch.profiler.record_function("pack_forward_tables_perm"):
-            return pack_forward_tables_perm(flat, dmean)
+        return pack_forward_tables_perm(flat, dmean)
     return pack_scene_tables(flat)
 
 
@@ -175,6 +174,7 @@ class WavefrontReplay(torch.autograd.Function):
     bound that peak."""
 
     @staticmethod
+    @spanned("rte.autograd")
     def forward(ctx, flat, tables, cfg, o, d, *leaves):
         ctx.flat, ctx.cfg = flat, cfg
         ctx.save_for_backward(o, d, *leaves)
@@ -183,6 +183,7 @@ class WavefrontReplay(torch.autograd.Function):
         return wavefront_trace(values, o.detach().contiguous(), d.detach().contiguous(), cfg)
 
     @staticmethod
+    @spanned("rte.autograd")
     def backward(ctx, g):
         warnings.warn(REPLAY_WARNING, stacklevel=2)
         o, d, *leaves = ctx.saved_tensors
@@ -225,8 +226,10 @@ def render_rays(
     """Trace an arbitrary ray block [R,3] x [R,3] -> HDR [R,3]."""
     mode = resolve_mode(scene, cfg)
     check_supported(mode, cfg)
-    flat = flatten_scene(scene)
-    return _trace(flat, _tables(flat, mode, cfg, d), mode, o, d, cfg)
+    with span("rte.tables"):
+        flat = flatten_scene(scene)
+        tables = _tables(flat, mode, cfg, d)
+    return _trace(flat, tables, mode, o, d, cfg)
 
 
 #: The warning of a prim axis under use_pallas (the JAX package's,
@@ -268,32 +271,44 @@ def render_pixels(
         if uses_kernels(mode, cfg):
             warnings.warn(PRIM_AXIS_WARNING, stacklevel=2)
             cfg = dataclasses.replace(cfg, use_pallas=False)
-    flat = flatten_scene(scene)
     aa = in_kernel_aa(mode, cfg, camera.spp)
-    # chain mode: ordered by each chunk's centre rays
-    per_chunk = not aa and mode == "chain" and _culled(flat, mode, cfg)
-    tables = None if per_chunk else _tables(flat, mode, cfg)
+    with span("rte.tables"):
+        flat = flatten_scene(scene)
+        # chain mode: ordered by each chunk's centre rays
+        per_chunk = not aa and mode == "chain" and _culled(flat, mode, cfg)
+        tables = None if per_chunk else _tables(flat, mode, cfg)
     aa_trace = wavefront_spp_trace if mode == "wavefront" else spp_trace
     chunk = max(1, min(cfg.chunk_size, stop - start))
     parts = []
     for lo in range(start, stop, chunk):
         hi = min(lo + chunk, stop)
-        pid = torch.arange(lo, hi, dtype=torch.int32, device=device)
-        px, py = pid % camera.width, pid // camera.width
+        with span("rte.rays"):
+            pid = torch.arange(lo, hi, dtype=torch.int32, device=device)
+            px, py = pid % camera.width, pid // camera.width
+            if not aa:
+                o, d = camera.rays_for_pixels(px, py)  # sample 0: the centre ray
         if aa:
             parts.append(aa_trace(tables, camera, px, py, cfg, seed=seed))
             continue
         # A chunk of whole rows that starts at a row: the chain adjoint can
         # map its CTAs to pixel tiles (kernels/chain_trace.py::thread_rays).
         width = camera.width if lo % camera.width == 0 and (hi - lo) % camera.width == 0 else 0
-        o, d = camera.rays_for_pixels(px, py)  # sample 0: the centre ray
-        chunk_tables = _tables(flat, mode, cfg, d) if per_chunk else tables
+        if per_chunk:
+            with span("rte.tables"):
+                chunk_tables = _tables(flat, mode, cfg, d)
+        else:
+            chunk_tables = tables
         acc = _trace(flat, chunk_tables, mode, o, d, cfg, width, prim_group)
         for sample in range(1, camera.spp):
-            o, d = camera.rays_for_pixels(px, py, pixel_jitter(seed, pid, sample))
-            acc = acc + _trace(flat, chunk_tables, mode, o, d, cfg, width, prim_group)
-        parts.append(acc / camera.spp)
-    return torch.cat(parts)
+            with span("rte.rays"):
+                o, d = camera.rays_for_pixels(px, py, pixel_jitter(seed, pid, sample))
+            radiance = _trace(flat, chunk_tables, mode, o, d, cfg, width, prim_group)
+            with span("rte.autograd"):
+                acc = acc + radiance
+        with span("rte.autograd"):
+            parts.append(acc / camera.spp)
+    with span("rte.autograd"):
+        return torch.cat(parts)
 
 
 def render_hdr(

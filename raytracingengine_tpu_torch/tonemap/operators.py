@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytracingengine_tpu_torch.utils.profiling import spanned
+
 _F32 = lambda x: float(np.float32(x))
 
 #: Rec.709 luminance weights (RaytracingEngine.cpp:100-104).
@@ -107,6 +109,7 @@ OPERATORS = {
 }
 
 
+@spanned("rte.tonemap")
 def tonemap(hdr: torch.Tensor, operator: str = "aces") -> torch.Tensor:
     """Apply one operator (the reference's `tonemap` applies ACES,
     RaytracingEngine.cpp:165-174)."""
@@ -118,6 +121,7 @@ def tonemap_all(hdr: torch.Tensor) -> dict[str, torch.Tensor]:
     return {name: op(hdr) for name, op in OPERATORS.items()}
 
 
+@spanned("rte.tonemap")
 def to_uint8(mapped: torch.Tensor) -> torch.Tensor:
     """toColor (RaytracingEngine.cpp:113-121): clamp01, * 255, truncate."""
     return (torch.clamp(mapped, 0.0, 1.0) * 255.0).to(torch.uint8)

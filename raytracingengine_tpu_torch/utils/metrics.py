@@ -1,8 +1,8 @@
-"""Structured per-step metrics and throughput counters.
+"""Structured per-step metrics.
 
 The reference's observability is two cout lines (thread count and render
 wall-clock, RaytracingEngine.cpp:218-221, :292-299). Here: a JSON-lines
-metrics logger and rays/s accounting, used by the CLI's fit loop.
+metrics logger, used by the CLI's fit loop.
 """
 
 from __future__ import annotations
@@ -10,35 +10,6 @@ from __future__ import annotations
 import json
 import sys
 import time
-from dataclasses import dataclass
-
-
-@dataclass
-class RenderStats:
-    width: int
-    height: int
-    spp: int
-    seconds: float
-    depth: int = 10
-
-    @property
-    def primary_rays(self) -> int:
-        return self.width * self.height * self.spp
-
-    @property
-    def rays_per_s(self) -> float:
-        return self.primary_rays / max(self.seconds, 1e-12)
-
-    def as_dict(self) -> dict:
-        return {
-            "width": self.width,
-            "height": self.height,
-            "spp": self.spp,
-            "seconds": round(self.seconds, 6),
-            "primary_rays": self.primary_rays,
-            "rays_per_s": round(self.rays_per_s, 1),
-            "max_depth": self.depth,
-        }
 
 
 class MetricsLogger:

@@ -12,13 +12,44 @@ JAX package's utils/profiling.py, with the same names):
 
 On a host without a CUDA card the trace has no device events and the
 report holds the wall time only, as the JAX package's does on its CPU.
+
+The port opens a span at each host layer it crosses, `span(name)`: a
+`torch.profiler.record_function` range while a profiler records (it lands
+in the profiler's own Chrome trace as a "user_annotation" event, on the
+clock of the device events), and one shared no-op context otherwise, after
+a single read of the profiler's Python flag, which every thread sees (the
+backward's spans open on the autograd engine's worker thread). The spans,
+one family per dotted prefix:
+
+    rte.tables          scene -> flat scene -> the kernels' tables (combine,
+                        flatten_scene, pack_scene_tables, the culled packing)
+    rte.rays            pixel ids, camera rays, the AA jitter
+    rte.launch.<kernel> a kernel wrapper's whole call (kernels/): checks,
+                        buffers and the launch, or its plain version on the CPU
+    rte.autograd        the autograd Functions' bodies, the per-sample
+                        accumulation and join, a step's loss and backward()
+    rte.optimizer       a step's zero_grad and optimizer.step
+    rte.tonemap         tonemap/operators.py's tonemap and to_uint8
+
+The port opens no span around a whole frame or step: the caller's range is
+the root. So under `profile_step` the layer spans are top-level ranges:
+`host_ms` gives each layer's host ms and `module_ms` charges each kernel
+to the layer that launched it. Two kinds of range sit beside them at the
+top: an autograd Function's own range around its forward
+(`ChainTraceFused`, holding `rte.autograd` and the launch), and on the
+card, where the backward runs on the autograd engine's worker thread, the
+engine's `autograd::engine::evaluate_function: <node>` range around each
+node (`ChainTraceFusedBackward` holds the adjoint's launch; the other
+nodes are the tables' and rays' backward).
 """
 
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import dataclasses
+import functools
 import glob
 import gzip
 import json
@@ -27,6 +58,35 @@ import tempfile
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
+
+#: What `span` returns while no profiler records, one object for every span.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: the profiler range `name` while a profiler
+    records, else a shared no-op (one read of a Python flag, no allocation,
+    no call into C++)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside `span(name)`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
 
 #: Chrome-trace categories of the host ranges a kernel is charged to: the
 #: operators and the torch.profiler.record_function ranges.

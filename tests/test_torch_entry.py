@@ -53,7 +53,7 @@ from raytracingengine_tpu_torch.scenes import builders, cube_obj_text
 from raytracingengine_tpu_torch.scenes.config import load_scene_json, scene_from_dict
 from raytracingengine_tpu_torch.tonemap import aces_approx, to_uint8
 from raytracingengine_tpu_torch.utils.checks import assert_finite, checked
-from raytracingengine_tpu_torch.utils.metrics import MetricsLogger, RenderStats, fit_callback
+from raytracingengine_tpu_torch.utils.metrics import MetricsLogger, fit_callback
 
 torch.set_num_threads(2)
 
@@ -274,7 +274,7 @@ def test_cli_commands(tmp_path, capsys):
 
     logger = MetricsLogger(str(tmp_path / "metrics.jsonl"))
     fit_callback(logger)(2, 0.5)
-    logger.log("render", **RenderStats(16, 12, 2, 0.25).as_dict())
+    logger.log("render", width=16, height=12, spp=2, seconds=0.25, rays_per_s=16 * 12 * 2 / 0.25)
     logger.close()
     lines = [json.loads(x) for x in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert lines[0]["event"] == "fit_step" and lines[0]["loss"] == 0.5 and lines[1]["rays_per_s"] == 1536.0
