@@ -40,6 +40,12 @@ as render_hdr and the training steps call them:
   (--glass-culled)     the glass mesh's culled kernels alone (6,016 and
                        50,800 triangles), for timing variants of the culled
                        scan in turns
+  stress scene         BASELINE #5 as rtbench's stress64.render_4k renders
+  3840x2160            it (rtbench/configs/stress64.json, 128 slots a
+  (--stress64)         family, the traffic's four poses): chain_trace alone
+                       on the first pose's rays, render_hdr's frame of each
+                       pose with its hash, and, where the checkout has
+                       stage_extents, the staged scan's live extents
 
 It also prints ptxas' register report of the build and, for each trace
 kernel function, its SASS instruction count and opcode mix (cuobjdump): the
@@ -68,6 +74,7 @@ Run on a machine with one CUDA card:
     python3 chip_kernel_times.py --chain-grad # chain_trace and chain_grad only, no reports
     python3 chip_kernel_times.py --glass-step # the glass training step only, no reports
     python3 chip_kernel_times.py --dense-sinks # chain_grad_dense's two sinks in turns
+    python3 chip_kernel_times.py --stress64   # the stress scene's 4K frames only
     python3 chip_kernel_times.py --sphere-rows 7,8,9  # no timing: the stress
                                               # scene's sphere rows vs float64
 """
@@ -508,6 +515,41 @@ def time_dense_sinks(dev, show, time_ms, turns: int = 3) -> None:
         del scene, cam, flat, o, d, tables, g
 
 
+def time_stress64(dev, show, time_ms) -> None:
+    """The stress64.render_4k cell's scene, poses and settings, built by
+    rtbench's harness from its files: chain_trace alone on the 4K tables,
+    and each pose's render_hdr frame (ms and hash), in the order of the
+    poses' positions."""
+    from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
+    from raytracingengine_tpu_torch.kernels import chain_trace as ct
+    from raytracingengine_tpu_torch.render.pipeline import render_hdr
+    from rtbench.harness import program
+
+    config = json.loads((ROOT / "rtbench" / "configs" / "stress64.json").read_text())
+    traffic = json.loads((ROOT / "rtbench" / "traffic" / "render_4k.json").read_text())
+    w, h = traffic["width"], traffic["height"]
+    scene = program.build_scene(config["scene"], config["program"], dev)
+    cfg = program.render_config(config["program"], traffic)
+    poses = sorted(program.camera_path(config["camera"], traffic, 0),
+                   key=lambda c: tuple(c["position"]))
+    cams = [program.build_camera(p, w, h, traffic["spp"], dev) for p in poses]
+    tables = ct.pack_scene_tables(flatten_scene(scene))
+    if hasattr(ct, "stage_extents"):
+        ext = ct.stage_extents(tables)
+        live = sum(x for f, (x, _) in ext.items() if f != "lights")
+        slots = sum(n for f, (_, n) in ext.items() if f != "lights")
+        print(f"  stage_extents {ext}: primitive slots skipped {1 - live / slots:.4f}, "
+              f"light slots skipped {1 - ext['lights'][0] / ext['lights'][1]:.4f}")
+    o, d = cams[0].rays_for_pixels(*cams[0].pixel_grid())
+    o = o.contiguous()
+    show(f"chain_trace stress64 {w}x{h}", time_ms(lambda: ct.chain_trace(tables, o, d, cfg), 5),
+         ct.chain_trace(tables, o, d, cfg))
+    del o, d
+    for k, (p, cam) in enumerate(zip(poses, cams)):
+        show(f"render_hdr stress64 {w}x{h} pose {k} at {p['position']}",
+             time_ms(lambda: render_hdr(scene, cam, cfg), 3), render_hdr(scene, cam, cfg))
+
+
 def time_steps(dev, show, time_ms, loss_fn, steps) -> None:
     """Each training step of `steps` ((label, scene builder, config)) at
     1080p after an 8-step warm-up: wall time with the host running ahead
@@ -578,6 +620,8 @@ def main() -> int:
                              "build and SASS reports (for many runs in turns)")
     parser.add_argument("--dense-sinks", action="store_true",
                         help="time chain_grad_dense's shared and global sinks in turns only")
+    parser.add_argument("--stress64", action="store_true",
+                        help="time the stress64.render_4k cell's chain_trace and frames only")
     parser.add_argument("--sphere-rows", metavar="SEEDS",
                         help="no timing: the stress scene's adjoint sphere rows against float64 for "
                              "these comma-separated seeds (chip_smoke.py phase 18's check)")
@@ -638,6 +682,11 @@ def main() -> int:
         return 0
     if args.dense_sinks:
         time_dense_sinks(dev, show, time_ms)
+        print(card)
+        print(json.dumps({"ms": times, "card": card}))
+        return 0
+    if args.stress64:
+        time_stress64(dev, show, time_ms)
         print(card)
         print(json.dumps({"ms": times, "card": card}))
         return 0

@@ -44,9 +44,10 @@
 // reloading the same entries for every ray. The staged route
 // (trace_common.cuh::StagedScan) copies the tables once per CTA into shared
 // memory as 16-byte entries, so a triangle test reads three 16-byte
-// broadcast entries and a plane one, and each thread traces kChainPacket
-// neighbouring rays as one packet, so each entry loaded serves that many
-// tests. Per ray the arithmetic, the test order and the exits are the
+// broadcast entries and a plane one, its scans stop at each family's last
+// live slot (padded slots past it cost no test), and each thread traces
+// kChainPacket neighbouring rays as one packet, so each entry loaded serves
+// that many tests. Per ray the arithmetic, the test order and the exits are the
 // in-place scan's. Tables whose stage passes kStageMaxBytes take the
 // in-place scan: trace_common.cuh::trace_route chooses by size, and the
 // wrapper (kernels/chain_trace.py) names and counts the route reported.
@@ -120,6 +121,19 @@ __global__ void __launch_bounds__(rte::kCtaThreads, kChainStagedMinCtas) chain_t
   }
 }
 
+// One CTA stages the tables as the staged kernels do and writes each
+// family's live extent (rte::StagedScan::make): spheres, planes, triangles,
+// lights.
+__global__ void __launch_bounds__(rte::kCtaThreads) stage_extents_kernel(rte::Tables T,
+                                                                         int* __restrict__ out) {
+  const rte::StagedScan<1> sc = rte::StagedScan<1>::make(T);
+  if (threadIdx.x != 0) return;
+  out[0] = sc.ns;
+  out[1] = sc.np;
+  out[2] = sc.nt;
+  out[3] = sc.nl;
+}
+
 }  // namespace
 
 // The scan is rte::trace_route's (culled, staged or in place), written to
@@ -163,6 +177,24 @@ extern "C" int rte_chain_trace(
     chain_trace_kernel<rte::LinearTris><<<rte::ray_ctas(n_rays), rte::kCtaThreads, 0, s>>>(
         T, o, d, out, n_rays, max_depth, bias, min_weight);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The live extents of linear tables on the staged route, into out[4] (device
+// ints: spheres, planes, triangles, lights), for the wrapper's count of the
+// slots the staged scans skip. *route is rte::trace_route's; on another
+// route nothing is launched.
+extern "C" int rte_stage_extents(
+    const float* sph, int sph_cols, int ns, const float* pl, int pl_cols, int np,
+    const float* tri, int tri_cols, int nt, const float* mat, int mat_cols,
+    const float* light, int light_cols, int nl, int* out, int* route, void* stream) {
+  const rte::Tables T = rte::make_tables(sph, sph_cols, ns, pl, pl_cols, np, tri, tri_cols, nt,
+                                         mat, mat_cols, light, light_cols, nl);
+  const rte::Route r = rte::trace_route(T);
+  *route = r;
+  if (r != rte::kStaged) return 0;
+  stage_extents_kernel<<<1, rte::kCtaThreads, rte::stage_bytes(T),
+                         static_cast<cudaStream_t>(stream)>>>(T, out);
   return static_cast<int>(cudaGetLastError());
 }
 

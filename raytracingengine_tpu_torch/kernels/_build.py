@@ -117,6 +117,9 @@ def load_library() -> ctypes.CDLL:
         _TABLE_ARGTYPES + _CULL_ARGTYPES + [_P, _P, _P, _I, _IP, _P] + _TRACE_ARGTYPES
     )
     lib.rte_chain_trace.restype = _I
+    # out (device int32 [4]: the live extents), route (out), stream
+    lib.rte_stage_extents.argtypes = _TABLE_ARGTYPES + [_P, _IP, _P]
+    lib.rte_stage_extents.restype = _I
     # cam, px, py, out, n_pixels, width, height, spp, seed, route (out)
     lib.rte_spp_trace.argtypes = (
         _TABLE_ARGTYPES + _CULL_ARGTYPES

@@ -11,7 +11,8 @@ chain (opaque: reflectiveness = specular) to `max_depth`, pruned by
   * `pack_scene_tables` turns a FlatScene into the [rows, prims] float32
     tables both versions read. Padded slots hold primitives that can never
     hit: sphere r^2 = -1, plane n = 0, triangle e1 = e2 = 0; padded lights
-    sit at 1e7 with emission 0. An empty family is one all-zero column.
+    sit at 1e7 with emission 0 and active 0. An empty family is one
+    all-zero column.
   * `pack_forward_tables_perm` adds the culling tables above TRI_BLOCK
     triangles: the triangles reordered into spatially compact blocks of
     TRI_BLOCK (the tightest of authoring, Morton and median-split order by
@@ -38,7 +39,9 @@ chain (opaque: reflectiveness = specular) to `max_depth`, pruned by
     each thread tracing a packet of rays (neighbouring rays in
     chain_trace, samples of one pixel in spp_trace), else "in_place", one
     ray per thread reading the tables where they lie. The wrappers count
-    launches per route in `routes` (names: ROUTES).
+    launches per route in `routes` (names: ROUTES). The staged scans stop
+    each family at its last live slot, so padded slots past it cost no
+    test; `stage_extents` reads those extents back (tests, chip scripts).
   * `chain_trace(..., tape=True)` (CUDA tensors, linear tables) runs the
     route's taping kernel, which also writes each ray's bounces to the
     chain tape (csrc/trace_common.cuh::ChainTape, sized by the library) for
@@ -958,6 +961,33 @@ def chain_trace(
         chain_trace.tape_launches += 1
         return out, tp
     return out
+
+
+#: The table families in `stage_extents`' order (csrc/chain_trace.cu).
+FAMILIES = ("spheres", "planes", "triangles", "lights")
+
+
+def stage_extents(tables: SceneTables) -> dict[str, tuple[int, int]]:
+    """Each family's (live extent, slots) as the staged scans find them
+    (csrc/trace_common.cuh::StagedScan): the live extent is one past the
+    last slot that can hit (or, for lights, is active); the scans skip the
+    slots past it. CUDA tables on the staged route only; one launch of a
+    single CTA and a host sync, for tests and chip_kernel_times.py."""
+    check_tables(tables, tables.sph.device)
+    if tables.sph.device.type != "cuda":
+        raise ValueError("stage_extents: the staged scan is the CUDA kernels'; "
+                         f"got tables on {tables.sph.device}")
+    lib = _build.load_library()
+    out = torch.zeros(4, dtype=torch.int32, device=tables.sph.device)
+    route = ctypes.c_int(-1)
+    with torch.cuda.device(out.device):
+        err = lib.rte_stage_extents(*_build.table_args(tables), out.data_ptr(),
+                                    ctypes.byref(route), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "stage_extents")
+    if ROUTES[route.value] != "staged":
+        raise ValueError(f"stage_extents: these tables take the {ROUTES[route.value]} route")
+    slots = (tables.n_spheres, tables.n_planes, tables.n_triangles, tables.n_lights)
+    return {f: (int(x), n) for f, x, n in zip(FAMILIES, out.tolist(), slots)}
 
 
 def new_route_counts() -> dict[str, int]:

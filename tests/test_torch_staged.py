@@ -7,17 +7,22 @@ through the in-place scan; the entry points choose
 (csrc/trace_common.cuh::trace_route) and report the route, and the
 wrappers count it. On the CPU: a CPU tensor counts no launch on any route,
 and the plain versions' frames do not change when the tables are padded
-(padded slots never hit, their lights emit 0), which the route check on the
-card relies on. The tests marked `gpu` need a CUDA card: they hold each
-route's kernels to their plain versions under the seam budget (the head box
-at 64x48 with spp 1, 3 and 8, so that spp is not always a multiple of the
+(padded slots never hit, their lights emit 0: the head box and a 5-sphere
+stress scene, each padded to 16 slots), which the checks on the card rely
+on. The tests marked `gpu` need a CUDA card: they hold each route's
+kernels to their plain versions under the seam budget (the head box at
+64x48 with spp 1, 3 and 8, so that spp is not always a multiple of the
 packet, and at max_depth 1; baseline spheres; the stress scene with 337
 spheres, one short of the limit, and with 338, past it), check which route
 each launch took, and require the head box's staged frames to equal those
 of the head box padded past the limit (in place), and so the ray
 cotangents of the head-box adjoint, whose shadow scans take the same two
-routes (csrc/trace_common.cuh::grad_route). They skip on a host without
-one.
+routes (csrc/trace_common.cuh::grad_route). The staged scans stop at each
+family's last live slot (`stage_extents` reads the extents back): the
+stress scene padded to 128 slots per family gives the unpadded scene's
+frames bit for bit (chain_trace, taping or not, and spp_trace), and the
+head box padded to 16 slots the adjoint's ray cotangents. They skip on a
+host without one.
 """
 
 import dataclasses
@@ -29,6 +34,7 @@ import torch
 import raytracingengine_tpu_torch.kernels.chain_grad as cg
 import raytracingengine_tpu_torch.kernels.chain_trace as ct
 import raytracingengine_tpu_torch.kernels.spp_trace as st
+from raytracingengine_tpu_torch.core.camera import Camera
 from raytracingengine_tpu_torch.geometry.intersect import flatten_scene
 from raytracingengine_tpu_torch.parity import seam_budget
 from raytracingengine_tpu_torch.render.config import RenderConfig
@@ -50,6 +56,12 @@ SCENES = {
     # planes, triangles and lights padded to 16 and to 128 slots (past the limit)
     "head_box_pad16": (builders.head_box_scene, dict(pad_multiple=16), "staged"),
     "head_box_pad128": (builders.head_box_scene, dict(pad_multiple=128), "in_place"),
+    # BASELINE #5's stress scene as the benchmark runs it (128 slots a family,
+    # the largest stage) and unpadded; 5 spheres padded to 16 for the CPU
+    "stress64": (builders.stress_scene, {}, "staged"),
+    "stress64_unpadded": (builders.stress_scene, dict(pad_multiple=None), "staged"),
+    "stress_5": (builders.stress_scene, dict(n_spheres=5, pad_multiple=None), "staged"),
+    "stress_5_pad16": (builders.stress_scene, dict(n_spheres=5, pad_multiple=16), "staged"),
 }
 
 
@@ -74,15 +86,17 @@ def test_cpu_tensors_count_no_route():
     assert (ct.chain_trace.routes, st.spp_trace.routes) == routes
 
 
-def test_plain_frames_ignore_padded_slots():
-    """The head box and the head box padded to 16 slots per family give
-    equal frames through the plain versions (chain_trace's and spp_trace's
-    at spp 3, on a ragged 13x7 image, at the default depth and at
-    max_depth 1): the premise of the card's staged-vs-in-place check."""
+@pytest.mark.parametrize("scene,padded", [("head_box", "head_box_pad16"),
+                                          ("stress_5", "stress_5_pad16")])
+def test_plain_frames_ignore_padded_slots(scene, padded):
+    """A scene and the same scene padded to 16 slots per family give equal
+    frames through the plain versions (chain_trace's and spp_trace's at spp
+    3, on a ragged 13x7 image, at the default depth and at max_depth 1):
+    the premise of the card's staged-vs-in-place check and of its padded-
+    vs-unpadded checks of the live extents."""
     for cfg in (CFG, DEPTH1):
         frames = [trace_pair(tables, cam, cfg) for cam, tables in (
-            scene_tables("head_box", 13, 7, 3, "cpu"),
-            scene_tables("head_box_pad16", 13, 7, 3, "cpu"))]
+            scene_tables(scene, 13, 7, 3, "cpu"), scene_tables(padded, 13, 7, 3, "cpu"))]
         for name, a, b in zip(("chain_trace", "spp_trace"), *frames):
             assert torch.equal(a, b), (name, cfg.max_depth)
 
@@ -169,9 +183,68 @@ def cuda_routes_agree_on_padded_tables(cuda_device):
             assert torch.equal(a, b), (cot, cfg.max_depth, float((a - b).abs().max()))
 
 
+def cuda_live_extents_skip_padding(cuda_device):
+    """The stress scene padded to 128 slots per family (stage_extents: 64,
+    1, 0 and 4 live) against the unpadded one, both on the staged route:
+    chain_trace at spp 1, taping or not, and spp_trace at spp 3, at the
+    default depth and at max_depth 1, equal bit for bit on a ragged 96x54
+    image and on a 4K frame's horizon row. The head box padded to 16
+    slots: its live extents are the unpadded slot counts, and the head-box
+    adjoint's ray cotangents, whose staged shadow scans stop at them, equal
+    the unpadded head box's."""
+    ext = {name: ct.stage_extents(scene_tables(name, 8, 6, 1, cuda_device)[1])
+           for name in ("stress64", "head_box", "head_box_pad16")}
+    print(f"stage_extents: {ext}")
+    assert ext["stress64"] == {"spheres": (64, 128), "planes": (1, 128), "triangles": (0, 0),
+                               "lights": (4, 128)}, ext["stress64"]
+    assert all(live == slots for live, slots in ext["head_box"].values()), ext["head_box"]
+    assert {f: live for f, (live, _) in ext["head_box_pad16"].items()} == \
+        {f: slots for f, (_, slots) in ext["head_box"].items()}, ext
+    # The 4K frame's horizon row from one of the benchmark's poses: floor
+    # points ~44,000 away, whose shadow rays pass the padded spheres' centre
+    # where r^2 = -1 is lost to rounding, so that a scan of every slot takes
+    # them as blockers (7 of these rays); the live extents leave them lit.
+    cam = Camera.create((0.7492647558910754, 1.3540495315269423, -25.91139156842343),
+                        focal=1920.0, width=3840, height=2160, near=0.0, far=200.0, spp=1,
+                        device=cuda_device)
+    px = torch.arange(3840, dtype=torch.int32, device=cuda_device)
+    o, d = cam.rays_for_pixels(px, torch.full_like(px, 1079))
+    horizon = [ct.chain_trace(scene_tables(name, 8, 6, 1, cuda_device)[1], o.contiguous(), d, CFG)
+               for name in ("stress64", "stress64_unpadded")]
+    assert torch.equal(*horizon), int((horizon[0] != horizon[1]).any(dim=1).sum())
+    for cfg in (CFG, DEPTH1):
+        for spp in (1, 3):
+            padded, _ = run_route("stress64", spp, cuda_device, cfg, 96, 54, plain=False)
+            unpadded, _ = run_route("stress64_unpadded", spp, cuda_device, cfg, 96, 54, plain=False)
+            assert torch.equal(padded, unpadded), (spp, cfg.max_depth)
+            if spp == 1:
+                for name in ("stress64", "stress64_unpadded"):
+                    cam, tables = scene_tables(name, 96, 54, 1, cuda_device)
+                    o, d = cam.rays_for_pixels(*cam.pixel_grid())
+                    img, _ = ct.chain_trace(tables, o.contiguous(), d, cfg, tape=True)
+                    assert torch.equal(img, padded), (name, cfg.max_depth)
+        g = None
+        cots = {}
+        for name in ("head_box", "head_box_pad16"):
+            cam, tables = scene_tables(name, 37, 11, 1, cuda_device)
+            o, d = cam.rays_for_pixels(*cam.pixel_grid())
+            o = o.contiguous()
+            img, tape = ct.chain_trace(tables, o, d, cfg, tape=True)
+            if g is None:
+                g = (2.0 * img / img.numel()).contiguous()
+            before = cg.chain_grad.routes["staged"]
+            cots[name] = cg.chain_grad(tables, o, d, g, cfg, width=37, tape=tape)
+            assert cg.chain_grad.routes["staged"] == before + 1, (name, cg.chain_grad.routes)
+        torch.cuda.synchronize()
+        for i, cot in ((1, "d_o"), (2, "d_d")):
+            a, b = cots["head_box"][i], cots["head_box_pad16"][i]
+            assert torch.equal(a, b), (cot, cfg.max_depth, float((a - b).abs().max()))
+
+
 @pytest.mark.gpu
 def test_cuda_routes_match_plain(cuda_device):
     """Every check of this file on the card, one after another: one test item,
     since off the card it skips (chip_smoke.py covers each on the main paths' shapes)."""
     cuda_route_matches_plain(cuda_device)
     cuda_routes_agree_on_padded_tables(cuda_device)
+    cuda_live_extents_skip_padding(cuda_device)
