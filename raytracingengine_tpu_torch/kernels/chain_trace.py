@@ -18,7 +18,10 @@ chain (opaque: reflectiveness = specular) to `max_depth`, pruned by
     TRI_BLOCK (the tightest of authoring, Morton and median-split order by
     summed block surface area), one AABB per block and per group of
     TRI_GROUP blocks, optionally ordered front to back along the mean ray
-    direction, and row 12 = each triangle's original global index.
+    direction, and row 12 = each triangle's original global index. The
+    order and block boxes of the last mesh packed are kept with the bits of
+    its geometry (`_culled_order`), so the frames of an unchanged mesh
+    skip the candidate orders.
   * `trace_chain_plain` is the plain PyTorch version, vectorised over rays
     with Python loops over primitives, lights and depth. On culled tables
     it scans the packed triangles by runs of whole blocks of TRI_BLOCK
@@ -348,6 +351,42 @@ def _block_sa_sum(taabb: torch.Tensor) -> torch.Tensor:
     return (2.0 * (e[0] * e[1] + e[1] * e[2] + e[0] * e[2])).sum()
 
 
+#: The last geometry `_culled_order` ordered: (its key, order, block boxes).
+_LAST_ORDER: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _geometry_key(flat: FlatScene) -> torch.Tensor:
+    """The bits of everything the culled order reads: each triangle's v0,
+    e1, e2 and active flag."""
+    v = torch.cat([flat.tri_v0.detach(), flat.tri_e1.detach(), flat.tri_e2.detach()], 1)
+    bits = v.view(_BITS[v.element_size()])
+    return torch.cat([bits, flat.tri_active[:, None].to(bits.dtype)], 1)
+
+
+def _culled_order(flat: FlatScene) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the triangle order of least summed block surface area among
+    authoring, Morton and median-split order, its block boxes
+    [6, ceil(nt / TRI_BLOCK)]). The last result is kept with the bits of
+    its geometry: frames of an unchanged mesh take it back after one
+    comparison instead of the candidates' few hundred small operators."""
+    key = _geometry_key(flat)
+    if _LAST_ORDER:
+        k, order0, taabb = _LAST_ORDER[0]
+        if k.shape == key.shape and k.dtype == key.dtype and k.device == key.device \
+                and torch.equal(k, key):
+            return order0, taabb
+    cands = torch.stack([
+        torch.arange(flat.n_triangles, device=key.device), triangle_morton_perm(flat),
+        triangle_split_perm(flat),
+    ])
+    aabbs = torch.stack([pack_tri_aabbs(flat, perm=p) for p in cands])
+    best = torch.argmin(torch.stack([_block_sa_sum(a) for a in aabbs]))
+    order0, taabb = cands[best], aabbs[best]
+    _LAST_ORDER[:] = [(key, order0, taabb)]
+    return order0, taabb
+
+
 def pack_forward_tables_perm(flat: FlatScene, dmean: torch.Tensor | None = None) -> SceneTables:
     """FlatScene -> the culled tables of the forward kernels and the dense
     adjoint (`SceneTables` with tri [13, NT_pad], taabb and perm); at most
@@ -375,12 +414,7 @@ def pack_forward_tables_perm(flat: FlatScene, dmean: torch.Tensor | None = None)
         )
     dev = tables.tri.device
     with torch.no_grad():
-        cands = torch.stack([
-            torch.arange(nt, device=dev), triangle_morton_perm(flat), triangle_split_perm(flat),
-        ])
-        aabbs = torch.stack([pack_tri_aabbs(flat, perm=p) for p in cands])
-        best = torch.argmin(torch.stack([_block_sa_sum(a) for a in aabbs]))
-        order0, taabb = cands[best], aabbs[best]
+        order0, taabb = _culled_order(flat)
         n_blocks = n_culling_blocks(nt)
         taabb = F.pad(taabb, (0, n_blocks - taabb.shape[1]), value=_FAR)
         pad = n_blocks * TRI_BLOCK - nt

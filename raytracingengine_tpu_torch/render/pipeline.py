@@ -37,7 +37,9 @@ centre rays' mean direction, and reuses them for every sample; the
 in-kernel AA takes them in no particular order, as the JAX package's spp
 kernel does. In wavefront mode they are packed once per frame in no
 particular order, as the JAX package's glass kernels take them: a glass
-tree sends rays every way. A glass training step forwards on them and
+tree sends rays every way. The triangle order and block boxes of an
+unchanged mesh are kept from its last packing
+(kernels/chain_trace.py::_culled_order). A glass training step forwards on them and
 differentiates the linear tables they were packed from
 (kernels/wavefront_grad.py::wavefront_trace_fused); past MAX_PRIMS
 primitives `WavefrontReplay` forwards on them.
@@ -141,7 +143,8 @@ def _tables(flat: FlatScene, mode: str, cfg: RenderConfig, d=None) -> SceneTable
         return None
     if _culled(flat, mode, cfg):
         dmean = None if d is None or mode != "chain" else mean_direction(d)
-        return pack_forward_tables_perm(flat, dmean)
+        with span("rte.cull"):
+            return pack_forward_tables_perm(flat, dmean)
     return pack_scene_tables(flat)
 
 

@@ -23,6 +23,8 @@ one family per dotted prefix:
 
     rte.tables          scene -> flat scene -> the kernels' tables (combine,
                         flatten_scene, pack_scene_tables, the culled packing)
+    rte.cull            inside rte.tables: the culled packing alone
+                        (pack_forward_tables_perm's sort, blocks and boxes)
     rte.rays            pixel ids, camera rays, the AA jitter
     rte.launch.<kernel> a kernel wrapper's whole call (kernels/): checks,
                         buffers and the launch, or its plain version on the CPU

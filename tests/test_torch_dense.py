@@ -217,10 +217,13 @@ def test_pack_forward_tables_perm_matches_jax(name, with_dmean):
     torch.testing.assert_close(g, g_ref, rtol=0, atol=0)
 
 
-def test_culled_forward_equals_authoring_order_and_jax():
+def test_culled_forward_equals_authoring_order_and_jax(monkeypatch):
     """trace_chain_plain on the culled tables equals it on the authoring-
     order tables exactly; both against JAX integrate_chain (jitted) under
-    the seam budget. The scrambled mesh at 8x8, max_depth 3."""
+    the seam budget. The scrambled mesh at 8x8, max_depth 3. The culled
+    order of an unchanged mesh is taken back without the candidate
+    orders; a moved vertex or a switched-off triangle orders the mesh
+    anew, to the tables a fresh packing gives."""
     (j_scene, j_cam), (t_scene, t_cam) = build_pair("dense_scrambled")
     o, d = t_cam.rays_for_pixels(*t_cam.pixel_grid())
     cfg = RenderConfig(shadow_mode="binary", max_depth=3, use_pallas=True)
@@ -242,6 +245,27 @@ def test_culled_forward_equals_authoring_order_and_jax():
     a = st.spp_trace(ct.pack_forward_tables_perm(flat2), cam2, px, py, cfg, seed=5)
     b = st.spp_trace_plain(ct.pack_scene_tables(flat2), cam2, px, py, cfg, seed=5)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # the kept order: none of the candidates for the same bits, all of them
+    # for changed ones
+    def fields(t):
+        return (*t.tensors(), t.taabb, t.perm)
+
+    monkeypatch.setattr(ct, "_LAST_ORDER", [])
+    fresh = ct.pack_forward_tables_perm(flat2)
+    splits = []
+    split = ct.triangle_split_perm
+    monkeypatch.setattr(ct, "triangle_split_perm", lambda f: splits.append(1) or split(f))
+    again = ct.pack_forward_tables_perm(dataclasses.replace(flat2, tri_v0=flat2.tri_v0.clone()))
+    assert not splits and all(map(torch.equal, fields(fresh), fields(again)))
+    moved = flat2.tri_v0.clone()
+    moved[5] += torch.tensor([0.0, 0.0, 1e-6])
+    off = flat2.tri_active.clone()
+    off[7] = False
+    for changed in (dataclasses.replace(flat2, tri_v0=moved), dataclasses.replace(flat2, tri_active=off)):
+        kept = ct.pack_forward_tables_perm(changed)
+        monkeypatch.setattr(ct, "_LAST_ORDER", [])
+        assert all(map(torch.equal, fields(kept), fields(ct.pack_forward_tables_perm(changed))))
+    assert len(splits) == 4
 
 
 def adjoint_inputs(scene, cam, cfg):

@@ -3,9 +3,12 @@ span) on the CPU: a training step and a frame (render_hdr -> tonemap ->
 to_uint8) of the head box through the kernels' route (`use_pallas`, binary
 shadows: the wrappers and ChainTraceFused, their plain versions here) open
 the layer spans under a profiler, one `rte.launch.<kernel>` per wrapper
-call; with no profiler recording they enter no profiler range at all; and
-`profile_step` reads a step's host ms by layer."""
+call; a glass frame past 128 triangles opens `rte.cull` around the culled
+packing once, inside `rte.tables`; with no profiler recording they enter
+no profiler range at all; and `profile_step` reads a step's host ms by
+layer."""
 
+import dataclasses
 import json
 import re
 
@@ -15,15 +18,16 @@ import torch
 from raytracingengine_tpu_torch.inverse import make_train_step, partition
 from raytracingengine_tpu_torch.render.config import RenderConfig
 from raytracingengine_tpu_torch.render.pipeline import render_hdr
-from raytracingengine_tpu_torch.scenes import head_box_scene
+from raytracingengine_tpu_torch.scenes import dense_mesh_scene, glass_sphere_scene, head_box_scene
 from raytracingengine_tpu_torch.tonemap import to_uint8, tonemap
 from raytracingengine_tpu_torch.utils import profiling
+from rtbench.harness import spans
 
 torch.set_num_threads(2)
 
 W, H = 16, 12
 #: The span families; a name is "rte.<family>", or "rte.launch.<kernel>".
-FAMILIES = ("tables", "rays", "launch", "autograd", "optimizer", "tonemap")
+FAMILIES = ("tables", "cull", "rays", "launch", "autograd", "optimizer", "tonemap")
 NAME = {f: re.compile(rf"^rte\.{f}\.\w+$" if f == "launch" else rf"^rte\.{f}$") for f in FAMILIES}
 
 
@@ -45,6 +49,26 @@ def _workload(spp: int):
             return to_uint8(tonemap(render_hdr(scene, cam, cfg, seed=5)))
 
     return step, frame
+
+
+def _glass_mesh_frame():
+    """-> a frame of the glass sphere scene with dense_mesh_scene's bumpy
+    mesh at 3 x 33 (132 triangles: the culled tables) made transparent
+    (0.7, ior 1.3), through the kernels' route with march shadows."""
+    glass, cam = glass_sphere_scene(width=8, height=8, device="cpu")
+    mesh = dense_mesh_scene(width=8, height=8, ni=3, nj=33, device="cpu")[0].triangles
+    m = mesh.materials
+    mats = dataclasses.replace(m, transparency=torch.full_like(m.transparency, 0.7),
+                               refractive_index=torch.full_like(m.refractive_index, 1.3))
+    scene = dataclasses.replace(glass, triangles=dataclasses.replace(mesh, materials=mats))
+    assert len(scene.triangles) == 132
+    cfg = RenderConfig(use_pallas=True, chunk_size=64, max_depth=3)
+
+    def frame():
+        with torch.no_grad():
+            return render_hdr(scene, cam, cfg, seed=5)
+
+    return frame
 
 
 def _user_ranges(prof, tmp_path) -> list[dict]:
@@ -85,6 +109,20 @@ def test_spans_name_each_layer(tmp_path, spp):
     # the frame's (no gradients) straight from the pipeline
     assert all(any(encloses(g, x) for g in glue) for x in launches[:spp])
     assert not any(encloses(g, x) for g in glue for x in launches[spp:])
+    # the head box packs no culled tables; a glass frame past 128 triangles
+    # packs them once, inside the tables' span (here `spp` frames)
+    assert "rte.cull" not in names
+    glass = _glass_mesh_frame()
+    glass()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(spp):
+            glass()
+    ranges = _user_ranges(prof, tmp_path)
+    culls = [e for e in ranges if e["name"] == "rte.cull"]
+    tables = [e for e in ranges if e["name"] == "rte.tables"]
+    assert len(culls) == spp
+    assert all(any(encloses(t, c) for t in tables) for c in culls)
+    assert spans.family("rte.cull") == "cull"
 
 
 def test_no_range_without_a_profiler(monkeypatch):
@@ -98,6 +136,7 @@ def test_no_range_without_a_profiler(monkeypatch):
     monkeypatch.setattr(profiling, "record_function", counting)
     step()
     frame()
+    _glass_mesh_frame()()  # the culled packing's span too
     assert entered == []
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         step()
@@ -106,6 +145,7 @@ def test_no_range_without_a_profiler(monkeypatch):
 
 def test_span_is_shared_noop_when_off():
     assert profiling.span("rte.tables") is profiling.span("rte.rays")
+    assert profiling.span("rte.cull") is profiling.span("rte.tables")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         on = profiling.span("rte.tables")
     assert isinstance(on, torch.profiler.record_function)
@@ -119,3 +159,4 @@ def test_profile_step_host_ms_by_layer(tmp_path):
     # (the launches run inside the autograd spans)
     assert {"rte.tables", "rte.rays", "rte.autograd", "rte.optimizer"} <= layers
     assert all(rep.host_ms[k] > 0.0 for k in layers)
+
